@@ -1,0 +1,67 @@
+"""Build and load the package's CUDA kernels.
+
+Each kernel source in `csrc/` is compiled at first use with `nvcc` for
+`sm_90a` into a shared library with a plain C interface, and loaded with
+`ctypes`. The library goes to `kernels/build/` inside the package, named by
+a hash of its source and flags, so an edited source is rebuilt and an
+unchanged one is not. Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["load_library", "build_log"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(var)
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _BUILD / f"lib{name}_{digest}.so"
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile `csrc/<name>.cu` if its library is missing, then load it."""
+    lib = _lib_path(name)
+    if not lib.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".tmp{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)
+    return ctypes.CDLL(str(lib))
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (`-Xptxas -v`: registers, shared memory,
+    spills) from the build of `csrc/<name>.cu`, or '' if it was not built."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""

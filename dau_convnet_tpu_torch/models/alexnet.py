@@ -1,0 +1,95 @@
+"""AlexNet-DAU in PyTorch: AlexNet with DAU conv2-conv5.
+
+Counterpart of `dau_convnet_tpu/models/alexnet.py`. conv1 is a standard
+11x11 stride-4 VALID convolution, conv2-conv5 are `DAUConv2d` layers, the
+max-pools are 3/2 VALID, the flatten is in NCHW order and fc6-fc8 are dense
+layers. As in flax, conv1 and the dense layers keep their parameters in f32
+and cast them to `dtype` per call; the DAU layers create theirs in `dtype`.
+"""
+
+from __future__ import annotations
+
+import math
+import typing as tp
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..nn.layers import DAUConv2d
+
+__all__ = ["AlexNetDAU", "ALEXNET_DAU_VARIANTS"]
+
+# variant name -> dau_units per layer (G = prod(units))
+ALEXNET_DAU_VARIANTS = {
+    "small": (1, 1),
+    "default": (2, 1),
+    "large": (2, 2),
+}
+
+_DAU_LAYERS = (("dau_conv2", 96, 256, True),
+               ("dau_conv3", 256, 384, False),
+               ("dau_conv4", 384, 384, False),
+               ("dau_conv5", 384, 256, True))
+
+
+def _max_pool_nchw(x, window=3, stride=2):
+    return F.max_pool2d(x, window, stride)
+
+
+def _pooled(size: int) -> int:
+    return (size - 3) // 2 + 1
+
+
+class _Affine(nn.Module):
+    """f32 weight + bias of a conv or dense layer, drawn from `generator`
+    with the lecun-normal scale 1/sqrt(fan_in)."""
+
+    def __init__(self, shape, fan_in, device, generator):
+        super().__init__()
+        gen_device = generator.device if generator is not None else device
+        w = torch.randn(shape, generator=generator, device=gen_device) / math.sqrt(fan_in)
+        self.weight = nn.Parameter(w.to(device))
+        self.bias = nn.Parameter(torch.zeros(shape[0], device=device))
+
+
+class AlexNetDAU(nn.Module):
+    """AlexNet with DAU conv2-conv5. Input NCHW (N, 3, image_size, image_size);
+    `image_size` fixes fc6's width (227 -> 256*6*6)."""
+
+    def __init__(self, num_classes: int = 1000, variant: str = "default",
+                 max_kernel_size: int = 9,
+                 static_max_offset: tp.Optional[float] = None,
+                 engine: str = "auto", dtype: torch.dtype = torch.float32,
+                 image_size: int = 227, device=None,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        units = ALEXNET_DAU_VARIANTS[variant]
+        self.conv1 = _Affine((96, 3, 11, 11), 3 * 11 * 11, device, generator)
+        for name, s, f, _ in _DAU_LAYERS:
+            setattr(self, name, DAUConv2d(
+                s, f, units, max_kernel_size, static_max_offset=static_max_offset,
+                engine=engine, activation=F.relu, dtype=dtype, device=device,
+                generator=generator))
+        side = _pooled(_pooled(_pooled((image_size - 11) // 4 + 1)))
+        fc_in = 256 * side * side
+        self.fc6 = _Affine((4096, fc_in), fc_in, device, generator)
+        self.fc7 = _Affine((4096, 4096), 4096, device, generator)
+        self.fc8 = _Affine((num_classes, 4096), 4096, device, generator)
+
+    def _dense(self, layer: _Affine, x):
+        return F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
+
+    def forward(self, x):
+        dt = self.dtype
+        x = F.conv2d(x.to(dt), self.conv1.weight.to(dt), self.conv1.bias.to(dt), stride=4)
+        x = _max_pool_nchw(F.relu(x))
+        for name, _, _, pool in _DAU_LAYERS:
+            x = getattr(self, name)(x)
+            if pool:
+                x = _max_pool_nchw(x)
+        x = x.reshape(x.shape[0], -1)
+        x = F.relu(self._dense(self.fc6, x))
+        x = F.relu(self._dense(self.fc7, x))
+        return self._dense(self.fc8, x)

@@ -1,0 +1,109 @@
+"""Gaussian blur filters and the depthwise blur, in PyTorch.
+
+Counterpart of `dau_convnet_tpu/ops/gaussian.py`: the layer-shared Gaussian
+blur filter, its three analytic derivative filters with the quotient-rule
+normalisation corrections, and the zero-padded depthwise blur. Semantics
+(grid, normalisation modes, 1e-10 clip) are those of the JAX module.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["blur_kernel_size", "gaussian_filters", "depthwise_blur"]
+
+
+def blur_kernel_size(sigma: float, min_size: int = 9) -> int:
+    """Static blur-filter size, rule 2*ceil(5*sigma)+1 with a floor of
+    `min_size` (9 keeps the numpy oracle's fixed 9x9 grid for small sigma)."""
+    size = 2 * int(math.ceil(5.0 * float(sigma))) + 1
+    size = max(size, min_size)
+    if size > 33:
+        raise ValueError(
+            f"sigma={sigma} requires a {size}x{size} blur filter; max supported is 33x33"
+        )
+    return size
+
+
+def gaussian_filters(
+    sigma,
+    size: int = 9,
+    *,
+    single_dim_kernel: bool = False,
+    forbid_positive_dim1: bool = False,
+    unit_normalization: bool = True,
+    square_unit_normalization: bool = False,
+    dtype=torch.float32,
+    device=None,
+):
+    """The blur filter and its derivative filters, each (size, size).
+
+    Returns a dict with keys ``w`` (normalised blur filter), ``dmu1``,
+    ``dmu2``, ``dsigma`` (quotient-rule-corrected derivative filters) and
+    ``error`` (the blur filter rotated by 180 degrees). Rows are the y axis,
+    columns the x axis; the grid is centred at size//2.
+    """
+    if isinstance(sigma, torch.Tensor):
+        device = sigma.device if device is None else device
+        sigma = sigma.to(device=device, dtype=dtype).reshape(())
+    else:
+        sigma = torch.tensor(float(sigma), dtype=dtype, device=device)
+    c = size // 2
+    ax = torch.arange(size, dtype=dtype, device=device) - c
+    x = ax[None, :].expand(size, size)  # columns
+    y = ax[:, None].expand(size, size)  # rows
+    r2 = x * x + y * y
+
+    sigma2_inv = 1.0 / (sigma * sigma)
+    g = torch.exp(-r2 * (0.5 * sigma2_inv))
+
+    zero = torch.zeros((), dtype=dtype, device=device)
+    if single_dim_kernel:
+        g = torch.where(y == 0, g, zero)
+    if forbid_positive_dim1:
+        g = torch.where(x > 0, zero, g)
+
+    d_mu1 = x * sigma2_inv * g
+    d_mu2 = y * sigma2_inv * g
+    d_sigma = r2 * (sigma2_inv / sigma) * g
+
+    # unit: f = g/sum(g); square: f = g/sum(g^2), corrections 2*sum(g*dm);
+    # none: f = g, no correction
+    if square_unit_normalization:
+        z = torch.sum(g * g)
+        s1 = 2.0 * torch.sum(g * d_mu1) / z
+        s2 = 2.0 * torch.sum(g * d_mu2) / z
+        ss = 2.0 * torch.sum(g * d_sigma) / z
+    elif unit_normalization:
+        z = torch.sum(g)
+        s1 = torch.sum(d_mu1) / z
+        s2 = torch.sum(d_mu2) / z
+        ss = torch.sum(d_sigma) / z
+    else:
+        z = torch.ones((), dtype=dtype, device=device)
+        s1 = s2 = ss = zero
+
+    # tiny mu sums are zeroed (the reference's clip_eps(1e-10))
+    s1 = torch.where(torch.abs(s1) > 1e-10, s1, zero)
+    s2 = torch.where(torch.abs(s2) > 1e-10, s2, zero)
+
+    g_n = g / z
+    return {
+        "w": g_n,
+        "dmu1": d_mu1 / z - g_n * s1,
+        "dmu2": d_mu2 / z - g_n * s2,
+        "dsigma": d_sigma / z - g_n * ss,
+        "error": torch.flip(g_n, dims=(0, 1)),
+    }
+
+
+def depthwise_blur(x: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+    """Correlate every (n, channel) plane of NCHW ``x`` with the (kh, kw)
+    filter ``filt`` under zero padding kh//2, kw//2 -> (N, C, H, W)."""
+    chan = x.shape[1]
+    kh, kw = filt.shape
+    rhs = filt.to(x.dtype).expand(chan, 1, kh, kw)
+    return F.conv2d(x, rhs, padding=(kh // 2, kw // 2), groups=chan)

@@ -1,0 +1,97 @@
+"""Dense engine: DAU aggregation as kernel synthesis + dense correlation.
+
+Counterpart of `dau_convnet_tpu/ops/xla_engine.py`. The aggregation
+
+    y[n,f] = sum_{s,g} w[s,g,f] * bilinear_shift(x_blur[n,s], mu1, mu2)
+
+is a dense cross-correlation with a synthesized kernel
+
+    K[s,f,ky,kx] = sum_g w[s,g,f] * ty[s,g,f,ky] * tx[s,g,f,kx]
+
+where ty/tx are the one-hot bilinear tap vectors (mu1 is x / columns, mu2 is
+y / rows). `synthesize_kernel` accumulates in w's dtype with positions in
+mu1's dtype, exactly as the JAX engine does, so a bf16 model rounds where
+the JAX one rounds.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["tap_vectors", "synthesize_kernel", "aggregate_forward"]
+
+
+def tap_vectors(mu1, mu2, ks: int, use_interpolation: bool):
+    """One-hot bilinear tap vectors along the kernel x / y axes.
+
+    mu1, mu2: (S, G, F) displacements (x and y). Returns (ty, tx), each
+    (S, G, F, ks), such that sum_{ky,kx} ty[...,ky] * tx[...,kx] *
+    x(i+ky-c, j+kx-c) is the bilinear read of x at (i + mu2, j + mu1).
+    """
+    c = ks // 2
+    dtype = mu1.dtype
+    f1 = torch.floor(mu1)
+    f2 = torch.floor(mu2)
+    if use_interpolation:
+        a1 = mu1 - f1
+        a2 = mu2 - f2
+    else:
+        a1 = torch.zeros_like(mu1)
+        a2 = torch.zeros_like(mu2)
+    pos = torch.arange(ks, dtype=dtype, device=mu1.device)
+    t1 = c + f1[..., None]
+    t2 = c + f2[..., None]
+    tx = (1.0 - a1)[..., None] * (pos == t1) + a1[..., None] * (pos == t1 + 1.0)
+    ty = (1.0 - a2)[..., None] * (pos == t2) + a2[..., None] * (pos == t2 + 1.0)
+    return ty.to(dtype), tx.to(dtype)
+
+
+def _flat_taps(mu1, mu2, ks: int, use_interpolation: bool):
+    """(weight, flat target position) of each unit's taps: up to 4 pairs,
+    each shaped like mu1; positions index the flattened ks*ks grid and are
+    exact small integers in mu1's dtype."""
+    c = ks // 2
+    f1 = torch.floor(mu1)
+    f2 = torch.floor(mu2)
+    if use_interpolation:
+        a1 = mu1 - f1
+        a2 = mu2 - f2
+        deltas = ((0, 0), (0, 1), (1, 0), (1, 1))
+    else:
+        a1 = torch.zeros_like(mu1)
+        a2 = torch.zeros_like(mu2)
+        deltas = ((0, 0),)
+    base = (c + f2) * ks + (c + f1)
+    out = []
+    for dy, dx in deltas:
+        wx = a1 if dx else 1.0 - a1
+        wy = a2 if dy else 1.0 - a2
+        out.append((wx * wy, base + (dy * ks + dx)))
+    return out
+
+
+def synthesize_kernel(w, mu1, mu2, ks: int, use_interpolation: bool = True):
+    """K[s,f,ky,kx] = sum_g w[s,g,f] * bilinear-tap one-hot at (mu2, mu1).
+
+    w, mu1, mu2: (S, G, F). Returns (S, F, ks, ks) in w's dtype.
+    """
+    s, g, f = w.shape
+    p = torch.arange(ks * ks, dtype=mu1.dtype, device=mu1.device)
+    kern = torch.zeros((s, f, ks * ks), dtype=w.dtype, device=w.device)
+    for iw, tgt in _flat_taps(mu1, mu2, ks, use_interpolation):
+        contrib = (w * iw)[..., None] * (p == tgt[..., None])
+        kern = kern + torch.sum(contrib.to(w.dtype), dim=1)
+    return kern.reshape(s, f, ks, ks)
+
+
+def aggregate_forward(x_blur, w, mu1, mu2, ks: int,
+                      use_interpolation: bool = True):
+    """Offset-and-sum over the (s, g) units as one dense correlation.
+
+    x_blur: (N, S, H, W) pre-blurred input; w, mu1, mu2: (S, G, F) with w
+    already masked for dummy units. Returns (N, F, H, W).
+    """
+    kern = synthesize_kernel(w, mu1, mu2, ks, use_interpolation)
+    rhs = kern.transpose(0, 1)  # OIHW = (F, S, ks, ks)
+    return F.conv2d(x_blur, rhs.to(x_blur.dtype), padding=ks // 2)
