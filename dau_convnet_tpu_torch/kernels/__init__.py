@@ -1,3 +1,6 @@
-from .forward import dau_forward_fused, dau_forward_fused_plain
+from .backward import grad_tables, grad_tables_plain
+from .forward import (aggregate_forward, aggregate_forward_plain, dau_forward_fused,
+                      dau_forward_fused_plain)
 
-__all__ = ["dau_forward_fused", "dau_forward_fused_plain"]
+__all__ = ["dau_forward_fused", "dau_forward_fused_plain", "aggregate_forward",
+           "aggregate_forward_plain", "grad_tables", "grad_tables_plain"]

@@ -3,12 +3,14 @@
 Each kernel source in `csrc/` is compiled at first use with `nvcc` for
 `sm_90a` into a shared library with a plain C interface, and loaded with
 `ctypes`. The library goes to `kernels/build/` inside the package, named by
-a hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is not. Nothing here runs at import.
+a hash of its source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source is rebuilt and an unchanged one is not. `build` compiles
+several sources at once, one `nvcc` each. Nothing here runs at import.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -16,7 +18,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "build_log"]
+__all__ = ["load_library", "build", "build_log"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "build"
@@ -40,6 +42,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return _BUILD / f"lib{name}_{digest}.so"
 
@@ -58,6 +61,15 @@ def load_library(name: str) -> ctypes.CDLL:
         lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
     return ctypes.CDLL(str(lib))
+
+
+def build(names) -> None:
+    """Compile the libraries of several sources at once, one `nvcc` process
+    each; raises the first build's error."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for fut in [pool.submit(load_library, name) for name in names]:
+            fut.result()
 
 
 def build_log(name: str) -> str:

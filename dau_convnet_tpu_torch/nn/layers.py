@@ -103,8 +103,16 @@ def _rounded_units(dau_units: tp.Tuple[int, int]):
     return units, num_all, num_ignore
 
 
+def _clip(v, lo: float, hi: float):
+    """`jnp.clip` with its gradient: 1 inside, 1/2 at a value exactly on a
+    bound, 0 outside (`torch.clamp` passes all of it at the bound). The
+    bounds are rounded to v's dtype, as JAX rounds its weakly typed ones,
+    and filled on v's device (no host copy, so no stream sync)."""
+    return torch.minimum(torch.maximum(v, v.new_full((), lo)), v.new_full((), hi))
+
+
 class DAUConv2d(nn.Module):
-    """Displaced Aggregation Unit 2D convolution layer (forward only).
+    """Displaced Aggregation Unit 2D convolution layer.
 
     Input is NCHW for data_format='channels_first', NHWC for
     'channels_last'. Parameters are created in `dtype` on `device`; weights
@@ -195,8 +203,7 @@ class DAUConv2d(nn.Module):
         if not self.dau_sigma_trainable:
             sigma = sigma.detach()
         else:
-            sigma = torch.clamp(sigma, DAUConvSettings.sigma_lower_bound,
-                                self._sigma_cap())
+            sigma = _clip(sigma, DAUConvSettings.sigma_lower_bound, self._sigma_cap())
         mu1, mu2 = self.mu1, self.mu2
         if self.dau_unit_single_dim:
             mu2 = torch.zeros_like(mu2)
@@ -206,8 +213,8 @@ class DAUConv2d(nn.Module):
         bound = math.floor(self.max_kernel_size / 2.0) - self.dau_unit_border_bound
         if self.static_max_offset is not None:
             bound = min(bound, self.static_max_offset)
-        mu1 = torch.clamp(mu1, -bound, bound)
-        mu2 = torch.clamp(mu2, -bound, bound)
+        mu1 = _clip(mu1, -bound, bound)
+        mu2 = _clip(mu2, -bound, bound)
 
         sigma_tiled = sigma.reshape(1, 1, 1, 1).expand(self.weights.shape)
         out = dau_conv2d_op(self.cfg, x, self.weights, mu1, mu2, sigma_tiled)

@@ -1,12 +1,14 @@
 """The DAU convolution primitive, `dau_conv2d_op`, in PyTorch.
 
 Counterpart of `dau_convnet_tpu/ops/dau_conv.py`: the same settings, the
-same parameter preparation (dummy-unit mask, sigma clip, filter build) and
-the same forward chain. The engines ported so far are 'xla' (depthwise blur
-+ dense aggregation) and 'pallas_fused' (the fused CUDA kernel). 'fourier'
-(also what 'auto' picks at precision='default') and 'pallas' raise
-NotImplementedError until their ROADMAP steps land; they never fall back to
-another engine. The backward (training) is not ported yet either.
+same parameter preparation (dummy-unit mask, sigma clip, filter build), the
+same forward chain and the same analytic backward (`_bwd_rule`), for the
+engines ported so far: 'xla' (depthwise blur + dense aggregation),
+'pallas' (depthwise blur + the aggregation kernel K4) and 'pallas_fused'
+(the fused blur + aggregation kernel K5); both Pallas engines take their
+unit gradients from the grad-table kernel K6. 'fourier' (also what 'auto'
+picks at precision='default') raises NotImplementedError until its ROADMAP
+step lands; it never falls back to another engine.
 """
 
 from __future__ import annotations
@@ -17,24 +19,22 @@ import typing as tp
 
 import torch
 
+from ..utils.math import clip_nan
 from . import xla_engine
+from ._edge import disabled_edges
 from .gaussian import depthwise_blur, gaussian_filters
 
-__all__ = ["DAUConvSettings", "dau_conv2d_op", "dau_conv2d_infer"]
+__all__ = ["DAUConvSettings", "dau_conv2d_op", "dau_conv2d_infer", "edge_gradient_mask"]
 
-_TODO = {
-    "fourier": "ROADMAP.md 'Still to port', step 1 (Fourier forward)",
-    "pallas": "ROADMAP.md 'Still to port', step 3 (K4 and K6)",
-    "backward": "ROADMAP.md 'Still to port', step 2 (the training step)",
-}
+_FOURIER_TODO = "ROADMAP.md 'Still to port', step 1 (Fourier forward)"
 
 
 @dataclasses.dataclass(frozen=True)
 class DAUConvSettings:
     """Static configuration of a DAU convolution; the fields, defaults and
     validation of the JAX `DAUConvSettings`. Fields that steer the Fourier
-    engine or the backward are kept so a configuration carries over as it
-    is; they take effect when those paths are ported."""
+    engine or the sharded backward are kept so a configuration carries over
+    as it is; they take effect when those paths are ported."""
 
     kernel_size: int = 9
     use_interpolation: bool = True
@@ -110,6 +110,18 @@ class DAUConvSettings:
         return (self.blur_size - 1) / 10.0
 
 
+def edge_gradient_mask(h: int, w: int, dtype=torch.float32, device=None):
+    """Static (h, w) mask zeroing the last row/col per the reference GPU's
+    tile rule; applied to the error only under `unit_testing`."""
+    zero_row, zero_col = disabled_edges(h, w)
+    mask = torch.ones((h, w), dtype=dtype, device=device)
+    if zero_col:
+        mask[:, w - 1] = 0.0
+    if zero_row:
+        mask[h - 1, :] = 0.0
+    return mask
+
+
 def _unit_mask(s: int, g: int, f: int, num_ignore: int, dtype, device=None):
     """(S, G, F) mask that zeroes the trailing `num_ignore` dummy units."""
     if num_ignore == 0:
@@ -149,19 +161,20 @@ def _filters(cfg: DAUConvSettings, sigma_value):
 def _blur_and_aggregate(cfg: DAUConvSettings, x, sigma_value, w, mu1, mu2,
                         blur_name: str = "w"):
     """Blur + offset-and-sum, dispatched on the engine. 'pallas_fused' runs
-    both inside one kernel; 'xla' runs them as two dense torch ops."""
-    if cfg.engine in ("fourier", "pallas"):
-        raise NotImplementedError(
-            f"engine={cfg.engine!r} is not ported yet: {_TODO[cfg.engine]}")
+    both inside one kernel (K5); 'pallas' blurs with a torch depthwise conv
+    and aggregates in K4; 'xla' runs both as dense torch ops."""
+    if cfg.engine == "fourier":
+        raise NotImplementedError(f"engine='fourier' is not ported yet: {_FOURIER_TODO}")
     filt = _filters(cfg, sigma_value)[blur_name]
+    ks, interp = cfg.synth_kernel_size, cfg.use_interpolation
     if cfg.engine == "pallas_fused":
         from ..kernels.forward import dau_forward_fused
-        return dau_forward_fused(x.contiguous(), w, mu1, mu2, filt,
-                                 cfg.synth_kernel_size, cfg.use_interpolation)
+        return dau_forward_fused(x.contiguous(), w, mu1, mu2, filt, ks, interp)
     x_blur = depthwise_blur(x, filt)
-    return xla_engine.aggregate_forward(x_blur, w, mu1, mu2,
-                                        cfg.synth_kernel_size,
-                                        cfg.use_interpolation)
+    if cfg.engine == "pallas":
+        from ..kernels.forward import aggregate_forward
+        return aggregate_forward(x_blur.contiguous(), w, mu1, mu2, ks, interp)
+    return xla_engine.aggregate_forward(x_blur, w, mu1, mu2, ks, interp)
 
 
 def _forward_impl(cfg: DAUConvSettings, x, w, mu1, mu2, sigma):
@@ -183,15 +196,96 @@ def dau_conv2d_infer(cfg: DAUConvSettings, x, w, mu1, mu2, sigma, phi=None):
     return _forward_impl(cfg, x, w, mu1, mu2, sigma)
 
 
+def _reduce_to_shape(g, shape):
+    """Sum-reduce a full gradient back to a broadcast-origin shape."""
+    shape = tuple(shape)
+    if tuple(g.shape) == shape:
+        return g
+    ndiff = g.dim() - len(shape)
+    if ndiff > 0:
+        g = torch.sum(g, dim=tuple(range(ndiff)))
+    axes = tuple(i for i, (gd, sd) in enumerate(zip(g.shape, shape)) if sd != gd)
+    if axes:
+        g = torch.sum(g, dim=axes, keepdim=True)
+    return g.reshape(shape)
+
+
+def _param_grads(cfg: DAUConvSettings, x, gy, filts, mu13, mu23):
+    """(M, S, G, F) unit gradients: blur x with the filters w, dmu1, dmu2
+    (and dsigma), build the position table (K6 on the Pallas engines, a
+    torch correlation on 'xla') and tap-gather it per unit."""
+    if cfg.unit_testing:
+        gy = gy * edge_gradient_mask(*gy.shape[-2:], dtype=gy.dtype, device=gy.device)
+    names = ["w", "dmu1", "dmu2"] + (["dsigma"] if cfg.compute_sigma_grad else [])
+    n, s_ch, h, w_sp = x.shape
+    fstack = torch.stack([filts[k] for k in names])  # (M, kb, kb)
+    xb = depthwise_blur(x, fstack)  # (N, S*M, H, W)
+    xb = xb.reshape(n, s_ch, len(names), h, w_sp).permute(2, 0, 1, 3, 4)  # (M, N, S, H, W)
+    ks = cfg.synth_kernel_size
+    if cfg.engine in ("pallas", "pallas_fused"):
+        from ..kernels.backward import grad_tables
+        table = grad_tables(xb, gy, ks).to(xb.dtype)
+    else:
+        table = xla_engine.grad_tables(xb, gy, ks)
+    return xla_engine.tap_gather(table, mu13, mu23, ks, cfg.use_interpolation)
+
+
+def _bwd_rule(cfg: DAUConvSettings, x, w, mu1, mu2, sigma, gy, needs):
+    """The analytic backward of `dau_conv2d_op`: (dx, dw, dmu1, dmu2,
+    dsigma), None where `needs` (the input-grad flags of x, w, mu1, mu2,
+    sigma) says no gradient is wanted."""
+    if cfg.engine == "fourier":
+        raise NotImplementedError(f"engine='fourier' is not ported yet: {_FOURIER_TODO}")
+    gy = gy.contiguous()
+    w3, mu13, mu23, had_lead = _squeeze_params(w, mu1, mu2)
+    mask = _unit_mask(*w3.shape, cfg.number_units_ignore, w3.dtype, w3.device)
+    w3m = w3 * mask if mask is not None else w3
+    sigma_value = _sigma_scalar(cfg, sigma)
+
+    # input gradient: the forward engine on the error, with S<->F
+    # transposed params, negated offsets and the mirrored blur filter
+    dx = None
+    if needs[0]:
+        dx = _blur_and_aggregate(
+            cfg, gy, sigma_value, w3m.permute(2, 1, 0),
+            -mu13.permute(2, 1, 0), -mu23.permute(2, 1, 0),
+            blur_name="error").to(x.dtype)
+    if not any(needs[1:]):
+        return dx, None, None, None, None
+
+    grads = _param_grads(cfg, x, gy, _filters(cfg, sigma_value), mu13, mu23)
+    lr = grads.new_full((), cfg.mu_learning_rate_factor)
+    dw = grads[0]
+    dmu1 = grads[1] * w3m * lr
+    dmu2 = grads[2] * w3m * lr
+    if cfg.nan_guard_mu_grads:
+        # NaN -> 0 on the mu grads only
+        dmu1 = clip_nan(dmu1)
+        dmu2 = clip_nan(dmu2)
+    dsigma_full = grads[3] * w3m if cfg.compute_sigma_grad else torch.zeros_like(w3)
+    if mask is not None:
+        # dummy units get no gradient; their mu/sigma grads are already
+        # zero through the masked w
+        dw = dw * mask
+    if had_lead:
+        dw, dmu1, dmu2, dsigma_full = (a[None] for a in (dw, dmu1, dmu2, dsigma_full))
+    dsigma = _reduce_to_shape(dsigma_full, sigma.shape)
+    out = (dw.to(w.dtype), dmu1.to(mu1.dtype), dmu2.to(mu2.dtype), dsigma.to(sigma.dtype))
+    return (dx, *(g if need else None for g, need in zip(out, needs[1:])))
+
+
 class _DAUConv2dFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, x, w, mu1, mu2, sigma):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, w, mu1, mu2, sigma)
         return _forward_impl(cfg, x, w, mu1, mu2, sigma)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            f"the DAU backward is not ported yet: {_TODO['backward']}")
+        return (None, *_bwd_rule(ctx.cfg, *ctx.saved_tensors, grad_out,
+                                 ctx.needs_input_grad[1:]))
 
 
 def dau_conv2d_op(cfg: DAUConvSettings, x, w, mu1, mu2, sigma):

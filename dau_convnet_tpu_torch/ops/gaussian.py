@@ -101,9 +101,14 @@ def gaussian_filters(
 
 
 def depthwise_blur(x: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
-    """Correlate every (n, channel) plane of NCHW ``x`` with the (kh, kw)
-    filter ``filt`` under zero padding kh//2, kw//2 -> (N, C, H, W)."""
+    """Correlate every (n, channel) plane of NCHW ``x`` with ``filt`` under
+    zero padding kh//2, kw//2. ``filt`` is (kh, kw) for one shared filter,
+    -> (N, C, H, W); or (m, kh, kw) for m filters per channel, -> (N, C*m,
+    H, W) with the m results of channel c at [c*m, (c+1)*m). The filter is
+    cast to x's dtype."""
     chan = x.shape[1]
-    kh, kw = filt.shape
-    rhs = filt.to(x.dtype).expand(chan, 1, kh, kw)
+    if filt.dim() == 2:
+        filt = filt[None]
+    m, kh, kw = filt.shape
+    rhs = filt.to(x.dtype)[None].expand(chan, m, kh, kw).reshape(chan * m, 1, kh, kw)
     return F.conv2d(x, rhs, padding=(kh // 2, kw // 2), groups=chan)

@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["tap_vectors", "synthesize_kernel", "aggregate_forward"]
+__all__ = ["tap_vectors", "synthesize_kernel", "aggregate_forward",
+           "grad_tables", "tap_gather"]
 
 
 def tap_vectors(mu1, mu2, ks: int, use_interpolation: bool):
@@ -95,3 +96,39 @@ def aggregate_forward(x_blur, w, mu1, mu2, ks: int,
     kern = synthesize_kernel(w, mu1, mu2, ks, use_interpolation)
     rhs = kern.transpose(0, 1)  # OIHW = (F, S, ks, ks)
     return F.conv2d(x_blur, rhs.to(x_blur.dtype), padding=ks // 2)
+
+
+def grad_tables(x_blur_k, err, ks: int):
+    """Full position table of the parameter gradients (conv-backward-filter):
+
+        table[m,s,f,ky,kx] = sum_{n,i,j} x_blur_k[m,n,s,i+ky-c,j+kx-c] * err[n,f,i,j]
+
+    with x_blur_k zero outside the image. One correlation: batch = the (m, s)
+    planes, channels = N, kernel = err. x_blur_k: (M, N, S, H, W); err:
+    (N, F, H, W). Returns (M, S, F, ks, ks) in x_blur_k's dtype.
+    """
+    m, n, s, h, w_sp = x_blur_k.shape
+    f = err.shape[1]
+    lhs = x_blur_k.transpose(1, 2).reshape(m * s, n, h, w_sp)  # m-major, then s
+    rhs = err.transpose(0, 1)  # (F, N, H, W)
+    table = F.conv2d(lhs, rhs.to(lhs.dtype), padding=ks // 2)  # (M*S, F, ks, ks)
+    return table.reshape(m, s, f, ks, ks)
+
+
+def tap_gather(table, mu1, mu2, ks: int, use_interpolation: bool = True):
+    """Per-unit gradients from a (M, S, F, ks, ks) position table:
+
+        grad[m,s,g,f] = sum_taps iw * table[m,s,f, tap position]
+
+    as one one-hot multiply-reduce over the flat position axis, with the
+    mask built in the table's dtype. Returns (M, S, G, F). (The JAX
+    package's position-major 'pmsf' layout belongs to the Fourier engine.)
+    """
+    m, s, f = table.shape[:3]
+    g = mu1.shape[1]
+    tf = table.reshape(m, s, 1, f, ks * ks)
+    p = torch.arange(ks * ks, dtype=mu1.dtype, device=mu1.device)
+    mask = torch.zeros((s, g, f, ks * ks), dtype=table.dtype, device=table.device)
+    for iw, tgt in _flat_taps(mu1, mu2, ks, use_interpolation):
+        mask = mask + (iw[..., None] * (p == tgt[..., None])).to(table.dtype)
+    return torch.sum(tf * mask[None], dim=-1)

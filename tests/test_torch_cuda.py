@@ -1,4 +1,5 @@
-"""Card-only tests of the port: the CUDA kernels against their plain twins.
+"""Card-only tests of the port: the CUDA kernels against their plain twins,
+and the layer's backward through each Pallas engine against engine 'xla'.
 
 This file imports no JAX, so it runs where only PyTorch is installed:
 
@@ -12,6 +13,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from dau_convnet_tpu_torch.kernels import backward as tkb
 from dau_convnet_tpu_torch.kernels import forward as tk
 from dau_convnet_tpu_torch.nn import DAUConv2d
 from dau_convnet_tpu_torch.ops.gaussian import gaussian_filters
@@ -99,3 +101,89 @@ def test_layer_pallas_fused_matches_xla_engine(cuda_device, data_format):
     with torch.inference_mode():
         y_kernel, y_plain = (layer(x) for layer in layers)
     assert float((y_kernel - y_plain).abs().max()) <= 1e-4 * float(y_plain.abs().max())
+
+
+# f32 bounds: the kernels and the cuDNN twins sum up to N*H*W (K6) or
+# S*ks^2 (K4, K5) products in other orders; 1e-4 * max|reference| holds that
+# with margin. bf16: the twin runs in f32 on the same bf16 values, and the
+# K4/K5 output is rounded once to bf16 (1e-2 * max|y|); K6 writes f32.
+
+
+def _tables_case(name, device, m, seed=0):
+    n, s, _, f, h, w, _, _ = SHAPES[name]
+    rng = np.random.default_rng(seed)
+    xb = torch.tensor(rng.standard_normal((n, s * m, h, w)).astype(np.float32), device=device)
+    err = torch.tensor(rng.standard_normal((n, f, h, w)).astype(np.float32), device=device)
+    # the (M, N, S, H, W) view of a stacked blur, as the op hands it over
+    return xb.reshape(n, s, m, h, w).permute(2, 0, 1, 3, 4), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [3, 4])
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_grad_tables_kernel_matches_twin(cuda_device, name, m):
+    xb, err = _tables_case(name, cuda_device, m)
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = xb.to(dtype), err.to(dtype)
+        before = tkb.grad_tables.launches
+        got = tkb.grad_tables(a, b, KS)
+        torch.cuda.synchronize()
+        assert tkb.grad_tables.launches == before + 1
+        want = tkb.grad_tables_plain(a, b, KS)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_aggregate_kernel_matches_twin(cuda_device, name):
+    args, interp = _case(name, cuda_device)
+    before = tk.aggregate_forward.launches
+    y = tk.aggregate_forward(*args, KS, interp)
+    torch.cuda.synchronize()
+    assert tk.aggregate_forward.launches == before + 1
+    want = tk.aggregate_forward_plain(*args, KS, interp)
+    assert float((y - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    args16 = [a.bfloat16() for a in args]
+    y16 = tk.aggregate_forward(*args16, KS, interp)
+    want16 = tk.aggregate_forward_plain(args16[0].float(), *args16[1:], KS, interp)
+    assert y16.dtype == torch.bfloat16
+    assert float((y16.float() - want16).abs().max()) <= 1e-2 * float(want16.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_fused_kernel_at_transposed_shape_with_error_filter(cuda_device, name):
+    # the dx pass: S<->F transposed (strided) params, negated offsets, the
+    # mirrored blur filter, on an error with F channels
+    (x, w, mu1, mu2), interp = _case(name, cuda_device)
+    n, _, h, wd = x.shape
+    err = torch.rand((n, w.shape[-1], h, wd), generator=torch.Generator().manual_seed(3))
+    err = err.to(cuda_device)
+    params = (w.permute(2, 1, 0), -mu1.permute(2, 1, 0), -mu2.permute(2, 1, 0))
+    filt = gaussian_filters(0.5, size=9, device=cuda_device)["error"]
+    for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        e = err.to(dtype)
+        p = [t.to(dtype) for t in params]
+        y = tk.dau_forward_fused(e, *p, filt, KS, interp)
+        want = tk.dau_forward_fused_plain(e.float(), *p, filt, KS, interp)
+        assert y.shape == (n, x.shape[1], h, wd)
+        assert float((y.float() - want).abs().max()) <= bound * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["pallas", "pallas_fused"])
+def test_layer_backward_matches_xla_engine(cuda_device, engine):
+    grads = {}
+    for eng in (engine, "xla"):
+        layer = DAUConv2d(6, 40, (2, 1), 9, strides=2, engine=eng, activation=F.relu,
+                          dau_sigma_trainable=True, device=cuda_device,
+                          generator=torch.Generator().manual_seed(0))
+        x = torch.rand((2, 6, 11, 13), generator=torch.Generator().manual_seed(1))
+        x = x.to(cuda_device).requires_grad_()
+        err = torch.randn((2, 40, 6, 7), generator=torch.Generator().manual_seed(2))
+        (layer(x) * err.to(cuda_device)).sum().backward()
+        grads[eng] = {"x": x.grad, **{k: p.grad for k, p in layer.named_parameters()}}
+    for name, want in grads["xla"].items():
+        got = grads[engine][name]
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name

@@ -120,19 +120,11 @@ def test_dau_conv2d_params_follow_dtype_and_layout():
 
 
 @pytest.mark.parametrize("engine,dtype", [("fourier", torch.float32),
-                                          ("pallas", torch.float32),
                                           ("auto", torch.bfloat16)])
 def test_unported_engines_raise(engine, dtype):
     layer = tl.DAUConv2d(2, 4, (2, 1), 9, engine=engine, dtype=dtype)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         layer(torch.zeros((1, 2, 6, 6), dtype=dtype))
-
-
-def test_backward_raises_until_ported():
-    layer = tl.DAUConv2d(2, 4, (2, 1), 9, engine="xla")
-    y = layer(torch.rand((1, 2, 6, 6)))
-    with pytest.raises(NotImplementedError, match="training"):
-        y.sum().backward()
 
 
 def test_infer_matches_op_and_rejects_phi():
