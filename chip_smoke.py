@@ -5,9 +5,10 @@ one NVIDIA GPU.
 
 Run from the root of the repository, on a machine with a CUDA card. Phases:
 
-1. build: compile the three kernels for sm_90a, one nvcc each, all at once
-   (K5 the fused forward, K4 the aggregation, K6 the grad tables), and print
-   their registers and spills at ks=9;
+1. build: compile the four kernel libraries for sm_90a, one nvcc each, all
+   at once (K5 the fused forward, K4 the aggregation, K6 the grad tables,
+   K1/K2 the fused spectral gradients), and print their registers and
+   spills (ks=9; K1 at M=3, G=2);
 2. kernel vs twin: `dau_forward_fused` against `dau_forward_fused_plain` at
    the four AlexNet-DAU layer shapes (N=4) in f32 (TF32 off, bound
    1e-4*max|y|) and bf16 (twin in f32 on the same bf16 values, bound
@@ -35,9 +36,34 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
 8. reference: one f32 step from the same weights, through the kernels and
    through the plain twins, per engine: every parameter's gradient must
    agree within 1e-3*max|grad| of that tensor;
-9. timing: per-layer K6, K4 and dx-shape K5 against their twins at N=32
+9. timing: per-layer K6, K4 and dx-shape K5 against their twins (and,
+   where one PyTorch call computes the same function, that call) at N=32
    bf16, and a whole bf16 training step through the kernels and through the
-   twins, per engine.
+   twins, per engine;
+10. K1/K2 vs twin: `fused_spectral_grads` without and with the dx operands
+   against `fused_spectral_grads_plain` at the four layer shapes (N=4;
+   conv2's 496 bins are forced, the op sends conv2 to the unfused gather)
+   in f32 (TF32 off, bound 1e-4*max|ref|: f32 sums in another order) and
+   bf16 (bound 1e-2*max|ref|: the cross-spectra are rounded to bf16 in
+   both, and a sum on the other side of a rounding boundary moves one term
+   by a bf16 ulp);
+11. Fourier serving: the default-variant AlexNet-DAU in bf16 with engine
+   'auto' (-> 'fourier') answers 3 requests of 32x3x227x227 with no kernel
+   launch; then with phi_caching after `refresh_phi_cache`, whose logits
+   must match the uncached ones within 1e-2*max|logits| (one bf16 rounding;
+   the same table is built either way, so 0 is expected);
+12. Fourier training: 3 bf16 SGD steps through `make_train_step` with the
+   checks of phase 7, with defaults (3 K1 launches per step: conv3-conv5;
+   conv2's 496 bins take the unfused gather) and with fused_dx='on' (3 K2
+   per step); then one f32 step with engine 'fourier' and fused_bwd='on'
+   (K1 at all four layers), and again with fused_dx='on', through the
+   kernels and through the twins: every gradient within 1e-3*max|grad|;
+13. timing: per layer K1 and K2 against their twins (checked against them
+   first at N=32 in bf16, bounds as in phase 10) and the unfused torch
+   path (`fourier_unit_grads`), whole bf16 requests (Fourier uncached,
+   phi-cached, pallas_fused) and whole bf16 steps (Fourier, Fourier with
+   fused_dx, both Pallas engines), the device time by kernel of both
+   Fourier steps (`torch.profiler`) and the Fourier step's peak memory.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -62,9 +88,13 @@ sys.path.insert(0, str(ROOT))
 import dau_convnet_tpu_torch  # noqa: E402
 from dau_convnet_tpu_torch.kernels import backward as kbwd  # noqa: E402
 from dau_convnet_tpu_torch.kernels import forward as kfwd  # noqa: E402
+from dau_convnet_tpu_torch.kernels import fused_bwd as kfb  # noqa: E402
 from dau_convnet_tpu_torch.kernels._build import build, build_log  # noqa: E402
 from dau_convnet_tpu_torch.models import AlexNetDAU  # noqa: E402
+from dau_convnet_tpu_torch.nn import refresh_phi_cache  # noqa: E402
 from dau_convnet_tpu_torch.ops import DAUConvSettings, gaussian_filters  # noqa: E402
+from dau_convnet_tpu_torch.ops import fourier_engine as fe  # noqa: E402
+from dau_convnet_tpu_torch.ops import xla_engine  # noqa: E402
 from dau_convnet_tpu_torch.parallel import make_train_step  # noqa: E402
 
 KERNEL = dict(name="dau_forward_fused", route="cuda",
@@ -76,7 +106,14 @@ KERNEL_K6 = dict(name="grad_tables", route="cuda",
 KERNEL_K4 = dict(name="aggregate_forward", route="cuda",
                  source="dau_convnet_tpu_torch/kernels/csrc/dau_aggregate.cu",
                  replaces="dau_convnet_tpu/kernels/forward.py:129")
-LIBRARIES = ("dau_forward_fused", "dau_aggregate", "dau_grad_tables")
+KERNEL_K1 = dict(name="fused_spectral_grads (K1)", route="cuda",
+                 source="dau_convnet_tpu_torch/kernels/csrc/dau_spectral_grads.cu",
+                 replaces="dau_convnet_tpu/kernels/fused_bwd.py:835")
+KERNEL_K2 = dict(KERNEL_K1, name="fused_spectral_grads with dx (K2)")
+LIBRARIES = ("dau_forward_fused", "dau_aggregate", "dau_grad_tables", "dau_spectral_grads")
+# the card's peaks for the bounds (H100 SXM data sheet, dense, at 700 W):
+# bf16 on the tensor cores and the memory rate
+PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
 # (name, S, F, H=W) of the AlexNet-DAU DAU layers at 227x227 input
 LAYERS = (("conv2", 96, 256, 27), ("conv3", 256, 384, 13),
           ("conv4", 384, 384, 13), ("conv5", 384, 256, 13))
@@ -102,6 +139,20 @@ def _cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _spread(fn, repeats: int = 5, iters: int = 5):
+    """(median, min, max) ms of `repeats` runs of `_cuda_ms(fn, iters)`:
+    the Fourier paths launch many small ops, so the host sets their pace
+    and a single mean moves from run to run."""
+    fn()
+    times = sorted(_cuda_ms(fn, iters=iters, warmup=1) for _ in range(repeats))
+    return times[len(times) // 2], times[0], times[-1]
+
+
+def _fmt(spread) -> str:
+    med, lo, hi = spread
+    return f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f})"
 
 
 def _layer_inputs(gen, n, s, f, hw, dtype, dev, mu=None):
@@ -141,11 +192,13 @@ def compare(gen, dev, filt, ks):
 
 @contextlib.contextmanager
 def plain_twin():
-    """Route the op's kernel calls (K5, K4, K6) to their plain twins (for
-    timing and the reference runs); the launch counters are left alone."""
+    """Route the op's kernel calls (K5, K4, K6, K1/K2) to their plain twins
+    (for timing and the reference runs); the launch counters are left
+    alone."""
     routes = ((kfwd, "dau_forward_fused", kfwd.dau_forward_fused_plain),
               (kfwd, "aggregate_forward", kfwd.aggregate_forward_plain),
-              (kbwd, "grad_tables", kbwd.grad_tables_plain))
+              (kbwd, "grad_tables", kbwd.grad_tables_plain),
+              (kfb, "fused_spectral_grads", kfb.fused_spectral_grads_plain))
     kernels = [getattr(mod, name) for mod, name, _ in routes]
     for mod, name, twin in routes:
         setattr(mod, name, twin)
@@ -213,15 +266,21 @@ def compare_backward(gen, dev, ks):
     return worst
 
 
+COUNTS = "(K5, K4, K6, K1, K2)"
+
+
 def _counts():
     return (kfwd.dau_forward_fused.launches, kfwd.aggregate_forward.launches,
-            kbwd.grad_tables.launches)
+            kbwd.grad_tables.launches, kfb.fused_spectral_grads.launches_k1,
+            kfb.fused_spectral_grads.launches_k2)
 
 
 def _zero_counts():
     kfwd.dau_forward_fused.launches = 0
     kfwd.aggregate_forward.launches = 0
     kbwd.grad_tables.launches = 0
+    kfb.fused_spectral_grads.launches_k1 = 0
+    kfb.fused_spectral_grads.launches_k2 = 0
 
 
 def _ulp(t, dtype):
@@ -231,14 +290,24 @@ def _ulp(t, dtype):
                        torch.frexp(t.float().abs()).exponent - bits)
 
 
+# launches per bf16 step (K5, K4, K6, K1, K2) and the model's settings, per run
+TRAIN_RUNS = {
+    "pallas_fused": (dict(engine="pallas_fused"), (8, 0, 4, 0, 0)),
+    "pallas": (dict(engine="pallas"), (0, 8, 4, 0, 0)),
+    "fourier": (dict(), (0, 0, 0, 3, 0)),
+    "fourier fused_dx": (dict(fused_dx="on"), (0, 0, 0, 0, 3)),
+}
+
+
 def train(engine, dev, seed, batches, labels):
-    """3 bf16 SGD steps through `make_train_step`; checks the launch counts
-    of each step, a finite loss and the SGD update of every trainable
-    parameter. Returns (model, step, launch counts (K5, K4, K6), moved)."""
-    model = AlexNetDAU(variant="default", engine=engine, dtype=torch.bfloat16, device=dev,
-                       generator=torch.Generator().manual_seed(seed))
+    """3 bf16 SGD steps through `make_train_step` for the run `engine` of
+    TRAIN_RUNS; checks the launch counts of each step, a finite loss and
+    the SGD update of every trainable parameter. Returns (model, step,
+    launch counts, moved)."""
+    kw, want = TRAIN_RUNS[engine]
+    model = AlexNetDAU(variant="default", image_size=IMAGE, dtype=torch.bfloat16, device=dev,
+                       generator=torch.Generator().manual_seed(seed), **kw)
     step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=LR))
-    want = (8, 0, 4) if engine == "pallas_fused" else (0, 8, 4)
     first = {k: p.detach().clone() for k, p in model.named_parameters()}
     _zero_counts()
     for i, x in enumerate(batches):
@@ -248,7 +317,7 @@ def train(engine, dev, seed, batches, labels):
         torch.cuda.synchronize()
         got = tuple(a - b for a, b in zip(_counts(), before))
         if got != want:
-            raise AssertionError(f"{engine} step {i}: launches (K5, K4, K6) {got}, want {want}")
+            raise AssertionError(f"{engine} step {i}: launches {COUNTS} {got}, want {want}")
         if not torch.isfinite(loss.float()):
             raise AssertionError(f"{engine} step {i}: loss {float(loss)}")
         for name, p in model.named_parameters():
@@ -266,36 +335,276 @@ def train(engine, dev, seed, batches, labels):
             tol = 2 * _ulp(torch.maximum(old[name].float().abs(), sgd.float().abs()), p.dtype)
             if not bool(((p.float() - sgd.float()).abs() <= tol).all()):
                 raise AssertionError(f"{engine} step {i}: {name} did not take the SGD update")
-        print(f"train {engine} step {i}: loss {float(loss):.5f}, launches (K5, K4, K6) {got}")
+        print(f"train {engine} step {i}: loss {float(loss):.5f}, launches {COUNTS} {got}")
     counts = _counts()
     moved = [k for k, p in model.named_parameters() if not torch.equal(p, first[k])]
     return model, step, counts, moved
 
 
-def reference_step(engine, dev, seed, x, labels):
+def reference_step(engine, dev, seed, x, labels, **kw):
     """One f32 step's gradients through the kernels and through the twins,
     from the same weights; returns the worst gradient error relative to
     its tensor's max|grad|."""
-    model = AlexNetDAU(variant="default", engine=engine, dtype=torch.float32, device=dev,
-                       generator=torch.Generator().manual_seed(seed))
+    model = AlexNetDAU(variant="default", image_size=IMAGE, engine=engine, dtype=torch.float32, device=dev,
+                       generator=torch.Generator().manual_seed(seed), **kw)
     step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0))
     grads = []
     for route in (contextlib.nullcontext, plain_twin):
+        before = _counts()
         with route():
             loss = step(x, labels)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(_counts(), before))
         grads.append({k: p.grad.clone() for k, p in model.named_parameters()
                       if p.grad is not None})
+        if route is contextlib.nullcontext:
+            first = launched
     worst = 0.0
     for name, want in grads[1].items():
         err = float((grads[0][name] - want).abs().max())
         scale = float(want.abs().max())
         worst = max(worst, err / scale)
         if not err <= 1e-3 * scale:
-            raise AssertionError(f"reference {engine}: {name} max|dg|={err:.3e} "
+            raise AssertionError(f"reference {engine} {kw}: {name} max|dg|={err:.3e} "
                                  f"max|g|={scale:.3e}")
-    print(f"reference f32 step {engine}: loss {float(loss):.5f}; {len(grads[1])} gradients, "
-          f"worst max|dg|/max|g| = {worst:.3e} (bound 1e-3)")
+    print(f"reference f32 step {engine} {kw}: loss {float(loss):.5f}; {len(grads[1])} "
+          f"gradients, worst max|dg|/max|g| = {worst:.3e} (bound 1e-3); kernel-path "
+          f"launches {COUNTS} {first}")
     return worst
+
+
+def _bound(ops, nbytes):
+    """(ms the card needs at least, which of the two sets it): operations
+    over the bf16 tensor-core peak against bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class Bounds:
+    """Sums per-layer bounds of one kernel over the layers it is timed at."""
+
+    def __init__(self):
+        self.ms, self.by = 0.0, {"operations": 0.0, "bytes": 0.0}
+
+    def add(self, ops, nbytes):
+        ms, by = _bound(ops, nbytes)
+        self.ms += ms
+        self.by[by] += ms
+        return ms
+
+    @property
+    def bound_by(self):
+        return max(self.by, key=self.by.get)
+
+
+def _spectral_inputs(gen, n, s, f, hw, dtype, dev):
+    """The fused kernel's operands at a layer shape, as the op makes them:
+    the spectra of a stacked (M=3) blur and of an error, bilinear one-hots
+    of random offsets, the phase tables; and the dx operands (blurred-error
+    spectra, unit weights)."""
+    p1, p2, rb = fe.plan_bins(hw, hw, 9)
+    span = 5
+    xb = torch.randn((M, n, s, hw, hw), generator=gen).to(dev, dtype)
+    err = torch.randn((n, f, hw, hw), generator=gen).to(dev, dtype)
+    eb = torch.randn((n, f, hw, hw), generator=gen).to(dev, dtype)
+    xre, xim = fe._rdft2(xb, p1, p2, rb)
+    xs = torch.cat([xre, xim], dim=1).permute(3, 0, 1, 2).contiguous()
+    spectra = [torch.cat(fe._rdft2(e, p1, p2, rb), dim=0).permute(2, 0, 1).contiguous()
+               for e in (err, eb)]
+    mu1, mu2 = (torch.rand((2, s, G, f), generator=gen) * 7.98 - 3.99).to(dev, dtype)
+    a1 = fe._phase_onehot(mu1, span, True).permute(0, 2, 1, 3)
+    a2 = fe._phase_onehot(mu2, span, True).permute(0, 2, 1, 3)
+    t1 = fe._phase_table(p1, p1, span, torch.float32, dev)
+    t2 = fe._phase_table(p2, rb, span, torch.float32, dev, coef_p1=p1)
+    wg = (torch.randn((G, s, f), generator=gen) * 0.1).to(dev, dtype)
+    kw = dict(n_img=n, p1b=p1, rbb=rb)
+    return (xs, spectra[0], t1, t2, a1, a2), kw, dict(esb=spectra[1], wg=wg), (xb, err, mu1, mu2)
+
+
+def _spectral_work(args, kw, dx_args=None):
+    """(operations, bytes) of one K1 call, or of a K2 call with dx_args:
+    the per-bin cross products (8N per (k, m, s, f)), the gather (4G) and,
+    for K2, the dx contraction (8N per (k, s, f)); each operand read once,
+    each output written once."""
+    xs, es, t1, t2, a1, a2 = args
+    b, m, n2, s = xs.shape
+    f, g = es.shape[2], a1.shape[1]
+    ops = b * m * s * f * (4 * n2 + 4 * g)
+    nbytes = _nbytes(*args) + m * s * g * f * 4
+    if dx_args is not None:
+        ops += 4 * n2 * b * s * f
+        nbytes += _nbytes(dx_args["esb"], dx_args["wg"]) + b * n2 * s * 4
+    return ops, nbytes
+
+
+def compare_spectral(gen, dev):
+    """K1 and K2 vs their twin at each layer shape (N=4, conv2 forced);
+    returns the largest |error| of each."""
+    worst = {"k1": 0.0, "k2": 0.0}
+    for name, s, f, hw in LAYERS:
+        for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            tag = f"{name} {str(dtype)[6:]}"
+            args, kw, dx, _ = _spectral_inputs(gen, 4, s, f, hw, dtype, dev)
+            got = kfb.fused_spectral_grads(*args, **kw)
+            want = kfb.fused_spectral_grads_plain(*args, **kw)
+            worst["k1"] = max(worst["k1"], _check_err(f"K1 {tag} B={kw['p1b'] * kw['rbb']}",
+                                                      got, want, bound))
+            got = kfb.fused_spectral_grads(*args, **kw, **dx)
+            want = kfb.fused_spectral_grads_plain(*args, **kw, **dx)
+            worst["k2"] = max(worst["k2"], _check_err(f"K2 grads {tag}", got[0], want[0], bound),
+                              _check_err(f"K2 dx spectra {tag}", got[1], want[1], bound))
+    return worst
+
+
+def serve_fourier(dev, seed, requests, card):
+    """Phase 11: bf16 default-engine serving, uncached and phi-cached.
+    Returns the two models."""
+    model = AlexNetDAU(variant="default", image_size=IMAGE, dtype=torch.bfloat16, device=dev,
+                       generator=torch.Generator().manual_seed(seed))
+    model.eval()
+    engines = {getattr(model, f"dau_conv{i}").cfg.engine for i in range(2, 6)}
+    if engines != {"fourier"}:
+        raise AssertionError(f"bf16 engine 'auto' resolved to {engines}, not fourier")
+    cached = AlexNetDAU(variant="default", image_size=IMAGE, dtype=torch.bfloat16, device=dev, phi_caching=True,
+                        generator=torch.Generator().manual_seed(seed))
+    cached.eval()
+    refresh_phi_cache(cached, requests[0])
+    worst = scale = 0.0
+    _zero_counts()
+    with torch.inference_mode():
+        for i, req in enumerate(requests):
+            y = model(req)
+            y_c = cached(req)
+            torch.cuda.synchronize()
+            for tag, logits in (("uncached", y), ("phi-cached", y_c)):
+                if logits.shape != (BATCH, 1000) or not torch.isfinite(logits.float()).all():
+                    raise AssertionError(f"fourier {tag} request {i}: bad logits")
+            worst = max(worst, float((y.float() - y_c.float()).abs().max()))
+            scale = max(scale, float(y.float().abs().max()))
+    if any(_counts()):
+        raise AssertionError(f"fourier serving launched kernels {COUNTS} {_counts()}")
+    print(f"serving fourier: engine 'auto' -> fourier at all four DAU layers; {REQUESTS} "
+          f"requests of {BATCH}x3x{IMAGE}x{IMAGE} bf16, logits finite, launches {COUNTS} "
+          f"{_counts()}; phi-cached vs uncached max|dlogits|={worst:.3e} "
+          f"max|logits|={scale:.3e} bound={1e-2 * scale:.3e}")
+    if not worst <= 1e-2 * scale:
+        raise AssertionError("phi-cached logits disagree with the uncached ones")
+    return model, cached
+
+
+def time_spectral(gen, dev, card, worst):
+    """Per-layer times (N=32, bf16) of K1 and K2 against their twin and the
+    unfused torch path, after checking both against the twin at N=32
+    (bounds as in `compare_spectral`; `worst` takes the errors); returns
+    the sums over conv3-conv5 (where the op runs the kernel) with their
+    bounds."""
+    out = {k: 0.0 for k in ("k1", "k1_plain", "k2", "k2_plain")}
+    b1, b2 = Bounds(), Bounds()
+    for name, s, f, hw in LAYERS:
+        args, kw, dx, (xb, err, mu1, mu2) = _spectral_inputs(
+            gen, BATCH, s, f, hw, torch.bfloat16, dev)
+        tag = f"{name} bfloat16 N={BATCH}"
+        worst["k1"] = max(worst["k1"], _check_err(
+            f"K1 {tag}", kfb.fused_spectral_grads(*args, **kw),
+            kfb.fused_spectral_grads_plain(*args, **kw), 1e-2))
+        got = kfb.fused_spectral_grads(*args, **kw, **dx)
+        want = kfb.fused_spectral_grads_plain(*args, **kw, **dx)
+        worst["k2"] = max(worst["k2"], _check_err(f"K2 grads {tag}", got[0], want[0], 1e-2),
+                          _check_err(f"K2 dx spectra {tag}", got[1], want[1], 1e-2))
+        del got, want
+        t_k1 = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw))
+        t_p1 = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw), iters=3, warmup=1)
+        t_k2 = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw, **dx))
+        t_p2 = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw, **dx), iters=3,
+                        warmup=1)
+        t_unf = _cuda_ms(lambda: fe.fourier_unit_grads(xb, err, mu1, mu2, 9), iters=3, warmup=1)
+        t_f2 = _cuda_ms(lambda: fe.fourier_unit_grads_fused2(xb, err, mu1, mu2, 9))
+        main = name != "conv2"
+        bd1 = (b1 if main else Bounds()).add(*_spectral_work(args, kw))
+        bd2 = (b2 if main else Bounds()).add(*_spectral_work(args, kw, dx))
+        ops1 = _spectral_work(args, kw)[0]
+        print(f"layer {name} K1 N={BATCH} B={kw['p1b'] * kw['rbb']} bf16: kernel {t_k1:.3f} ms "
+              f"({ops1 / t_k1 / 1e9:.1f} TFLOP/s, bound {bd1:.4f}), twin {t_p1:.3f} ms; K2 "
+              f"kernel {t_k2:.3f} ms (bound {bd2:.4f}), twin {t_p2:.3f} ms; from the blurred "
+              f"planes: unfused torch path {t_unf:.3f} ms, DFTs + K1 {t_f2:.3f} ms"
+              f"{'' if main else ' (the op takes the unfused path here)'} [{card}]")
+        if main:
+            for k, v in zip(out, (t_k1, t_p1, t_k2, t_p2)):
+                out[k] += v
+    return out, b1, b2
+
+
+def _ptxas(lib, markers):
+    """The compiler's registers/spills lines for the entries whose mangled
+    name holds every marker."""
+    lines = build_log(lib).splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and all(mk in line for mk in markers):
+            entry = line.split("'")[1] if "'" in line else line
+            kind = "bf16" if "bfloat16" in line else "f32"
+            print(f"  {lib} {kind} {entry[:60]}: " + " | ".join(
+                l.split("info    : ")[-1].strip() for l in lines[i + 2:i + 4]))
+
+
+def _dense_work(n, s, f, hw, x_bytes, blur: bool):
+    """(operations, bytes) of K5 (blur=True) or K4 at a layer shape: the 4*G
+    bilinear taps per (s, f, pixel), plus the 9x9 blur per (s, pixel) for
+    K5; x, the three (S, G, F) parameter tensors and the output in bf16."""
+    ops = 2 * 4 * G * s * f * hw * hw * n + (2 * 81 * s * hw * hw * n if blur else 0)
+    return ops, x_bytes + 3 * s * G * f * 2 + n * f * hw * hw * 2
+
+
+# kernel-name fragments -> the breakdown's categories, first match wins
+CATEGORIES = (("K1/K2 spectral_grads_kernel", ("spectral_grads_kernel",)),
+              ("K2 spectral_dx_kernel", ("spectral_dx_kernel",)),
+              ("GEMM (cuBLAS)", ("gemm", "Gemm", "cutlass", "xmma", "sm90_", "sm80_")),
+              ("convolution (cuDNN)", ("conv", "cudnn", "Conv")),
+              ("elementwise / reduce / copy", ("elementwise", "Elementwise", "reduce", "Reduce",
+                                               "copy", "Copy", "cat", "index", "fill")))
+
+
+def profile_step(name, step, x, labels, step_ms, card, steps: int = 3):
+    """Device time by kernel over `steps` profiled steps (torch.profiler,
+    after one warm-up): per-category and top-kernel ms per step, and the
+    device's busy share of `step_ms`, the step's CUDA-event time measured
+    without the profiler (the profiler slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    step(x, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(x, labels)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(ms for _, ms, _ in rows)
+    if not rows:
+        print(f"profile: torch.profiler recorded no device time [{card}]")
+        return
+    cats = {}
+    for key, ms, _ in rows:
+        cat = next((c for c, frags in CATEGORIES if any(fr in key for fr in frags)), "other")
+        cats[cat] = cats.get(cat, 0.0) + ms
+    host = [(e.key, e.self_cpu_time_total / 1e3 / steps, e.count // steps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")]
+    print(f"profile {name} step (bf16, {steps} steps): device busy {device_ms:.3f} ms per "
+          f"step, {100 * device_ms / step_ms:.1f}% of the {step_ms:.3f} ms step (host clock "
+          f"under the profiler {host_ms:.3f} ms); {sum(c for _, _, c in rows)} kernel "
+          f"launches and {sum(c for _, _, c in host)} aten ops per step [{card}]")
+    for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
+        print(f"  {cat}: {ms:.3f} ms ({100 * ms / device_ms:.1f}%)")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"  top: {ms:.3f} ms x{count} {key[:110]}")
+    for key, ms, count in sorted(host, key=lambda r: -r[1])[:8]:
+        print(f"  host: {ms:.3f} ms self CPU (under the profiler) x{count} {key}")
 
 
 def main(argv=None) -> int:
@@ -323,13 +632,10 @@ def main(argv=None) -> int:
     build(LIBRARIES)
     print(f"build: {', '.join(LIBRARIES)} (.cu) for sm_90a, one nvcc each, "
           f"{time.perf_counter() - t0:.1f} s; ptxas:")
-    for lib in LIBRARIES:
-        lines = build_log(lib).splitlines()
-        for i, line in enumerate(lines):
-            if "Compiling entry" in line and "Li9E" in line:
-                print(f"  {lib} " + ("bf16" if "bfloat16" in line else "f32") + " ks=9: "
-                      + " | ".join(l.split("info    : ")[-1].strip()
-                                   for l in lines[i + 2:i + 4]))
+    for lib in LIBRARIES[:3]:
+        _ptxas(lib, ["Li9E"])
+    _ptxas("dau_spectral_grads", ["spectral_grads_kernel", "Li3ELi2E"])
+    _ptxas("dau_spectral_grads", ["spectral_dx_kernel"])
 
     # 2. kernel vs twin
     gen = torch.Generator().manual_seed(args.seed)
@@ -338,7 +644,7 @@ def main(argv=None) -> int:
     worst = compare(gen, dev, filt, ks)
 
     # 3. serving in bf16 through the kernel
-    model = AlexNetDAU(variant="default", engine="pallas_fused", dtype=torch.bfloat16,
+    model = AlexNetDAU(variant="default", image_size=IMAGE, engine="pallas_fused", dtype=torch.bfloat16,
                        device=dev, generator=torch.Generator().manual_seed(args.seed))
     model.eval()
     requests = [torch.rand((BATCH, 3, IMAGE, IMAGE), generator=gen).to(dev)
@@ -353,14 +659,14 @@ def main(argv=None) -> int:
                                      "kernel launches, expected 4 per request")
             if logits.shape != (BATCH, 1000) or not torch.isfinite(logits.float()).all():
                 raise AssertionError(f"request {i}: bad logits {tuple(logits.shape)}")
-    if _counts()[1:] != (0, 0):
-        raise AssertionError(f"serving launched K4/K6: {_counts()}")
+    if _counts()[1:] != (0, 0, 0, 0):
+        raise AssertionError(f"serving launched K4/K6/K1/K2: {_counts()}")
     launches = kfwd.dau_forward_fused.launches
     print(f"serving: {REQUESTS} requests of {BATCH}x3x{IMAGE}x{IMAGE} bf16, "
           f"{launches} kernel launches, logits finite")
 
     # 4. f32 reference: kernel path vs plain path on the same weights
-    ref_model = AlexNetDAU(variant="default", engine="pallas_fused", dtype=torch.float32,
+    ref_model = AlexNetDAU(variant="default", image_size=IMAGE, engine="pallas_fused", dtype=torch.float32,
                            device=dev, generator=torch.Generator().manual_seed(args.seed))
     ref_model.eval()
     with torch.inference_mode():
@@ -376,6 +682,7 @@ def main(argv=None) -> int:
 
     # 5. timing
     kernel_ms = plain_ms = 0.0
+    k5_bound = Bounds()
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
             for name, s, f, hw in LAYERS:
@@ -383,18 +690,20 @@ def main(argv=None) -> int:
                 t_k = _cuda_ms(lambda: kfwd.dau_forward_fused(x, w, mu1, mu2, filt, ks))
                 t_p = _cuda_ms(lambda: kfwd.dau_forward_fused_plain(x, w, mu1, mu2, filt, ks))
                 gflops = 2 * ks * ks * s * f * hw * hw * BATCH / 1e9
-                print(f"layer {name} N={BATCH} {str(dtype)[6:]}: kernel {t_k:.3f} ms "
-                      f"({gflops / t_k:.1f} TFLOP/s dense), plain {t_p:.3f} ms [{card}]")
+                extra = ""
                 if dtype == torch.bfloat16:
                     kernel_ms += t_k
                     plain_ms += t_p
+                    extra = f", bound {k5_bound.add(*_dense_work(BATCH, s, f, hw, _nbytes(x), True)):.4f} ms"
+                print(f"layer {name} N={BATCH} {str(dtype)[6:]}: kernel {t_k:.3f} ms "
+                      f"({gflops / t_k:.1f} TFLOP/s dense), plain {t_p:.3f} ms{extra} [{card}]")
         for m, tag in ((model, "bf16"), (ref_model, "f32")):
             t_k = _cuda_ms(lambda: m(requests[0]), iters=5)
             with plain_twin():
                 t_p = _cuda_ms(lambda: m(requests[0]), iters=5)
             print(f"request {BATCH}x3x{IMAGE}x{IMAGE} {tag}: kernel path {t_k:.3f} ms, "
                   f"plain path {t_p:.3f} ms [{card}]")
-    del model, ref_model, requests
+    del ref_model
 
     # 6. backward kernels vs twins
     worst_bwd = compare_backward(gen, dev, ks)
@@ -405,62 +714,128 @@ def main(argv=None) -> int:
     labels = torch.randint(0, 1000, (BATCH,), generator=gen).to(dev)
     runs = {}
     for engine in ("pallas_fused", "pallas"):
-        model, step, counts, moved = train(engine, dev, args.seed, batches, labels)
-        trainable = [k for k, p in model.named_parameters() if not k.endswith(".sigma")]
-        still = [k for k in trainable if k not in moved]
-        print(f"train {engine}: {STEPS} bf16 steps of {BATCH}x3x{IMAGE}x{IMAGE}, launches "
-              f"(K5, K4, K6) {counts}; {len(moved)} of {len(trainable)} trainable parameter "
-              f"tensors moved" + (f"; unmoved (every update below half a bf16 ulp): {still}"
-                                  if still else ""))
-        runs[engine] = (step, counts)
-    launches_k5 = launches + runs["pallas_fused"][1][0]
-    launches_k4 = runs["pallas"][1][1]
-    launches_k6 = runs["pallas_fused"][1][2] + runs["pallas"][1][2]
+        runs[engine] = _train_run(engine, dev, args.seed, batches, labels)
 
     # 8. f32 reference step: kernels vs twins
     for engine in ("pallas_fused", "pallas"):
         reference_step(engine, dev, args.seed, batches[0], labels)
 
     # 9. timing of the backward kernels and the training step
-    k6_ms = k6_plain = k4_ms = k4_plain = 0.0
+    k6_ms = k6_plain = k6_lib = k4_ms = k4_plain = k4_lib = 0.0
+    k6_bound, k4_bound = Bounds(), Bounds()
     error_filt = gaussian_filters(0.5, size=9, device=dev)["error"]
     for name, s, f, hw in LAYERS:
         xb, err = _tables_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
         t_k = _cuda_ms(lambda: kbwd.grad_tables(xb, err, ks))
         t_p = _cuda_ms(lambda: kbwd.grad_tables_plain(xb, err, ks))
+        # one library call of the same function: the table as one bf16
+        # correlation (cuDNN), its operands laid out beforehand
+        lhs = xb.transpose(1, 2).reshape(M * s, BATCH, hw, hw)
+        rhs = err.transpose(0, 1).contiguous()
+        t_l = _cuda_ms(lambda: torch.nn.functional.conv2d(lhs, rhs, padding=ks // 2))
         gflops = 2 * ks * ks * M * s * f * hw * hw * BATCH / 1e9
+        bd = k6_bound.add(gflops * 1e9, _nbytes(xb, err) + M * s * f * ks * ks * 4)
         print(f"layer {name} K6 N={BATCH} M={M} bf16: kernel {t_k:.3f} ms "
-              f"({gflops / t_k:.1f} TFLOP/s), plain {t_p:.3f} ms [{card}]")
-        k6_ms, k6_plain = k6_ms + t_k, k6_plain + t_p
+              f"({gflops / t_k:.1f} TFLOP/s), plain {t_p:.3f} ms, conv2d {t_l:.3f} ms, "
+              f"bound {bd:.4f} ms [{card}]")
+        k6_ms, k6_plain, k6_lib = k6_ms + t_k, k6_plain + t_p, k6_lib + t_l
         x, w, mu1, mu2 = _layer_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
         t_k = _cuda_ms(lambda: kfwd.aggregate_forward(x, w, mu1, mu2, ks))
         t_p = _cuda_ms(lambda: kfwd.aggregate_forward_plain(x, w, mu1, mu2, ks))
-        print(f"layer {name} K4 N={BATCH} bf16: kernel {t_k:.3f} ms, plain {t_p:.3f} ms "
-              f"[{card}]")
-        k4_ms, k4_plain = k4_ms + t_k, k4_plain + t_p
+        # one library call: the aggregation as one bf16 convolution with
+        # the synthesized kernel (synthesized beforehand)
+        kern = xla_engine.synthesize_kernel(w, mu1, mu2, ks).transpose(0, 1).contiguous()
+        t_l = _cuda_ms(lambda: torch.nn.functional.conv2d(x, kern, padding=ks // 2))
+        bd = k4_bound.add(*_dense_work(BATCH, s, f, hw, _nbytes(x), False))
+        print(f"layer {name} K4 N={BATCH} bf16: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+              f"conv2d {t_l:.3f} ms, bound {bd:.4f} ms [{card}]")
+        k4_ms, k4_plain, k4_lib = k4_ms + t_k, k4_plain + t_p, k4_lib + t_l
         e, wt, m1, m2 = _dx_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
         t_k = _cuda_ms(lambda: kfwd.dau_forward_fused(e, wt, m1, m2, error_filt, ks))
         t_p = _cuda_ms(lambda: kfwd.dau_forward_fused_plain(e, wt, m1, m2, error_filt, ks))
         print(f"layer {name} K5 dx {f}->{s} N={BATCH} bf16: kernel {t_k:.3f} ms, "
               f"plain {t_p:.3f} ms [{card}]")
-    for engine, (step, _) in runs.items():
-        t_k = _cuda_ms(lambda: step(batches[0], labels), iters=3, warmup=1)
-        with plain_twin():
-            t_p = _cuda_ms(lambda: step(batches[0], labels), iters=3, warmup=1)
-        print(f"train step {engine} {BATCH}x3x{IMAGE}x{IMAGE} bf16: kernel path {t_k:.3f} ms, "
-              f"plain path {t_p:.3f} ms [{card}]")
+    del xb, err, lhs, rhs, x, e, kern
 
+    # 10. K1/K2 vs twin
+    worst_spec = compare_spectral(gen, dev)
+
+    # 11. Fourier serving, uncached and phi-cached
+    fmodel, cmodel = serve_fourier(dev, args.seed, requests, card)
+
+    # 12. Fourier training in bf16, then the f32 reference steps
+    for engine in ("fourier", "fourier fused_dx"):
+        runs[engine] = _train_run(engine, dev, args.seed, batches, labels)
+    for kw in (dict(fused_bwd="on"), dict(fused_bwd="on", fused_dx="on")):
+        reference_step("fourier", dev, args.seed, batches[0], labels, **kw)
+
+    # 13. timing: K1/K2 per layer, requests, steps, peak memory
+    spec, k1_bound, k2_bound = time_spectral(gen, dev, card, worst_spec)
+    with torch.inference_mode():
+        for tag, m in (("fourier", fmodel), ("fourier phi-cached", cmodel),
+                       ("pallas_fused", model), ("fourier phi-cached", cmodel),
+                       ("fourier", fmodel)):
+            t_k = _spread(lambda: m(requests[0]))
+            print(f"request {BATCH}x3x{IMAGE}x{IMAGE} bf16 {tag}: {_fmt(t_k)} over 5 runs of "
+                  f"5 [{card}]")
+    del fmodel, cmodel, model, requests
+    step_ms = {}
+    for engine, (step, _) in runs.items():
+        t_k = _spread(lambda: step(batches[0], labels), iters=3)
+        with plain_twin():
+            t_p = _spread(lambda: step(batches[0], labels), iters=3)
+        step_ms[engine] = t_k[0]
+        print(f"train step {engine} {BATCH}x3x{IMAGE}x{IMAGE} bf16: kernel path {_fmt(t_k)}, "
+              f"plain path {_fmt(t_p)}, over 5 runs of 3 [{card}]")
+    for engine in ("fourier", "fourier fused_dx"):
+        profile_step(engine, runs[engine][0], batches[0], labels, step_ms[engine], card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    runs["fourier"][0](batches[0], labels)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train step fourier bf16: peak device memory {peak / 2**30:.3f} GiB, "
+          f"{(peak - resident) / 2**30:.3f} GiB above the {resident / 2**30:.3f} GiB resident "
+          f"before the step (models and batches of all four runs) [{card}]")
+
+    launches_k5 = launches + runs["pallas_fused"][1][0]
+    launches_k4 = runs["pallas"][1][1]
+    launches_k6 = runs["pallas_fused"][1][2] + runs["pallas"][1][2]
+    launches_k1 = runs["fourier"][1][3]
+    launches_k2 = runs["fourier fused_dx"][1][4]
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=launches_k5, max_abs_err=max(worst, worst_bwd["k5dx"]),
-             ms=kernel_ms, plain_ms=plain_ms),
+             ms=kernel_ms, plain_ms=plain_ms, bound_ms=k5_bound.ms,
+             bound_by=k5_bound.bound_by, library_ms=None),
         dict(KERNEL_K6, launches=launches_k6, max_abs_err=worst_bwd["k6"],
-             ms=k6_ms, plain_ms=k6_plain),
+             ms=k6_ms, plain_ms=k6_plain, bound_ms=k6_bound.ms, bound_by=k6_bound.bound_by,
+             library_ms=k6_lib),
         dict(KERNEL_K4, launches=launches_k4, max_abs_err=worst_bwd["k4"],
-             ms=k4_ms, plain_ms=k4_plain)]}))
+             ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_bound.ms, bound_by=k4_bound.bound_by,
+             library_ms=k4_lib),
+        dict(KERNEL_K1, launches=launches_k1, max_abs_err=worst_spec["k1"],
+             ms=spec["k1"], plain_ms=spec["k1_plain"], bound_ms=k1_bound.ms,
+             bound_by=k1_bound.bound_by, library_ms=None),
+        dict(KERNEL_K2, launches=launches_k2, max_abs_err=worst_spec["k2"],
+             ms=spec["k2"], plain_ms=spec["k2_plain"], bound_ms=k2_bound.ms,
+             bound_by=k2_bound.bound_by, library_ms=None)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _train_run(engine, dev, seed, batches, labels):
+    """Phase 7/12 for one run of TRAIN_RUNS: returns (step, launch counts)."""
+    model, step, counts, moved = train(engine, dev, seed, batches, labels)
+    trainable = [k for k, p in model.named_parameters() if not k.endswith(".sigma")]
+    still = [k for k in trainable if k not in moved]
+    print(f"train {engine}: {STEPS} bf16 steps of {BATCH}x3x{IMAGE}x{IMAGE}, launches "
+          f"{COUNTS} {counts}; {len(moved)} of {len(trainable)} trainable parameter "
+          f"tensors moved" + (f"; unmoved (every update below half a bf16 ulp): {still}"
+                              if still else ""))
+    return step, counts
 
 
 if __name__ == "__main__":

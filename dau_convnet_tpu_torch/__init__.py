@@ -15,12 +15,14 @@ from .ops import (
     dau_conv2d_op,
     depthwise_blur,
     gaussian_filters,
+    precompute_phi,
 )
 
 __all__ = [
     "DAUConvSettings",
     "dau_conv2d_op",
     "dau_conv2d_infer",
+    "precompute_phi",
     "blur_kernel_size",
     "depthwise_blur",
     "gaussian_filters",

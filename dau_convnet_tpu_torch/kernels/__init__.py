@@ -1,6 +1,8 @@
 from .backward import grad_tables, grad_tables_plain
 from .forward import (aggregate_forward, aggregate_forward_plain, dau_forward_fused,
                       dau_forward_fused_plain)
+from .fused_bwd import FusedPlanError, fused_spectral_grads, fused_spectral_grads_plain
 
 __all__ = ["dau_forward_fused", "dau_forward_fused_plain", "aggregate_forward",
-           "aggregate_forward_plain", "grad_tables", "grad_tables_plain"]
+           "aggregate_forward_plain", "grad_tables", "grad_tables_plain",
+           "FusedPlanError", "fused_spectral_grads", "fused_spectral_grads_plain"]

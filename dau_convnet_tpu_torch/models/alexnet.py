@@ -5,6 +5,8 @@ Counterpart of `dau_convnet_tpu/models/alexnet.py`. conv1 is a standard
 max-pools are 3/2 VALID, the flatten is in NCHW order and fc6-fc8 are dense
 layers. As in flax, conv1 and the dense layers keep their parameters in f32
 and cast them to `dtype` per call; the DAU layers create theirs in `dtype`.
+Parameters live on the CUDA card unless the caller names another device.
+The fused_* fields and phi_caching (serving only) go to every DAU layer.
 """
 
 from __future__ import annotations
@@ -60,8 +62,10 @@ class AlexNetDAU(nn.Module):
     def __init__(self, num_classes: int = 1000, variant: str = "default",
                  max_kernel_size: int = 9,
                  static_max_offset: tp.Optional[float] = None,
-                 engine: str = "auto", dtype: torch.dtype = torch.float32,
-                 image_size: int = 227, device=None,
+                 engine: str = "auto", fused_bwd: str = "auto",
+                 fused_dx: str = "auto", fused_gather: str = "phi",
+                 phi_caching: bool = False, dtype: torch.dtype = torch.float32,
+                 image_size: int = 227, device=torch.device("cuda"),
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
@@ -70,8 +74,9 @@ class AlexNetDAU(nn.Module):
         for name, s, f, _ in _DAU_LAYERS:
             setattr(self, name, DAUConv2d(
                 s, f, units, max_kernel_size, static_max_offset=static_max_offset,
-                engine=engine, activation=F.relu, dtype=dtype, device=device,
-                generator=generator))
+                engine=engine, fused_bwd=fused_bwd, fused_dx=fused_dx,
+                fused_gather=fused_gather, phi_caching=phi_caching, activation=F.relu,
+                dtype=dtype, device=device, generator=generator))
         side = _pooled(_pooled(_pooled((image_size - 11) // 4 + 1)))
         fc_in = 256 * side * side
         self.fc6 = _Affine((4096, fc_in), fc_in, device, generator)

@@ -1,3 +1,3 @@
-from .layers import DAU_UNITS_GROUP, DAUConv2d, DAUGridMean, ZeroNLast
+from .layers import DAU_UNITS_GROUP, DAUConv2d, DAUGridMean, ZeroNLast, refresh_phi_cache
 
-__all__ = ["DAU_UNITS_GROUP", "DAUConv2d", "DAUGridMean", "ZeroNLast"]
+__all__ = ["DAU_UNITS_GROUP", "DAUConv2d", "DAUGridMean", "ZeroNLast", "refresh_phi_cache"]

@@ -17,10 +17,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.dau_conv import DAUConvSettings, dau_conv2d_op
+from ..ops.dau_conv import DAUConvSettings, dau_conv2d_infer, dau_conv2d_op, precompute_phi
 from ..ops.gaussian import blur_kernel_size
 
-__all__ = ["DAU_UNITS_GROUP", "DAUGridMean", "ZeroNLast", "DAUConv2d"]
+__all__ = ["DAU_UNITS_GROUP", "DAUGridMean", "ZeroNLast", "DAUConv2d", "refresh_phi_cache"]
 
 # the engine aggregates units in groups of 2; odd unit counts get one dummy
 # unit with zero weight
@@ -103,6 +103,20 @@ def _rounded_units(dau_units: tp.Tuple[int, int]):
     return units, num_all, num_ignore
 
 
+def refresh_phi_cache(model: nn.Module, sample_input) -> nn.Module:
+    """Rebuild every `phi_caching` layer's cached phase table from the
+    CURRENT parameters (serving: call once after loading or updating
+    weights). Runs one forward of `model` on `sample_input` without
+    gradients; the input must have the serving spatial shape and dtype, for
+    which the tables are built. Returns the model."""
+    for layer in model.modules():
+        if isinstance(layer, DAUConv2d):
+            layer.clear_phi_cache()
+    with torch.no_grad():
+        model(sample_input)
+    return model
+
+
 def _clip(v, lo: float, hi: float):
     """`jnp.clip` with its gradient: 1 inside, 1/2 at a value exactly on a
     bound, 0 outside (`torch.clamp` passes all of it at the bound). The
@@ -115,9 +129,19 @@ class DAUConv2d(nn.Module):
     """Displaced Aggregation Unit 2D convolution layer.
 
     Input is NCHW for data_format='channels_first', NHWC for
-    'channels_last'. Parameters are created in `dtype` on `device`; weights
-    are drawn from `generator` (normal, stddev 0.1), mu1/mu2 start on the
-    DAUGridMean grid, sigma at `dau_sigma_init`, bias at zero.
+    'channels_last'. Parameters are created in `dtype` on `device` (the CUDA
+    card unless the caller names another device); weights are drawn from
+    `generator` (normal, stddev 0.1), mu1/mu2 start on the DAUGridMean grid,
+    sigma at `dau_sigma_init`, bias at zero.
+
+    fused_bwd, fused_dx, fused_gather and remat_phi steer the fourier
+    engine's backward (see `DAUConvSettings`). phi_caching (SERVING ONLY):
+    the fourier engine's phase table is kept in a non-persistent buffer,
+    built without gradients from the current parameters at the first
+    forward, for that input's spatial shape and dtype, and every forward
+    serves through `dau_conv2d_infer(phi=...)`; after loading new weights
+    call `refresh_phi_cache`. A caching layer asked for gradients raises:
+    run it under `torch.no_grad()` or `torch.inference_mode()`.
     """
 
     def __init__(self, in_channels: int, filters: int,
@@ -137,9 +161,14 @@ class DAUConv2d(nn.Module):
                  unit_testing: bool = False,
                  static_max_offset: tp.Optional[float] = None,
                  engine: str = "auto",
+                 fused_bwd: str = "auto",
+                 fused_dx: str = "auto",
+                 fused_gather: str = "phi",
+                 remat_phi: bool = False,
+                 phi_caching: bool = False,
                  precision: tp.Optional[str] = None,
                  dtype: torch.dtype = torch.float32,
-                 device=None,
+                 device=torch.device("cuda"),
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         self.filters = filters
@@ -153,6 +182,10 @@ class DAUConv2d(nn.Module):
         self.dau_unit_border_bound = dau_unit_border_bound
         self.dau_sigma_init = dau_sigma_init
         self.dau_sigma_max = dau_sigma_max
+        self.phi_caching = phi_caching
+        self.register_buffer("phi_re", None, persistent=False)
+        self.register_buffer("phi_im", None, persistent=False)
+        self._phi_key = None
 
         units, num_all, num_ignore = _rounded_units(tuple(dau_units))
         pshape = (1, in_channels, num_all, filters)
@@ -185,6 +218,10 @@ class DAUConv2d(nn.Module):
             static_max_offset=static_max_offset,
             engine=engine,
             precision=precision,
+            fused_bwd=fused_bwd,
+            fused_dx=fused_dx,
+            fused_gather=fused_gather,
+            remat_phi=remat_phi,
         )
 
     def _sigma_cap(self) -> float:
@@ -193,6 +230,30 @@ class DAUConv2d(nn.Module):
             return self.dau_sigma_init
         cap = 1.6 if self.dau_sigma_max is None else self.dau_sigma_max
         return max(self.dau_sigma_init, cap)
+
+    def clear_phi_cache(self) -> None:
+        """Drop the cached phase table; the next forward rebuilds it."""
+        self.phi_re = self.phi_im = None
+        self._phi_key = None
+
+    def _cached_phi(self, x, mu1, mu2):
+        """The cached phase table for x's spatial shape and dtype, built from
+        the current (clipped) parameters at the first call."""
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                p.requires_grad for p in self.parameters())):
+            raise RuntimeError(
+                "DAUConv2d(phi_caching=True) serves only: its cached-phi forward has no "
+                "gradients; run it under torch.no_grad() or torch.inference_mode()")
+        key = (tuple(x.shape[-2:]), x.dtype, x.device)
+        if self._phi_key is None:
+            with torch.no_grad():
+                self.phi_re, self.phi_im = precompute_phi(
+                    self.cfg, key[0], self.weights.to(x.dtype), mu1, mu2)
+            self._phi_key = key
+        elif self._phi_key != key:
+            raise ValueError(f"the phase table was built for {self._phi_key}, the input is "
+                             f"{key}; call refresh_phi_cache with a serving-shaped input")
+        return self.phi_re, self.phi_im
 
     def forward(self, inputs):
         if inputs.dim() != 4:
@@ -217,7 +278,11 @@ class DAUConv2d(nn.Module):
         mu2 = _clip(mu2, -bound, bound)
 
         sigma_tiled = sigma.reshape(1, 1, 1, 1).expand(self.weights.shape)
-        out = dau_conv2d_op(self.cfg, x, self.weights, mu1, mu2, sigma_tiled)
+        if self.phi_caching and self.cfg.engine == "fourier":
+            out = dau_conv2d_infer(self.cfg, x, self.weights, mu1, mu2, sigma_tiled,
+                                   phi=self._cached_phi(x, mu1, mu2))
+        else:
+            out = dau_conv2d_op(self.cfg, x, self.weights, mu1, mu2, sigma_tiled)
 
         if self.strides > 1:
             # stride emulated by output slicing, same compute as stride 1

@@ -1,11 +1,16 @@
-from .dau_conv import DAUConvSettings, dau_conv2d_infer, dau_conv2d_op
-from .gaussian import blur_kernel_size, depthwise_blur, gaussian_filters
+from .dau_conv import DAUConvSettings, dau_conv2d_infer, dau_conv2d_op, precompute_phi
+from .gaussian import (blur_kernel_size, depthwise_blur, gaussian_factor_filters,
+                       gaussian_filters, rank1_blur, rank1_blur_stack)
 
 __all__ = [
     "DAUConvSettings",
     "dau_conv2d_op",
     "dau_conv2d_infer",
+    "precompute_phi",
     "blur_kernel_size",
     "depthwise_blur",
     "gaussian_filters",
+    "gaussian_factor_filters",
+    "rank1_blur",
+    "rank1_blur_stack",
 ]

@@ -2,13 +2,14 @@
 
 Counterpart of `dau_convnet_tpu/ops/dau_conv.py`: the same settings, the
 same parameter preparation (dummy-unit mask, sigma clip, filter build), the
-same forward chain and the same analytic backward (`_bwd_rule`), for the
-engines ported so far: 'xla' (depthwise blur + dense aggregation),
-'pallas' (depthwise blur + the aggregation kernel K4) and 'pallas_fused'
-(the fused blur + aggregation kernel K5); both Pallas engines take their
-unit gradients from the grad-table kernel K6. 'fourier' (also what 'auto'
-picks at precision='default') raises NotImplementedError until its ROADMAP
-step lands; it never falls back to another engine.
+same forward chain and the same analytic backward (`_bwd_rule`) for every
+engine: 'xla' (depthwise blur + dense aggregation), 'pallas' (depthwise blur
++ the aggregation kernel K4), 'pallas_fused' (the fused blur + aggregation
+kernel K5), whose unit gradients come from the grad-table kernel K6, and
+'fourier' (separable blur + per-bin spectral contractions, what 'auto'
+picks at precision='default'), whose unit gradients come from the fused
+spectral kernel K1 where the gate allows it (K2 also emits dx under
+fused_dx='on'), else from the unfused spectral gather.
 """
 
 from __future__ import annotations
@@ -20,21 +21,24 @@ import typing as tp
 import torch
 
 from ..utils.math import clip_nan
-from . import xla_engine
+from . import fourier_engine, xla_engine
 from ._edge import disabled_edges
-from .gaussian import depthwise_blur, gaussian_filters
+from .gaussian import (depthwise_blur, gaussian_factor_filters, gaussian_filters,
+                       rank1_blur, rank1_blur_stack)
 
-__all__ = ["DAUConvSettings", "dau_conv2d_op", "dau_conv2d_infer", "edge_gradient_mask"]
+__all__ = ["DAUConvSettings", "dau_conv2d_op", "dau_conv2d_infer", "precompute_phi",
+           "edge_gradient_mask"]
 
-_FOURIER_TODO = "ROADMAP.md 'Still to port', step 1 (Fourier forward)"
+_FACTORED_TODO = ("fused_gather='factored' (K8) is not ported yet: ROADMAP.md "
+                  "'Still to port', K8")
 
 
 @dataclasses.dataclass(frozen=True)
 class DAUConvSettings:
     """Static configuration of a DAU convolution; the fields, defaults and
-    validation of the JAX `DAUConvSettings`. Fields that steer the Fourier
-    engine or the sharded backward are kept so a configuration carries over
-    as it is; they take effect when those paths are ported."""
+    validation of the JAX `DAUConvSettings`. `data_axis`/`model_axis` (the
+    sharded backward) are kept so a configuration carries over as it is;
+    they take effect when the mesh is ported."""
 
     kernel_size: int = 9
     use_interpolation: bool = True
@@ -158,42 +162,96 @@ def _filters(cfg: DAUConvSettings, sigma_value):
     )
 
 
-def _blur_and_aggregate(cfg: DAUConvSettings, x, sigma_value, w, mu1, mu2,
-                        blur_name: str = "w"):
-    """Blur + offset-and-sum, dispatched on the engine. 'pallas_fused' runs
-    both inside one kernel (K5); 'pallas' blurs with a torch depthwise conv
-    and aggregates in K4; 'xla' runs both as dense torch ops."""
+def _factor_filters(cfg: DAUConvSettings, sigma_value):
+    """Separable 1D factorization of the blur filters."""
+    return gaussian_factor_filters(
+        sigma_value,
+        size=cfg.blur_size,
+        single_dim_kernel=cfg.single_dim_kernel,
+        forbid_positive_dim1=cfg.forbid_positive_dim1,
+        unit_normalization=cfg.unit_normalization,
+        square_unit_normalization=cfg.square_unit_normalization,
+        dtype=torch.promote_types(sigma_value.dtype, torch.float32),
+    )
+
+
+def _build_phi(cfg: DAUConvSettings, spatial, w3m, mu13, mu23):
+    """Bin-major spectral phase table shared by the fourier forward and dx
+    passes, from the integer cos/sin tables."""
+    h, wd = spatial
+    p1, p2, rb = fourier_engine.plan_bins(h, wd, cfg.synth_kernel_size)
+    return fourier_engine.build_phi(w3m, mu13, mu23, p1, p2, rb, cfg.use_interpolation,
+                                    phase_span=cfg.synth_kernel_size // 2 + 1)
+
+
+def _blur(cfg: DAUConvSettings, x, sigma_value, name: str):
+    """Engine-dispatched blur: the separable banded-matmul form for
+    'fourier' (same zero-pad semantics), the depthwise conv otherwise."""
     if cfg.engine == "fourier":
-        raise NotImplementedError(f"engine='fourier' is not ported yet: {_FOURIER_TODO}")
-    filt = _filters(cfg, sigma_value)[blur_name]
+        vecs, terms = _factor_filters(cfg, sigma_value)
+        return rank1_blur(x, vecs, terms[name])
+    return depthwise_blur(x, _filters(cfg, sigma_value)[name])
+
+
+def _aggregate(cfg: DAUConvSettings, x_blur, w, mu1, mu2, phi=None):
     ks, interp = cfg.synth_kernel_size, cfg.use_interpolation
-    if cfg.engine == "pallas_fused":
-        from ..kernels.forward import dau_forward_fused
-        return dau_forward_fused(x.contiguous(), w, mu1, mu2, filt, ks, interp)
-    x_blur = depthwise_blur(x, filt)
-    if cfg.engine == "pallas":
+    if cfg.engine in ("pallas", "pallas_fused"):
         from ..kernels.forward import aggregate_forward
         return aggregate_forward(x_blur.contiguous(), w, mu1, mu2, ks, interp)
+    if cfg.engine == "fourier":
+        return fourier_engine.fourier_forward(x_blur, w, mu1, mu2, ks, interp, phi=phi)
     return xla_engine.aggregate_forward(x_blur, w, mu1, mu2, ks, interp)
 
 
-def _forward_impl(cfg: DAUConvSettings, x, w, mu1, mu2, sigma):
-    w3, mu13, mu23, _ = _squeeze_params(w, mu1, mu2)
+def _blur_and_aggregate(cfg: DAUConvSettings, x, sigma_value, w, mu1, mu2,
+                        phi=None, blur_name: str = "w"):
+    """Blur + offset-and-sum, dispatched on the engine. 'pallas_fused' runs
+    both inside one kernel (K5); 'pallas' blurs with a torch depthwise conv
+    and aggregates in K4; 'fourier' blurs with banded matmuls and
+    aggregates per frequency bin; 'xla' runs both as dense torch ops."""
+    if cfg.engine == "pallas_fused":
+        from ..kernels.forward import dau_forward_fused
+        filt = _filters(cfg, sigma_value)[blur_name]
+        return dau_forward_fused(x.contiguous(), w, mu1, mu2, filt, cfg.synth_kernel_size,
+                                 cfg.use_interpolation)
+    return _aggregate(cfg, _blur(cfg, x, sigma_value, blur_name), w, mu1, mu2, phi=phi)
+
+
+def _masked_units(cfg: DAUConvSettings, w, mu1, mu2):
+    """(w3 with the dummy units zeroed, mu13, mu23, had_lead, mask)."""
+    w3, mu13, mu23, had_lead = _squeeze_params(w, mu1, mu2)
     mask = _unit_mask(*w3.shape, cfg.number_units_ignore, w3.dtype, w3.device)
-    if mask is not None:
-        w3 = w3 * mask
-    return _blur_and_aggregate(cfg, x, _sigma_scalar(cfg, sigma),
-                               w3, mu13, mu23)
+    return (w3 * mask if mask is not None else w3), mu13, mu23, had_lead, mask
+
+
+def _forward_impl(cfg: DAUConvSettings, x, w, mu1, mu2, sigma, phi=None):
+    w3, mu13, mu23, _, _ = _masked_units(cfg, w, mu1, mu2)
+    if phi is None and cfg.engine == "fourier":
+        phi = _build_phi(cfg, x.shape[-2:], w3.to(x.dtype), mu13, mu23)
+    return _blur_and_aggregate(cfg, x, _sigma_scalar(cfg, sigma), w3, mu13, mu23, phi=phi)
+
+
+def precompute_phi(cfg: DAUConvSettings, spatial, w, mu1, mu2, dtype=None):
+    """Prebuild the fourier engine's phase table for frozen parameters, for
+    `dau_conv2d_infer(..., phi=...)`. spatial: (H, W) of the inputs to
+    serve; w, mu1, mu2: (1, S, G, F) or (S, G, F); dtype: the table's dtype
+    (the serving input's), default w's. Returns (phire, phiim)."""
+    if cfg.engine != "fourier":
+        raise ValueError(f"precompute_phi requires engine='fourier', got {cfg.engine!r}")
+    w3, mu13, mu23, _, _ = _masked_units(cfg, w, mu1, mu2)
+    return _build_phi(cfg, tuple(spatial), w3.to(w3.dtype if dtype is None else dtype),
+                      mu13, mu23)
 
 
 def dau_conv2d_infer(cfg: DAUConvSettings, x, w, mu1, mu2, sigma, phi=None):
     """Forward-only DAU convolution for serving: the same forward as
-    `dau_conv2d_op`, without autograd. `phi` is the Fourier engine's cached
-    phase table and needs engine='fourier'."""
+    `dau_conv2d_op`, without autograd. `phi` is a table from
+    `precompute_phi`, built for x's spatial shape and dtype (engine
+    'fourier' only)."""
     if phi is not None and cfg.engine != "fourier":
         raise ValueError(
             f"phi is a fourier-engine table; engine is {cfg.engine!r}")
-    return _forward_impl(cfg, x, w, mu1, mu2, sigma)
+    return _forward_impl(cfg, x, w, mu1, mu2, sigma, phi=phi)
 
 
 def _reduce_to_shape(g, shape):
@@ -210,50 +268,96 @@ def _reduce_to_shape(g, shape):
     return g.reshape(shape)
 
 
-def _param_grads(cfg: DAUConvSettings, x, gy, filts, mu13, mu23):
-    """(M, S, G, F) unit gradients: blur x with the filters w, dmu1, dmu2
-    (and dsigma), build the position table (K6 on the Pallas engines, a
-    torch correlation on 'xla') and tap-gather it per unit."""
+def _fused_route(cfg: DAUConvSettings, xb, g: int, bins: int) -> bool:
+    """The fused spectral kernel's gate: forced by fused_bwd='on', or under
+    'auto' on a CUDA tensor with B <= 256 bins or G >= 4 (the thresholds of
+    the JAX gate); either way only where the kernel has a plan."""
+    from ..kernels.fused_bwd import spectral_plan
+    gather = "phi" if cfg.fused_gather == "auto" else cfg.fused_gather
+    if cfg.fused_bwd == "off":
+        return False
+    if cfg.fused_bwd == "auto" and not (
+            xb.is_cuda and (gather != "phi" or bins <= 256 or g >= 4)):
+        return False
+    if gather == "factored":
+        raise NotImplementedError(_FACTORED_TODO)
+    m, _, _, h, w_sp = xb.shape
+    p1, _, rb = fourier_engine.plan_bins(h, w_sp, cfg.synth_kernel_size)
+    nj = 2 * (cfg.synth_kernel_size // 2 + 1) + 2
+    return spectral_plan(m=m, g=g, nj=nj, p1b=p1, rbb=rb) is not None
+
+
+def _param_grads(cfg: DAUConvSettings, x, gy, sigma_value, w3m, mu13, mu23, dx_fused: bool):
+    """(M, S, G, F) unit gradients, and dx when the fused kernel emitted it
+    (else None). Blur x with the filters w, dmu1, dmu2 (and dsigma); the
+    Pallas engines read the gradients out of K6's position table, 'xla' out
+    of the dense table, 'fourier' out of the cross-spectra (K1/K2 or the
+    unfused spectral gather)."""
+    gy_p = gy
     if cfg.unit_testing:
-        gy = gy * edge_gradient_mask(*gy.shape[-2:], dtype=gy.dtype, device=gy.device)
+        gy_p = gy * edge_gradient_mask(*gy.shape[-2:], dtype=gy.dtype, device=gy.device)
     names = ["w", "dmu1", "dmu2"] + (["dsigma"] if cfg.compute_sigma_grad else [])
     n, s_ch, h, w_sp = x.shape
-    fstack = torch.stack([filts[k] for k in names])  # (M, kb, kb)
+    ks = cfg.synth_kernel_size
+    if cfg.engine == "fourier":
+        vecs, fterms = _factor_filters(cfg, sigma_value)
+        xb = rank1_blur_stack(x, vecs, fterms, names)  # (M, N, S, H, W)
+        p1, _, rb = fourier_engine.plan_bins(h, w_sp, ks)
+        if not _fused_route(cfg, xb, w3m.shape[1], p1 * rb):
+            return fourier_engine.fourier_unit_grads(
+                xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, precision=cfg.precision), None
+        if not (dx_fused and cfg.fused_dx == "on"):
+            return fourier_engine.fourier_unit_grads_fused2(
+                xb, gy_p, mu13, mu23, ks, cfg.use_interpolation), None
+        # dx from the same kernel call as the unit gradients (K2)
+        gy_blur = _blur(cfg, gy, sigma_value, "error")
+        grads, dx = fourier_engine.fourier_unit_grads_fused2(
+            xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, err_blur=gy_blur,
+            w_units=w3m.to(xb.dtype))
+        return grads, dx.to(x.dtype)
+    fstack = torch.stack([_filters(cfg, sigma_value)[k] for k in names])  # (M, kb, kb)
     xb = depthwise_blur(x, fstack)  # (N, S*M, H, W)
     xb = xb.reshape(n, s_ch, len(names), h, w_sp).permute(2, 0, 1, 3, 4)  # (M, N, S, H, W)
-    ks = cfg.synth_kernel_size
     if cfg.engine in ("pallas", "pallas_fused"):
         from ..kernels.backward import grad_tables
-        table = grad_tables(xb, gy, ks).to(xb.dtype)
+        table = grad_tables(xb, gy_p, ks).to(xb.dtype)
     else:
-        table = xla_engine.grad_tables(xb, gy, ks)
-    return xla_engine.tap_gather(table, mu13, mu23, ks, cfg.use_interpolation)
+        table = xla_engine.grad_tables(xb, gy_p, ks)
+    return xla_engine.tap_gather(table, mu13, mu23, ks, cfg.use_interpolation), None
 
 
-def _bwd_rule(cfg: DAUConvSettings, x, w, mu1, mu2, sigma, gy, needs):
+def _bwd_rule(cfg: DAUConvSettings, x, w, mu1, mu2, sigma, gy, needs, phi=None):
     """The analytic backward of `dau_conv2d_op`: (dx, dw, dmu1, dmu2,
     dsigma), None where `needs` (the input-grad flags of x, w, mu1, mu2,
-    sigma) says no gradient is wanted."""
-    if cfg.engine == "fourier":
-        raise NotImplementedError(f"engine='fourier' is not ported yet: {_FOURIER_TODO}")
+    sigma) says no gradient is wanted. `phi` is the forward's phase table
+    (engine 'fourier'; rebuilt here when None)."""
     gy = gy.contiguous()
-    w3, mu13, mu23, had_lead = _squeeze_params(w, mu1, mu2)
-    mask = _unit_mask(*w3.shape, cfg.number_units_ignore, w3.dtype, w3.device)
-    w3m = w3 * mask if mask is not None else w3
+    w3m, mu13, mu23, had_lead, mask = _masked_units(cfg, w, mu1, mu2)
     sigma_value = _sigma_scalar(cfg, sigma)
+    if cfg.engine == "fourier" and phi is None:
+        phi = _build_phi(cfg, x.shape[-2:], w3m.to(x.dtype), mu13, mu23)
+    # the fourier engine takes dx from the forward's Phi conjugated (with
+    # interpolation only: the floor tap of interp-off does not mirror)
+    fourier_dx = cfg.engine == "fourier" and cfg.use_interpolation
 
-    # input gradient: the forward engine on the error, with S<->F
-    # transposed params, negated offsets and the mirrored blur filter
-    dx = None
-    if needs[0]:
-        dx = _blur_and_aggregate(
-            cfg, gy, sigma_value, w3m.permute(2, 1, 0),
-            -mu13.permute(2, 1, 0), -mu23.permute(2, 1, 0),
-            blur_name="error").to(x.dtype)
-    if not any(needs[1:]):
+    dx = grads = None
+    if any(needs[1:]):
+        grads, dx = _param_grads(cfg, x, gy, sigma_value, w3m, mu13, mu23,
+                                 dx_fused=needs[0] and fourier_dx)
+    if needs[0] and dx is None:
+        if fourier_dx:
+            dx = fourier_engine.fourier_input_grad(
+                _blur(cfg, gy, sigma_value, "error"), phi, cfg.synth_kernel_size)
+        else:
+            # the forward engine on the error, with S<->F transposed params,
+            # negated offsets and the mirrored blur filter
+            dx = _blur_and_aggregate(
+                cfg, gy, sigma_value, w3m.permute(2, 1, 0),
+                -mu13.permute(2, 1, 0), -mu23.permute(2, 1, 0), blur_name="error")
+        dx = dx.to(x.dtype)
+    if grads is None:
         return dx, None, None, None, None
 
-    grads = _param_grads(cfg, x, gy, _filters(cfg, sigma_value), mu13, mu23)
     lr = grads.new_full((), cfg.mu_learning_rate_factor)
     dw = grads[0]
     dmu1 = grads[1] * w3m * lr
@@ -262,6 +366,7 @@ def _bwd_rule(cfg: DAUConvSettings, x, w, mu1, mu2, sigma, gy, needs):
         # NaN -> 0 on the mu grads only
         dmu1 = clip_nan(dmu1)
         dmu2 = clip_nan(dmu2)
+    w3 = w[0] if had_lead else w
     dsigma_full = grads[3] * w3m if cfg.compute_sigma_grad else torch.zeros_like(w3)
     if mask is not None:
         # dummy units get no gradient; their mu/sigma grads are already
@@ -277,15 +382,24 @@ def _bwd_rule(cfg: DAUConvSettings, x, w, mu1, mu2, sigma, gy, needs):
 class _DAUConv2dFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, x, w, mu1, mu2, sigma):
+        phi = None
+        if cfg.engine == "fourier":
+            # one phase table for the forward and the backward's dx
+            # (remat_phi: rebuilt in the backward instead of kept)
+            w3, mu13, mu23, _, _ = _masked_units(cfg, w, mu1, mu2)
+            phi = _build_phi(cfg, x.shape[-2:], w3.to(x.dtype), mu13, mu23)
         ctx.cfg = cfg
+        ctx.phi = None if cfg.remat_phi else phi
         ctx.save_for_backward(x, w, mu1, mu2, sigma)
-        return _forward_impl(cfg, x, w, mu1, mu2, sigma)
+        return _forward_impl(cfg, x, w, mu1, mu2, sigma, phi=phi)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        return (None, *_bwd_rule(ctx.cfg, *ctx.saved_tensors, grad_out,
-                                 ctx.needs_input_grad[1:]))
+        grads = _bwd_rule(ctx.cfg, *ctx.saved_tensors, grad_out, ctx.needs_input_grad[1:],
+                          phi=ctx.phi)
+        ctx.phi = None
+        return (None, *grads)
 
 
 def dau_conv2d_op(cfg: DAUConvSettings, x, w, mu1, mu2, sigma):

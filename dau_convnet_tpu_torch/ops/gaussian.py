@@ -8,12 +8,14 @@ normalisation corrections, and the zero-padded depthwise blur. Semantics
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["blur_kernel_size", "gaussian_filters", "depthwise_blur"]
+__all__ = ["blur_kernel_size", "gaussian_filters", "gaussian_factor_filters",
+           "rank1_blur", "rank1_blur_stack", "depthwise_blur"]
 
 
 def blur_kernel_size(sigma: float, min_size: int = 9) -> int:
@@ -98,6 +100,127 @@ def gaussian_filters(
         "dsigma": d_sigma / z - g_n * ss,
         "error": torch.flip(g_n, dims=(0, 1)),
     }
+
+
+def gaussian_factor_filters(
+    sigma,
+    size: int = 9,
+    *,
+    single_dim_kernel: bool = False,
+    forbid_positive_dim1: bool = False,
+    unit_normalization: bool = True,
+    square_unit_normalization: bool = False,
+    dtype=torch.float32,
+    device=None,
+):
+    """The filters of `gaussian_filters` as separable rank-1/rank-2 terms.
+
+    Returns ``(vecs, terms)``: ``vecs`` maps vector names to (size,)
+    tensors; ``terms`` maps each filter name to a list of ``(row, col)``
+    pairs with filter = sum_r vecs[row] (outer) vecs[col] (w, dmu1, dmu2 and
+    error rank 1, dsigma rank 2), matching `gaussian_filters` to roundoff.
+    """
+    if isinstance(sigma, torch.Tensor):
+        device = sigma.device if device is None else device
+        sigma = sigma.to(device=device, dtype=dtype).reshape(())
+    else:
+        sigma = torch.tensor(float(sigma), dtype=dtype, device=device)
+    c = size // 2
+    t = torch.arange(size, dtype=dtype, device=device) - c
+    sigma2_inv = 1.0 / (sigma * sigma)
+    g1 = torch.exp(-t * t * (0.5 * sigma2_inv))
+    zero = torch.zeros((), dtype=dtype, device=device)
+
+    gy = torch.where(t == 0, g1, zero) if single_dim_kernel else g1
+    gx = torch.where(t > 0, zero, g1) if forbid_positive_dim1 else g1
+
+    dx1 = t * sigma2_inv * gx
+    dy1 = t * sigma2_inv * gy
+    sx1 = t * t * (sigma2_inv / sigma) * gx
+    sy1 = t * t * (sigma2_inv / sigma) * gy
+
+    zy = torch.sum(gy)
+    zx = torch.sum(gx)
+    if square_unit_normalization:
+        z = torch.sum(gy * gy) * torch.sum(gx * gx)
+        s1 = 2.0 * torch.sum(gy * gy) * torch.sum(gx * dx1) / z
+        s2 = 2.0 * torch.sum(gy * dy1) * torch.sum(gx * gx) / z
+        ss = 2.0 * (torch.sum(gy * sy1) * torch.sum(gx * gx)
+                    + torch.sum(gy * gy) * torch.sum(gx * sx1)) / z
+    elif unit_normalization:
+        z = zy * zx
+        s1 = zy * torch.sum(dx1) / z
+        s2 = torch.sum(dy1) * zx / z
+        ss = (torch.sum(sy1) * zx + zy * torch.sum(sx1)) / z
+    else:
+        z = torch.ones((), dtype=dtype, device=device)
+        s1 = s2 = ss = zero
+    s1 = torch.where(torch.abs(s1) > 1e-10, s1, zero)
+    s2 = torch.where(torch.abs(s2) > 1e-10, s2, zero)
+
+    gxn = gx / z
+    vecs = {
+        "gy": gy,
+        "gx": gxn,
+        "dx": dx1 / z - gxn * s1,
+        "dy": dy1 - gy * s2,
+        "sy": sy1 - gy * ss,
+        "sx": sx1 / z,
+        "gy_f": torch.flip(gy, dims=(0,)),
+        "gx_f": torch.flip(gxn, dims=(0,)),
+    }
+    terms = {
+        "w": [("gy", "gx")],
+        "dmu1": [("gy", "dx")],
+        "dmu2": [("dy", "gx")],
+        "dsigma": [("sy", "gx"), ("gy", "sx")],
+        "error": [("gy_f", "gx_f")],
+    }
+    return vecs, terms
+
+
+@functools.lru_cache(maxsize=None)
+def _band_index(size: int, n: int, device: torch.device):
+    """The constant part of `_band_matrix`, cached per device: the clipped
+    tap index d = a - b + size//2 and the in-band mask, each (n, n)."""
+    idx = torch.arange(n, device=device)
+    d = idx[:, None] - idx[None, :] + size // 2
+    return d.clamp(0, size - 1), (d >= 0) & (d < size)
+
+
+def _band_matrix(vec: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, n) banded matrix B[a, b] = vec[a - b + c] (zero outside the band):
+    x @ B correlates the last axis of x with `vec` under zero padding."""
+    d, inband = _band_index(vec.shape[0], n, vec.device)
+    return torch.where(inband, vec[d], vec.new_zeros(()))
+
+
+def rank1_blur(x: torch.Tensor, vecs, term_list) -> torch.Tensor:
+    """Correlate NCHW ``x`` with the separable filter sum_r row_r (x) col_r:
+    the zero-padded semantics of `depthwise_blur` as two banded matmuls per
+    rank-1 term, each in x's dtype (in bf16 the column pass rounds to bf16
+    before the row pass, as in JAX). Column passes are shared between terms
+    by vector name."""
+    return rank1_blur_stack(x, vecs, {"_": term_list}, ["_"])[0]
+
+
+def rank1_blur_stack(x: torch.Tensor, vecs, terms, names) -> torch.Tensor:
+    """Blur ``x`` (N, C, H, W) with each named filter -> (M, N, C, H, W);
+    column passes are shared across the M filters."""
+    h, w = x.shape[-2:]
+    col_cache = {}
+    outs = []
+    for name in names:
+        y = None
+        for row_name, col_name in terms[name]:
+            if col_name not in col_cache:
+                cmat = _band_matrix(vecs[col_name], w).to(x.dtype)
+                col_cache[col_name] = torch.matmul(x, cmat)
+            rmat = _band_matrix(vecs[row_name], h).to(x.dtype)
+            z = torch.matmul(rmat.t(), col_cache[col_name])
+            y = z if y is None else y + z
+        outs.append(y)
+    return torch.stack(outs)
 
 
 def depthwise_blur(x: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:

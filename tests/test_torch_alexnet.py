@@ -39,7 +39,7 @@ def test_alexnet_logits_match_jax(jax_model_and_params):
     model, params, x = jax_model_and_params
     ref = np.asarray(jax.jit(lambda p, v: model.apply({"params": p}, v))(params, jnp.asarray(x)))
 
-    port = AlexNetDAU(engine="pallas_fused", image_size=IMAGE)
+    port = AlexNetDAU(engine="pallas_fused", image_size=IMAGE, device="cpu")
     port.load_state_dict(params_from_flax(params))
     with torch.inference_mode():
         got = port(torch.from_numpy(x)).numpy()
@@ -51,7 +51,7 @@ def test_alexnet_logits_match_jax(jax_model_and_params):
 def test_params_from_flax_layouts(jax_model_and_params):
     _, params, _ = jax_model_and_params
     state = params_from_flax({"params": params})
-    port = AlexNetDAU(image_size=IMAGE)
+    port = AlexNetDAU(image_size=IMAGE, device="cpu")
     want = {k: (tuple(v.shape), v.dtype) for k, v in port.state_dict().items()}
     assert {k: (tuple(v.shape), v.dtype) for k, v in state.items()} == want
     np.testing.assert_array_equal(state["conv1.weight"].numpy(),
@@ -61,7 +61,7 @@ def test_params_from_flax_layouts(jax_model_and_params):
 
 def test_bf16_model_keeps_dau_params_bf16_and_dense_params_f32():
     port = AlexNetDAU(engine="pallas_fused", dtype=torch.bfloat16, image_size=IMAGE,
-                      generator=torch.Generator().manual_seed(0))
+                      device="cpu", generator=torch.Generator().manual_seed(0))
     state = port.state_dict()
     assert state["dau_conv3.weights"].dtype == torch.bfloat16
     assert state["dau_conv3.sigma"].dtype == torch.bfloat16

@@ -333,13 +333,6 @@ def test_edge_gradient_mask_matches_jax(h, w):
     np.testing.assert_array_equal(tdc.edge_gradient_mask(h, w).numpy(), ref)
 
 
-def test_fourier_backward_still_raises():
-    cfg = tdc.DAUConvSettings(engine="fourier")
-    args, err = _op_inputs((1, 2, 2, 3, 6, 6), "random", 3.99, seed=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdc._bwd_rule(cfg, *[_t(a) for a in args], _t(err), (True,) * 5)
-
-
 # ---- the layer: the clip gradient at the bound ----------------------------
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -362,7 +355,7 @@ def test_layer_clip_tie_gradient_matches_jax(engine):
         return jnp.vdot(layer.apply({"params": p}, jnp.asarray(x)), jnp.asarray(err))
 
     ref = jax.device_get(jax.jit(jax.grad(loss))(params))
-    port = tl.DAUConv2d(s, **kw)
+    port = tl.DAUConv2d(s, device="cpu", **kw)
     port.load_state_dict(params_from_flax(params))
     (port(_t(x)) * _t(err)).sum().backward()
     for name in ("weights", "mu1", "mu2", "sigma", "bias"):

@@ -1,5 +1,5 @@
 """Card-only tests of the port: the CUDA kernels against their plain twins,
-and the layer's backward through each Pallas engine against engine 'xla'.
+and the layer's backward through each kernel engine against engine 'xla'.
 
 This file imports no JAX, so it runs where only PyTorch is installed:
 
@@ -15,7 +15,9 @@ import torch.nn.functional as F
 
 from dau_convnet_tpu_torch.kernels import backward as tkb
 from dau_convnet_tpu_torch.kernels import forward as tk
+from dau_convnet_tpu_torch.kernels import fused_bwd as tfb
 from dau_convnet_tpu_torch.nn import DAUConv2d
+from dau_convnet_tpu_torch.ops import fourier_engine as tfe
 from dau_convnet_tpu_torch.ops.gaussian import gaussian_filters
 
 KS = 9
@@ -186,4 +188,98 @@ def test_layer_backward_matches_xla_engine(cuda_device, engine):
         grads[eng] = {"x": x.grad, **{k: p.grad for k, p in layer.named_parameters()}}
     for name, want in grads["xla"].items():
         got = grads[engine][name]
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+
+# K1/K2: (M, N, S, G, F, H): S and F not multiples of the 32 tile, N above
+# the 16 (K1) and 32 (dx) images staged per pass, every instantiated G
+SPECTRAL = {
+    "small": (3, 2, 8, 2, 16, 9),
+    "ragged": (4, 5, 37, 1, 41, 13),
+    "many_images": (3, 35, 33, 3, 20, 9),
+    "g4": (3, 4, 40, 4, 24, 13),
+    "wide": (4, 2, 64, 2, 96, 27),
+}
+
+
+def _spectral_case(name, device, dtype, seed=0):
+    m, n, s, g, f, h = SPECTRAL[name]
+    gen = torch.Generator().manual_seed(seed)
+    p1, p2, rb = tfe.plan_bins(h, h, KS)
+    span = KS // 2 + 1
+    b = p1 * rb
+    xs = torch.randn((b, m, 2 * n, s), generator=gen).to(device, dtype)
+    es = torch.randn((b, 2 * n, f), generator=gen).to(device, dtype)
+    esb = torch.randn((b, 2 * n, f), generator=gen).to(device, dtype)
+    wg = (torch.randn((g, s, f), generator=gen) * 0.1).to(device, dtype)
+    mu1, mu2 = (torch.rand((2, s, g, f), generator=gen) * 7.98 - 3.99).to(device)
+    a1 = tfe._phase_onehot(mu1, span, True).permute(0, 2, 1, 3)
+    a2 = tfe._phase_onehot(mu2, span, True).permute(0, 2, 1, 3)
+    t1 = tfe._phase_table(p1, p1, span, torch.float32, device)
+    t2 = tfe._phase_table(p2, rb, span, torch.float32, device, coef_p1=p1)
+    return (xs, es, t1, t2, a1, a2), dict(n_img=n, p1b=p1, rbb=rb), (esb, wg)
+
+
+# bounds: f32 sums in another order, 1e-4 * max|reference|; bf16, the
+# cross-spectra are rounded to bf16 before the gather in both, and a sum
+# that lands on the other side of a rounding boundary moves one entry by a
+# bf16 ulp: 1e-2 * max|reference|
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("name", sorted(SPECTRAL))
+def test_spectral_grads_kernel_matches_twin(cuda_device, name, dtype, bound):
+    args, kw, _ = _spectral_case(name, cuda_device, dtype)
+    before = tfb.fused_spectral_grads.launches_k1
+    got = tfb.fused_spectral_grads(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfb.fused_spectral_grads.launches_k1 == before + 1
+    want = tfb.fused_spectral_grads_plain(*args, **kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= bound * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("name", sorted(SPECTRAL))
+def test_spectral_grads_dx_kernel_matches_twin(cuda_device, name, dtype, bound):
+    args, kw, (esb, wg) = _spectral_case(name, cuda_device, dtype, seed=1)
+    before = (tfb.fused_spectral_grads.launches_k1, tfb.fused_spectral_grads.launches_k2)
+    got = tfb.fused_spectral_grads(*args, **kw, esb=esb, wg=wg)
+    torch.cuda.synchronize()
+    assert (tfb.fused_spectral_grads.launches_k1,
+            tfb.fused_spectral_grads.launches_k2) == (before[0], before[1] + 1)
+    want = tfb.fused_spectral_grads_plain(*args, **kw, esb=esb, wg=wg)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert float((g - w).abs().max()) <= bound * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_spectral_grads_kernel_raises_without_a_plan(cuda_device):
+    args, kw, _ = _spectral_case("small", cuda_device, torch.float32)
+    xs = torch.cat([args[0]] * 2, dim=1)[:, :5].contiguous()  # M = 5
+    with pytest.raises(tfb.FusedPlanError):
+        tfb.fused_spectral_grads(xs, *args[1:], **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_dx", ["off", "on"])
+def test_layer_fourier_fused_backward_matches_unfused(cuda_device, fused_dx):
+    grads = {}
+    for fused in ("on", "off"):
+        layer = DAUConv2d(16, 40, (2, 1), 9, engine="fourier", fused_bwd=fused,
+                          fused_dx=fused_dx, activation=F.relu, dau_sigma_trainable=True,
+                          device=cuda_device, generator=torch.Generator().manual_seed(0))
+        x = torch.rand((3, 16, 13, 13), generator=torch.Generator().manual_seed(1))
+        x = x.to(cuda_device).requires_grad_()
+        err = torch.randn((3, 40, 13, 13), generator=torch.Generator().manual_seed(2))
+        before = tfb.fused_spectral_grads.launches_k1 + tfb.fused_spectral_grads.launches_k2
+        (layer(x) * err.to(cuda_device)).sum().backward()
+        after = tfb.fused_spectral_grads.launches_k1 + tfb.fused_spectral_grads.launches_k2
+        assert after - before == (1 if fused == "on" else 0)
+        grads[fused] = {"x": x.grad, **{k: p.grad for k, p in layer.named_parameters()}}
+    for name, want in grads["off"].items():
+        got = grads["on"][name]
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name

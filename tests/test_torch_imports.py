@@ -1,7 +1,11 @@
-"""The port stands alone: importing it pulls in no JAX."""
+"""The port stands alone: importing it, or the chip smoke test that drives
+it, pulls in no JAX."""
 
 import subprocess
 import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
@@ -10,10 +14,13 @@ def test_port_imports_no_jax():
         "import dau_convnet_tpu_torch\n"
         "import dau_convnet_tpu_torch.kernels, dau_convnet_tpu_torch.models\n"
         "import dau_convnet_tpu_torch.nn, dau_convnet_tpu_torch.utils\n"
+        "import dau_convnet_tpu_torch.parallel, dau_convnet_tpu_torch.ops.fourier_engine\n"
+        "import dau_convnet_tpu_torch.kernels.fused_bwd\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'dau_convnet_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120)
+                          text=True, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr

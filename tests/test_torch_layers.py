@@ -1,6 +1,7 @@
 """Port vs JAX: settings, the op and the DAUConv2d layer, on shared params."""
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -100,7 +101,7 @@ def test_dau_conv2d_matches_flax(name):
     params["bias"] = rng.standard_normal(f).astype(np.float32)
     ref = np.asarray(layer.apply({"params": params}, jnp.asarray(x)))
 
-    port = tl.DAUConv2d(s, activation=torch.relu, **kw)
+    port = tl.DAUConv2d(s, activation=torch.relu, device="cpu", **kw)
     port.load_state_dict(params_from_flax(params))
     with torch.inference_mode():
         got = port(torch.from_numpy(x)).numpy()
@@ -109,7 +110,7 @@ def test_dau_conv2d_matches_flax(name):
 
 
 def test_dau_conv2d_params_follow_dtype_and_layout():
-    layer = tl.DAUConv2d(4, 6, (2, 1), 9, dtype=torch.bfloat16,
+    layer = tl.DAUConv2d(4, 6, (2, 1), 9, dtype=torch.bfloat16, device="cpu",
                          generator=torch.Generator().manual_seed(0))
     state = layer.state_dict()
     assert {k: tuple(v.shape) for k, v in state.items()} == {
@@ -119,12 +120,12 @@ def test_dau_conv2d_params_follow_dtype_and_layout():
     assert layer.cfg.precision == "default" and layer.cfg.engine == "fourier"
 
 
-@pytest.mark.parametrize("engine,dtype", [("fourier", torch.float32),
-                                          ("auto", torch.bfloat16)])
-def test_unported_engines_raise(engine, dtype):
-    layer = tl.DAUConv2d(2, 4, (2, 1), 9, engine=engine, dtype=dtype)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layer(torch.zeros((1, 2, 6, 6), dtype=dtype))
+def test_entry_points_default_to_the_card():
+    # read from the signatures: nothing is built on a card here
+    from dau_convnet_tpu_torch.models import AlexNetDAU
+    for ctor in (tl.DAUConv2d, AlexNetDAU):
+        default = inspect.signature(ctor).parameters["device"].default
+        assert isinstance(default, torch.device) and default.type == "cuda", ctor
 
 
 def test_infer_matches_op_and_rejects_phi():

@@ -67,7 +67,7 @@ def _close(got, ref, name):
 
 @pytest.mark.parametrize("engine", ["pallas_fused", "pallas"])
 def test_sgd_step_matches_jax(jax_step, engine):
-    port = AlexNetDAU(engine=engine, image_size=IMAGE)
+    port = AlexNetDAU(engine=engine, image_size=IMAGE, device="cpu")
     port.load_state_dict(params_from_flax(jax_step["params"]))
     old = {k: v.detach().clone() for k, v in port.named_parameters()}
     step = make_train_step(port, torch.optim.SGD(port.parameters(), lr=LR))
@@ -121,7 +121,7 @@ def test_train_step_does_not_accumulate_grads():
 def test_bf16_step_is_finite_and_follows_sgd():
     gen = torch.Generator().manual_seed(0)
     model = AlexNetDAU(engine="pallas_fused", dtype=torch.bfloat16, image_size=IMAGE,
-                       generator=gen)
+                       device="cpu", generator=gen)
     old = {k: v.detach().clone() for k, v in model.named_parameters()}
     step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=LR))
     x = torch.rand((BATCH, 3, IMAGE, IMAGE), generator=gen)
