@@ -5,10 +5,11 @@ one NVIDIA GPU.
 
 Run from the root of the repository, on a machine with a CUDA card. Phases:
 
-1. build: compile the four kernel libraries for sm_90a, one nvcc each, all
+1. build: compile the seven kernel libraries for sm_90a, one nvcc each, all
    at once (K5 the fused forward, K4 the aggregation, K6 the grad tables,
-   K1/K2 the fused spectral gradients), and print their registers and
-   spills (ks=9; K1 at M=3, G=2);
+   K1/K2 the fused spectral gradients, K8 the factored gather, K7 the
+   partial iDFT, K3 the fused apply-phi), and print their registers and
+   spills (ks=9; K1 and K8 at M=3, G=2);
 2. kernel vs twin: `dau_forward_fused` against `dau_forward_fused_plain` at
    the four AlexNet-DAU layer shapes (N=4) in f32 (TF32 off, bound
    1e-4*max|y|) and bf16 (twin in f32 on the same bf16 values, bound
@@ -63,7 +64,34 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    path (`fourier_unit_grads`), whole bf16 requests (Fourier uncached,
    phi-cached, pallas_fused) and whole bf16 steps (Fourier, Fourier with
    fused_dx, both Pallas engines), the device time by kernel of both
-   Fourier steps (`torch.profiler`) and the Fourier step's peak memory.
+   Fourier steps (`torch.profiler`) and the Fourier step's peak memory;
+14. K8 vs twin: `fused_spectral_grads(gather="factored")` without and with
+   the dx operands against `fused_factored_grads_plain` at the four layer
+   shapes (N=4), bounds as in phase 10;
+15. factored training: 3 bf16 SGD steps with fused_gather='factored' (4 K8
+   launches per step, conv2 included: the factored gate has no bin
+   threshold), then 3 with fused_dx='on' as well (4 K8 dx), with the checks
+   of phase 7; one f32 step of each through the kernels and through the
+   twins (every gradient within 1e-3*max|grad|), whose gradients must also
+   agree with the f32 fused_bwd='on' phi-gather step's of phase 12;
+16. K7 vs twin at the four layers' cross-spectra (N=4, M=3), f32 (bound
+   1e-4*max|ref|) and bf16 (the table rounded once to bf16: 1e-2); the
+   'pmsf' gather of `fourier_grad_tables` against `fourier_unit_grads`,
+   f32 within K1's 1e-4 and bf16 within 2e-2 (the two gathers round at
+   different places in bf16: the table, the mask and their product against
+   T and the phase products); then the path `fourier_grad_tables` +
+   `tap_gather(..., 'pmsf')` at the four layers (N=32, bf16), 4 K7 launches;
+17. K3 vs twin, forward and contract_f, at the four layers (N=4), f32
+   (1e-4*max|ref|) and bf16 (1e-2); `fourier_apply_phi_fused` against
+   `fourier_forward` and `fourier_input_grad` within 1e-4 (f32) / 1e-2
+   (bf16) * max|y|; then the path `fourier_apply_phi_fused` in both
+   directions at the four layers (N=32, bf16), 8 K3 calls;
+18. timing: per layer at N=32 bf16, K8 and K8 dx against their twin, K1
+   and the unfused torch path; K7 against its twin and one bf16 matmul of
+   the stacked operands; K3 against its twin and the unfused chain; the
+   factored steps (and the phi-gather Fourier step beside them) as medians
+   of 5 runs with min and max, and the device time by kernel of the
+   factored step.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -89,6 +117,8 @@ import dau_convnet_tpu_torch  # noqa: E402
 from dau_convnet_tpu_torch.kernels import backward as kbwd  # noqa: E402
 from dau_convnet_tpu_torch.kernels import forward as kfwd  # noqa: E402
 from dau_convnet_tpu_torch.kernels import fused_bwd as kfb  # noqa: E402
+from dau_convnet_tpu_torch.kernels import fused_fwd as kff  # noqa: E402
+from dau_convnet_tpu_torch.kernels import spectral as ksp  # noqa: E402
 from dau_convnet_tpu_torch.kernels._build import build, build_log  # noqa: E402
 from dau_convnet_tpu_torch.models import AlexNetDAU  # noqa: E402
 from dau_convnet_tpu_torch.nn import refresh_phi_cache  # noqa: E402
@@ -99,18 +129,29 @@ from dau_convnet_tpu_torch.parallel import make_train_step  # noqa: E402
 
 KERNEL = dict(name="dau_forward_fused", route="cuda",
               source="dau_convnet_tpu_torch/kernels/csrc/dau_forward_fused.cu",
-              replaces="dau_convnet_tpu/kernels/forward.py:209")
+              replaces="dau_convnet_tpu/kernels/forward.py:266")
 KERNEL_K6 = dict(name="grad_tables", route="cuda",
                  source="dau_convnet_tpu_torch/kernels/csrc/dau_grad_tables.cu",
-                 replaces="dau_convnet_tpu/kernels/backward.py:74")
+                 replaces="dau_convnet_tpu/kernels/backward.py:123")
 KERNEL_K4 = dict(name="aggregate_forward", route="cuda",
                  source="dau_convnet_tpu_torch/kernels/csrc/dau_aggregate.cu",
-                 replaces="dau_convnet_tpu/kernels/forward.py:129")
+                 replaces="dau_convnet_tpu/kernels/forward.py:111")
 KERNEL_K1 = dict(name="fused_spectral_grads (K1)", route="cuda",
                  source="dau_convnet_tpu_torch/kernels/csrc/dau_spectral_grads.cu",
-                 replaces="dau_convnet_tpu/kernels/fused_bwd.py:835")
+                 replaces="dau_convnet_tpu/kernels/fused_bwd.py:965")
 KERNEL_K2 = dict(KERNEL_K1, name="fused_spectral_grads with dx (K2)")
-LIBRARIES = ("dau_forward_fused", "dau_aggregate", "dau_grad_tables", "dau_spectral_grads")
+KERNEL_K8 = dict(name="fused_spectral_grads gather=factored (K8)", route="cuda",
+                 source="dau_convnet_tpu_torch/kernels/csrc/dau_factored_grads.cu",
+                 replaces="dau_convnet_tpu/kernels/fused_bwd.py:763")
+KERNEL_K8_DX = dict(KERNEL_K8, name="fused_spectral_grads gather=factored with dx (K8 dx)")
+KERNEL_K7 = dict(name="partial_idft (K7)", route="cuda",
+                 source="dau_convnet_tpu_torch/kernels/csrc/dau_partial_idft.cu",
+                 replaces="dau_convnet_tpu/kernels/spectral.py:73")
+KERNEL_K3 = dict(name="fused_apply_phi (K3)", route="cuda",
+                 source="dau_convnet_tpu_torch/kernels/csrc/dau_apply_phi.cu",
+                 replaces="dau_convnet_tpu/kernels/fused_fwd.py:225")
+LIBRARIES = ("dau_forward_fused", "dau_aggregate", "dau_grad_tables", "dau_spectral_grads",
+             "dau_factored_grads", "dau_partial_idft", "dau_apply_phi")
 # the card's peaks for the bounds (H100 SXM data sheet, dense, at 700 W):
 # bf16 on the tensor cores and the memory rate
 PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
@@ -190,15 +231,23 @@ def compare(gen, dev, filt, ks):
     return worst
 
 
+def _spectral_twin(*args, gather="phi", **kw):
+    """The plain twin of `fused_spectral_grads` for the gather asked for."""
+    twin = kfb.fused_factored_grads_plain if gather == "factored" else kfb.fused_spectral_grads_plain
+    return twin(*args, **kw)
+
+
 @contextlib.contextmanager
 def plain_twin():
-    """Route the op's kernel calls (K5, K4, K6, K1/K2) to their plain twins
-    (for timing and the reference runs); the launch counters are left
+    """Route the kernel calls (K5, K4, K6, K1/K2/K8, K7, K3) to their plain
+    twins (for timing and the reference runs); the launch counters are left
     alone."""
     routes = ((kfwd, "dau_forward_fused", kfwd.dau_forward_fused_plain),
               (kfwd, "aggregate_forward", kfwd.aggregate_forward_plain),
               (kbwd, "grad_tables", kbwd.grad_tables_plain),
-              (kfb, "fused_spectral_grads", kfb.fused_spectral_grads_plain))
+              (kfb, "fused_spectral_grads", _spectral_twin),
+              (ksp, "partial_idft", ksp.partial_idft_plain),
+              (kff, "fused_apply_phi", kff.fused_apply_phi_plain))
     kernels = [getattr(mod, name) for mod, name, _ in routes]
     for mod, name, twin in routes:
         setattr(mod, name, twin)
@@ -266,21 +315,22 @@ def compare_backward(gen, dev, ks):
     return worst
 
 
-COUNTS = "(K5, K4, K6, K1, K2)"
+COUNTS = "(K5, K4, K6, K1, K2, K8, K8 dx, K7, K3)"
+# (owner, attribute) of each launch counter, in COUNTS' order
+_COUNTERS = ((kfwd.dau_forward_fused, "launches"), (kfwd.aggregate_forward, "launches"),
+             (kbwd.grad_tables, "launches"), (kfb.fused_spectral_grads, "launches_k1"),
+             (kfb.fused_spectral_grads, "launches_k2"), (kfb.fused_spectral_grads, "launches_k8"),
+             (kfb.fused_spectral_grads, "launches_k8_dx"), (ksp.partial_idft, "launches"),
+             (kff.fused_apply_phi, "launches"))
 
 
 def _counts():
-    return (kfwd.dau_forward_fused.launches, kfwd.aggregate_forward.launches,
-            kbwd.grad_tables.launches, kfb.fused_spectral_grads.launches_k1,
-            kfb.fused_spectral_grads.launches_k2)
+    return tuple(getattr(owner, name) for owner, name in _COUNTERS)
 
 
 def _zero_counts():
-    kfwd.dau_forward_fused.launches = 0
-    kfwd.aggregate_forward.launches = 0
-    kbwd.grad_tables.launches = 0
-    kfb.fused_spectral_grads.launches_k1 = 0
-    kfb.fused_spectral_grads.launches_k2 = 0
+    for owner, name in _COUNTERS:
+        setattr(owner, name, 0)
 
 
 def _ulp(t, dtype):
@@ -290,12 +340,15 @@ def _ulp(t, dtype):
                        torch.frexp(t.float().abs()).exponent - bits)
 
 
-# launches per bf16 step (K5, K4, K6, K1, K2) and the model's settings, per run
+# launches per bf16 step (COUNTS) and the model's settings, per run
 TRAIN_RUNS = {
-    "pallas_fused": (dict(engine="pallas_fused"), (8, 0, 4, 0, 0)),
-    "pallas": (dict(engine="pallas"), (0, 8, 4, 0, 0)),
-    "fourier": (dict(), (0, 0, 0, 3, 0)),
-    "fourier fused_dx": (dict(fused_dx="on"), (0, 0, 0, 0, 3)),
+    "pallas_fused": (dict(engine="pallas_fused"), (8, 0, 4, 0, 0, 0, 0, 0, 0)),
+    "pallas": (dict(engine="pallas"), (0, 8, 4, 0, 0, 0, 0, 0, 0)),
+    "fourier": (dict(), (0, 0, 0, 3, 0, 0, 0, 0, 0)),
+    "fourier fused_dx": (dict(fused_dx="on"), (0, 0, 0, 0, 3, 0, 0, 0, 0)),
+    "fourier factored": (dict(fused_gather="factored"), (0, 0, 0, 0, 0, 4, 0, 0, 0)),
+    "fourier factored fused_dx": (dict(fused_gather="factored", fused_dx="on"),
+                                  (0, 0, 0, 0, 0, 0, 4, 0, 0)),
 }
 
 
@@ -344,7 +397,7 @@ def train(engine, dev, seed, batches, labels):
 def reference_step(engine, dev, seed, x, labels, **kw):
     """One f32 step's gradients through the kernels and through the twins,
     from the same weights; returns the worst gradient error relative to
-    its tensor's max|grad|."""
+    its tensor's max|grad|, and the kernel path's gradients."""
     model = AlexNetDAU(variant="default", image_size=IMAGE, engine=engine, dtype=torch.float32, device=dev,
                        generator=torch.Generator().manual_seed(seed), **kw)
     step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0))
@@ -370,7 +423,7 @@ def reference_step(engine, dev, seed, x, labels, **kw):
     print(f"reference f32 step {engine} {kw}: loss {float(loss):.5f}; {len(grads[1])} "
           f"gradients, worst max|dg|/max|g| = {worst:.3e} (bound 1e-3); kernel-path "
           f"launches {COUNTS} {first}")
-    return worst
+    return worst, grads[0]
 
 
 def _bound(ops, nbytes):
@@ -441,22 +494,27 @@ def _spectral_work(args, kw, dx_args=None):
     return ops, nbytes
 
 
-def compare_spectral(gen, dev):
-    """K1 and K2 vs their twin at each layer shape (N=4, conv2 forced);
-    returns the largest |error| of each."""
-    worst = {"k1": 0.0, "k2": 0.0}
+def compare_spectral(gen, dev, gather="phi"):
+    """K1 and K2 (gather='phi'; phase 10) or K8 and K8 dx ('factored';
+    phase 14) vs their twin at each layer shape (N=4; conv2's 496 bins
+    included); returns the largest |error| of each."""
+    keys, names = (("k1", "k2"), ("K1", "K2")) if gather == "phi" else (
+        ("k8", "k8dx"), ("K8", "K8 dx"))
+    worst = dict.fromkeys(keys, 0.0)
     for name, s, f, hw in LAYERS:
         for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
             tag = f"{name} {str(dtype)[6:]}"
             args, kw, dx, _ = _spectral_inputs(gen, 4, s, f, hw, dtype, dev)
-            got = kfb.fused_spectral_grads(*args, **kw)
-            want = kfb.fused_spectral_grads_plain(*args, **kw)
-            worst["k1"] = max(worst["k1"], _check_err(f"K1 {tag} B={kw['p1b'] * kw['rbb']}",
-                                                      got, want, bound))
-            got = kfb.fused_spectral_grads(*args, **kw, **dx)
-            want = kfb.fused_spectral_grads_plain(*args, **kw, **dx)
-            worst["k2"] = max(worst["k2"], _check_err(f"K2 grads {tag}", got[0], want[0], bound),
-                              _check_err(f"K2 dx spectra {tag}", got[1], want[1], bound))
+            got = kfb.fused_spectral_grads(*args, **kw, gather=gather)
+            want = _spectral_twin(*args, **kw, gather=gather)
+            worst[keys[0]] = max(worst[keys[0]], _check_err(
+                f"{names[0]} {tag} B={kw['p1b'] * kw['rbb']}", got, want, bound))
+            got = kfb.fused_spectral_grads(*args, **kw, **dx, gather=gather)
+            want = _spectral_twin(*args, **kw, **dx, gather=gather)
+            worst[keys[1]] = max(worst[keys[1]],
+                                 _check_err(f"{names[1]} grads {tag}", got[0], want[0], bound),
+                                 _check_err(f"{names[1]} dx spectra {tag}", got[1], want[1],
+                                            bound))
     return worst
 
 
@@ -560,7 +618,8 @@ def _dense_work(n, s, f, hw, x_bytes, blur: bool):
 
 # kernel-name fragments -> the breakdown's categories, first match wins
 CATEGORIES = (("K1/K2 spectral_grads_kernel", ("spectral_grads_kernel",)),
-              ("K2 spectral_dx_kernel", ("spectral_dx_kernel",)),
+              ("K2/K8 spectral_dx_kernel", ("spectral_dx_kernel",)),
+              ("K8 factored_grads_kernel", ("factored_grads_kernel",)),
               ("GEMM (cuBLAS)", ("gemm", "Gemm", "cutlass", "xmma", "sm90_", "sm80_")),
               ("convolution (cuDNN)", ("conv", "cudnn", "Conv")),
               ("elementwise / reduce / copy", ("elementwise", "Elementwise", "reduce", "Reduce",
@@ -607,6 +666,220 @@ def profile_step(name, step, x, labels, step_ms, card, steps: int = 3):
         print(f"  host: {ms:.3f} ms self CPU (under the profiler) x{count} {key}")
 
 
+def compare_gathers(grads, phi_grads, what):
+    """Every gradient of one f32 step against another's, within
+    1e-3*max|grad|: the two gathers compute the same function."""
+    worst = 0.0
+    for name, want in phi_grads.items():
+        err = float((grads[name] - want).abs().max())
+        scale = float(want.abs().max())
+        worst = max(worst, err / scale)
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"{what}: {name} max|dg|={err:.3e} max|g|={scale:.3e}")
+    print(f"{what}: {len(phi_grads)} gradients, worst max|dg|/max|g| = {worst:.3e} "
+          f"(bound 1e-3)")
+
+
+def _idft_inputs(gen, n, s, f, hw, dtype, dev):
+    """`fourier_grad_tables`' K7 operands at a layer shape: the (B, 81) iDFT
+    matrices and the (B, M*S*F) cross-spectra of random blurred planes (M=3)
+    and error, in `dtype`; and the planes, error and random offsets."""
+    xb = torch.randn((M, n, s, hw, hw), generator=gen).to(dev, dtype)
+    err = torch.randn((n, f, hw, hw), generator=gen).to(dev, dtype)
+    mu1, mu2 = (torch.rand((2, s, G, f), generator=gen) * 7.98 - 3.99).to(dev, dtype)
+    tre, tim, (p1, p2, rb) = fe.fourier_cross_spectra(xb, err, 9)
+    pos = range(-4, 5)
+    cmat, smat = fe._idft_mats(p1, p2, rb, pos, pos, tre.dtype, dev)
+    return (cmat, smat, tre.reshape(p1 * rb, -1), tim.reshape(p1 * rb, -1)), (xb, err, mu1, mu2)
+
+
+def _idft_work(ops, out_dtype):
+    """(operations, bytes) of one K7 call: 4 per (bin, position, column);
+    each operand read once, the table written once."""
+    cmat, _, tre, _ = ops
+    (b, p), c = cmat.shape, tre.shape[1]
+    return 4 * b * p * c, _nbytes(*ops) + p * c * torch.empty((), dtype=out_dtype).element_size()
+
+
+def compare_idft(gen, dev):
+    """Phase 16: K7 vs its twin at each layer's cross-spectra (N=4, M=3), f32
+    (bound 1e-4*max|ref|) and bf16 (the table rounded to bf16: 1e-2); and
+    the 'pmsf' gather of `fourier_grad_tables` against `fourier_unit_grads`
+    (f32 1e-4, bf16 2e-2: the gathers round at different places). Returns
+    the largest |error| of K7."""
+    worst = 0.0
+    for name, s, f, hw in LAYERS:
+        for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            tag = f"{name} {str(dtype)[6:]}"
+            ops, (xb, err, mu1, mu2) = _idft_inputs(gen, 4, s, f, hw, dtype, dev)
+            got = ksp.partial_idft(*ops, out_dtype=dtype)
+            if got.dtype != dtype:
+                raise AssertionError(f"K7 {tag}: table is {got.dtype}")
+            worst = max(worst, _check_err(f"K7 {tag} B={ops[0].shape[0]} C={ops[2].shape[1]}",
+                                          got, ksp.partial_idft_plain(*ops), bound))
+            table = fe.fourier_grad_tables(xb, err, 9)
+            _check_err(f"tap_gather(fourier_grad_tables, 'pmsf') vs fourier_unit_grads {tag}",
+                       xla_engine.tap_gather(table, mu1, mu2, 9, table_layout="pmsf"),
+                       fe.fourier_unit_grads(xb, err, mu1, mu2, 9), 2 * bound if
+                       dtype == torch.bfloat16 else bound)
+    return worst
+
+
+def _apply_phi_inputs(gen, n, s, f, hw, contract_f, dtype, dev):
+    """K3's operands at a layer shape as `fourier_apply_phi_fused` makes
+    them (forward: CI=S, CO=F; contract_f: CI=F, CO=S); and the image, w,
+    mu1, mu2 behind them."""
+    p1, p2, rb = fe.plan_bins(hw, hw, 9)
+    span = 5
+    x = torch.rand((n, f if contract_f else s, hw, hw), generator=gen).to(dev, dtype)
+    w = (torch.randn((s, G, f), generator=gen) * 0.1).to(dev, dtype)
+    mu1, mu2 = (torch.rand((2, s, G, f), generator=gen) * 7.98 - 3.99).to(dev, dtype)
+    xre, xim = fe._rdft2(x, p1, p2, rb)
+    order = (0, 2, 3, 1) if contract_f else (0, 2, 1, 3)
+    aw = fe._phase_onehot(mu2, span, True) * w.float()[None]
+    dct, dst, _ = fe._fused_idft_mats(p1, p2, rb, hw, hw, dev)
+    ops = dict(xs=torch.cat([xre, xim], dim=0).permute(2, 0, 1).contiguous(),
+               t1=fe._phase_table(p1, p1, span, torch.float32, dev, conj=contract_f),
+               t2=fe._phase_table(p2, rb, span, torch.float32, dev, conj=contract_f),
+               aw=aw.permute(order).to(dtype),
+               a=fe._phase_onehot(mu1, span, True).permute(order).to(dtype), dct=dct, dst=dst)
+    return ops, dict(n_img=n, p1b=p1, rbb=rb), (x, w, mu1, mu2)
+
+
+def _apply_phi_work(ops, kw):
+    """(operations, bytes) of one K3 call: the per-bin complex products (8
+    per (bin, n, ci, co)), Phi's build (14 per (bin, ci, co, unit)) and the
+    partial iDFT (4 per (position, bin, n, co)); each operand read once, the
+    f32 output written once."""
+    b, n2, ci = ops["xs"].shape
+    nj, g, _, co = ops["aw"].shape
+    hwp = ops["dct"].shape[0]
+    ops_count = 4 * b * n2 * ci * co + 14 * g * b * ci * co + 2 * hwp * b * n2 * co
+    return ops_count, _nbytes(*ops.values()) + hwp * (n2 // 2) * co * 4
+
+
+def _unfused_apply(x, w, mu1, mu2, contract_f):
+    """The unfused chain K3 replaces: `fourier_forward`, or
+    `fourier_input_grad` on a Phi built beforehand."""
+    if not contract_f:
+        return fe.fourier_forward(x, w, mu1, mu2, 9)
+    p1, p2, rb = fe.plan_bins(*x.shape[-2:], 9)
+    return fe.fourier_input_grad(x, fe.build_phi(w, mu1, mu2, p1, p2, rb, True, 5), 9)
+
+
+def compare_apply_phi(gen, dev):
+    """Phase 17: K3 vs its twin, forward and contract_f, at each layer
+    shape (N=4), f32 (bound 1e-4*max|ref|) and bf16 (Phi rounded to bf16 in
+    both: 1e-2); and `fourier_apply_phi_fused` against the unfused chain
+    within 1e-4 (f32) / 1e-2 (bf16) * max|y|. Returns the largest |error|
+    of K3."""
+    worst = 0.0
+    for name, s, f, hw in LAYERS:
+        for contract_f in (False, True):
+            for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+                tag = f"{name} {'contract_f' if contract_f else 'forward'} {str(dtype)[6:]}"
+                ops, kw, (x, w, mu1, mu2) = _apply_phi_inputs(gen, 4, s, f, hw, contract_f,
+                                                              dtype, dev)
+                worst = max(worst, _check_err(f"K3 {tag}", kff.fused_apply_phi(**ops, **kw),
+                                              kff.fused_apply_phi_plain(**ops, **kw), bound))
+                got = fe.fourier_apply_phi_fused(x, w, mu1, mu2, 9, contract_f=contract_f)
+                if got.dtype != dtype:
+                    raise AssertionError(f"fourier_apply_phi_fused {tag}: {got.dtype}")
+                _check_err(f"fourier_apply_phi_fused vs unfused {tag}", got,
+                           _unfused_apply(x, w, mu1, mu2, contract_f), bound)
+    return worst
+
+
+def path_counts(what, fn, want):
+    """Drive `fn` with every launch counter at 0 and check the counts it
+    leaves against `want` (COUNTS' order); returns them."""
+    _zero_counts()
+    fn()
+    torch.cuda.synchronize()
+    got = _counts()
+    print(f"{what}: launches {COUNTS} {got}")
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+    return got
+
+
+def time_new_kernels(gen, dev, card, worst):
+    """Phase 18: per-layer times (N=32, bf16) of K8 (and with dx) against its
+    twin, K1 and the unfused torch path; K7 against its twin and one matmul;
+    K3 (both directions) against its twin and the unfused chain; each
+    checked against its twin at N=32 first (`worst` takes the errors).
+    Returns {kernel: (ms, plain_ms, library_ms or None, Bounds)} summed over
+    the layers."""
+    out = {k: [0.0, 0.0, None, Bounds()] for k in ("k8", "k8dx", "k7", "k3")}
+    out["k7"][2] = 0.0
+    for name, s, f, hw in LAYERS:
+        tag = f"{name} bfloat16 N={BATCH}"
+        args, kw, dx, (xb, err, mu1, mu2) = _spectral_inputs(
+            gen, BATCH, s, f, hw, torch.bfloat16, dev)
+        worst["k8"] = max(worst["k8"], _check_err(
+            f"K8 {tag}", kfb.fused_spectral_grads(*args, **kw, gather="factored"),
+            kfb.fused_factored_grads_plain(*args, **kw), 1e-2))
+        t_k = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw, gather="factored"))
+        t_p = _cuda_ms(lambda: kfb.fused_factored_grads_plain(*args, **kw), iters=3, warmup=1)
+        t_kd = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw, **dx, gather="factored"))
+        t_pd = _cuda_ms(lambda: kfb.fused_factored_grads_plain(*args, **kw, **dx), iters=3,
+                        warmup=1)
+        t_k1 = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw))
+        t_unf = _cuda_ms(lambda: fe.fourier_unit_grads(xb, err, mu1, mu2, 9), iters=3, warmup=1)
+        t_f2 = _cuda_ms(lambda: fe.fourier_unit_grads_fused2(xb, err, mu1, mu2, 9,
+                                                             gather="factored"))
+        bd = out["k8"][3].add(*_spectral_work(args, kw))
+        bdd = out["k8dx"][3].add(*_spectral_work(args, kw, dx))
+        print(f"layer {name} K8 N={BATCH} B={kw['p1b'] * kw['rbb']} bf16: kernel {t_k:.3f} ms "
+              f"(bound {bd:.4f}), twin {t_p:.3f} ms; K8 dx kernel {t_kd:.3f} ms (bound "
+              f"{bdd:.4f}), twin {t_pd:.3f} ms; K1 kernel {t_k1:.3f} ms; from the blurred "
+              f"planes: unfused torch path {t_unf:.3f} ms, DFTs + K8 {t_f2:.3f} ms [{card}]")
+        for k, (a, b) in (("k8", (t_k, t_p)), ("k8dx", (t_kd, t_pd))):
+            out[k][0] += a
+            out[k][1] += b
+        del args, dx, xb
+
+        ops, _ = _idft_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
+        worst["k7"] = max(worst["k7"], _check_err(
+            f"K7 {tag}", ksp.partial_idft(*ops, out_dtype=torch.bfloat16),
+            ksp.partial_idft_plain(*ops), 1e-2))
+        t_k = _cuda_ms(lambda: ksp.partial_idft(*ops, out_dtype=torch.bfloat16))
+        t_p = _cuda_ms(lambda: ksp.partial_idft_plain(*ops, out_dtype=torch.bfloat16))
+        # one library call of the same function: [C; -S]^T @ [tre; tim] in
+        # bf16 (cuBLAS), its operands stacked beforehand
+        lhs = torch.cat([ops[0], -ops[1]]).t().contiguous()
+        rhs = torch.cat([ops[2], ops[3]])
+        t_l = _cuda_ms(lambda: torch.matmul(lhs, rhs))
+        bd = out["k7"][3].add(*_idft_work(ops, torch.bfloat16))
+        print(f"layer {name} K7 N={BATCH} B={ops[0].shape[0]} C={ops[2].shape[1]} bf16: kernel "
+              f"{t_k:.3f} ms (bound {bd:.4f}), twin {t_p:.3f} ms, one matmul {t_l:.3f} ms "
+              f"[{card}]")
+        out["k7"][0] += t_k
+        out["k7"][1] += t_p
+        out["k7"][2] += t_l
+        del ops, lhs, rhs
+
+        for contract_f in (False, True):
+            ops, kw, (x, w, mu1, mu2) = _apply_phi_inputs(gen, BATCH, s, f, hw, contract_f,
+                                                          torch.bfloat16, dev)
+            way = "contract_f" if contract_f else "forward"
+            worst["k3"] = max(worst["k3"], _check_err(
+                f"K3 {tag} {way}", kff.fused_apply_phi(**ops, **kw),
+                kff.fused_apply_phi_plain(**ops, **kw), 1e-2))
+            t_k = _cuda_ms(lambda: kff.fused_apply_phi(**ops, **kw))
+            t_p = _cuda_ms(lambda: kff.fused_apply_phi_plain(**ops, **kw), iters=3, warmup=1)
+            t_f = _cuda_ms(lambda: fe.fourier_apply_phi_fused(x, w, mu1, mu2, 9,
+                                                              contract_f=contract_f))
+            t_u = _cuda_ms(lambda: _unfused_apply(x, w, mu1, mu2, contract_f))
+            bd = out["k3"][3].add(*_apply_phi_work(ops, kw))
+            print(f"layer {name} K3 {way} N={BATCH} bf16: kernel {t_k:.3f} ms (bound "
+                  f"{bd:.4f}), twin {t_p:.3f} ms; from the image: fourier_apply_phi_fused "
+                  f"{t_f:.3f} ms, unfused chain {t_u:.3f} ms [{card}]")
+            out["k3"][0] += t_k
+            out["k3"][1] += t_p
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -636,6 +909,9 @@ def main(argv=None) -> int:
         _ptxas(lib, ["Li9E"])
     _ptxas("dau_spectral_grads", ["spectral_grads_kernel", "Li3ELi2E"])
     _ptxas("dau_spectral_grads", ["spectral_dx_kernel"])
+    _ptxas("dau_factored_grads", ["factored_grads_kernel", "Li3ELi2E"])
+    _ptxas("dau_partial_idft", ["partial_idft_kernel"])
+    _ptxas("dau_apply_phi", ["apply_phi_kernel"])
 
     # 2. kernel vs twin
     gen = torch.Generator().manual_seed(args.seed)
@@ -659,8 +935,8 @@ def main(argv=None) -> int:
                                      "kernel launches, expected 4 per request")
             if logits.shape != (BATCH, 1000) or not torch.isfinite(logits.float()).all():
                 raise AssertionError(f"request {i}: bad logits {tuple(logits.shape)}")
-    if _counts()[1:] != (0, 0, 0, 0):
-        raise AssertionError(f"serving launched K4/K6/K1/K2: {_counts()}")
+    if any(_counts()[1:]):
+        raise AssertionError(f"serving launched kernels other than K5: {_counts()}")
     launches = kfwd.dau_forward_fused.launches
     print(f"serving: {REQUESTS} requests of {BATCH}x3x{IMAGE}x{IMAGE} bf16, "
           f"{launches} kernel launches, logits finite")
@@ -766,8 +1042,8 @@ def main(argv=None) -> int:
     # 12. Fourier training in bf16, then the f32 reference steps
     for engine in ("fourier", "fourier fused_dx"):
         runs[engine] = _train_run(engine, dev, args.seed, batches, labels)
-    for kw in (dict(fused_bwd="on"), dict(fused_bwd="on", fused_dx="on")):
-        reference_step("fourier", dev, args.seed, batches[0], labels, **kw)
+    phi_grads = reference_step("fourier", dev, args.seed, batches[0], labels, fused_bwd="on")[1]
+    reference_step("fourier", dev, args.seed, batches[0], labels, fused_bwd="on", fused_dx="on")
 
     # 13. timing: K1/K2 per layer, requests, steps, peak memory
     spec, k1_bound, k2_bound = time_spectral(gen, dev, card, worst_spec)
@@ -799,11 +1075,60 @@ def main(argv=None) -> int:
           f"{(peak - resident) / 2**30:.3f} GiB above the {resident / 2**30:.3f} GiB resident "
           f"before the step (models and batches of all four runs) [{card}]")
 
+    # 14. K8 vs twin
+    worst_fac = compare_spectral(gen, dev, gather="factored")
+
+    # 15. training with the factored gather in bf16, then the f32 reference
+    # steps: kernels vs twins, and the factored gather vs the phi gather
+    for engine in ("fourier factored", "fourier factored fused_dx"):
+        runs[engine] = _train_run(engine, dev, args.seed, batches, labels)
+    for kw in (dict(fused_gather="factored"), dict(fused_gather="factored", fused_dx="on")):
+        grads = reference_step("fourier", dev, args.seed, batches[0], labels, **kw)[1]
+        compare_gathers(grads, phi_grads, f"f32 step {kw} vs fused_bwd='on' (phi gather)")
+    del grads, phi_grads
+
+    # 16. K7 vs twin, and its path: fourier_grad_tables + the 'pmsf' gather at
+    # the four layers (N=32, bf16), one K7 launch each
+    worst_fac["k7"] = compare_idft(gen, dev)
+    layer_ops = [_idft_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)[1]
+                 for _, s, f, hw in LAYERS]
+    k7_path = path_counts(
+        "path fourier_grad_tables + tap_gather('pmsf'), 4 layers, N=32 bf16",
+        lambda: [xla_engine.tap_gather(fe.fourier_grad_tables(xb, err, 9), mu1, mu2, 9,
+                                       table_layout="pmsf")
+                 for xb, err, mu1, mu2 in layer_ops], (0, 0, 0, 0, 0, 0, 0, 4, 0))
+
+    # 17. K3 vs twin, and its path: fourier_apply_phi_fused forward and
+    # contract_f at the four layers (N=32, bf16), one K3 call each
+    worst_fac["k3"] = compare_apply_phi(gen, dev)
+    layer_ops = [_apply_phi_inputs(gen, BATCH, s, f, hw, contract_f, torch.bfloat16, dev)[2]
+                 + (contract_f,) for _, s, f, hw in LAYERS for contract_f in (False, True)]
+    k3_path = path_counts(
+        "path fourier_apply_phi_fused forward + contract_f, 4 layers, N=32 bf16",
+        lambda: [fe.fourier_apply_phi_fused(x, w, mu1, mu2, 9, contract_f=c)
+                 for x, w, mu1, mu2, c in layer_ops], (0, 0, 0, 0, 0, 0, 0, 0, 8))
+    del layer_ops
+
+    # 18. timing: K8, K7, K3 per layer and the factored steps
+    new = time_new_kernels(gen, dev, card, worst_fac)
+    for engine in ("fourier factored", "fourier factored fused_dx", "fourier"):
+        step = runs[engine][0]
+        t_k = _spread(lambda: step(batches[0], labels), iters=3)
+        with plain_twin():
+            t_p = _spread(lambda: step(batches[0], labels), iters=3)
+        step_ms[engine] = t_k[0]
+        print(f"train step {engine} {BATCH}x3x{IMAGE}x{IMAGE} bf16: kernel path {_fmt(t_k)}, "
+              f"plain path {_fmt(t_p)}, over 5 runs of 3 [{card}]")
+    profile_step("fourier factored", runs["fourier factored"][0], batches[0], labels,
+                 step_ms["fourier factored"], card)
+
     launches_k5 = launches + runs["pallas_fused"][1][0]
     launches_k4 = runs["pallas"][1][1]
     launches_k6 = runs["pallas_fused"][1][2] + runs["pallas"][1][2]
     launches_k1 = runs["fourier"][1][3]
     launches_k2 = runs["fourier fused_dx"][1][4]
+    launches_k8 = runs["fourier factored"][1][5]
+    launches_k8dx = runs["fourier factored fused_dx"][1][6]
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=launches_k5, max_abs_err=max(worst, worst_bwd["k5dx"]),
              ms=kernel_ms, plain_ms=plain_ms, bound_ms=k5_bound.ms,
@@ -819,7 +1144,14 @@ def main(argv=None) -> int:
              bound_by=k1_bound.bound_by, library_ms=None),
         dict(KERNEL_K2, launches=launches_k2, max_abs_err=worst_spec["k2"],
              ms=spec["k2"], plain_ms=spec["k2_plain"], bound_ms=k2_bound.ms,
-             bound_by=k2_bound.bound_by, library_ms=None)]}))
+             bound_by=k2_bound.bound_by, library_ms=None),
+        *(dict(entry, launches=n_launch, max_abs_err=worst_fac[key], ms=new[key][0],
+               plain_ms=new[key][1], bound_ms=new[key][3].ms, bound_by=new[key][3].bound_by,
+               library_ms=new[key][2])
+          for entry, key, n_launch in ((KERNEL_K8, "k8", launches_k8),
+                                       (KERNEL_K8_DX, "k8dx", launches_k8dx),
+                                       (KERNEL_K7, "k7", k7_path[7]),
+                                       (KERNEL_K3, "k3", k3_path[8])))]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

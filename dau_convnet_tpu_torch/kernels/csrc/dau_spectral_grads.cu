@@ -38,59 +38,20 @@
 //     32, builds sum_g w*phiU for the chunk in shared memory and
 //     accumulates a (32 n x 32 s) complex tile, 4 FMAs per (n, s, f).
 // What it leaves for later: tensor cores (wgmma) for the cross products,
-// cp.async/TMA double buffering of the stages.
+// cp.async/TMA double buffering of the stages. The block layout, the staging
+// and the cross products are shared with K8 (dau_spectral.cuh).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "dau_spectral.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int FGROUPS = 8;            // f groups per block
-constexpr int SGROUPS = THREADS / FGROUPS;
-constexpr int TF = 4;                 // f per thread
-constexpr int FT = FGROUPS * TF;      // f per block
-constexpr int NC = 16;                // images staged per pass (K1)
+using namespace dau_spectral;
+
 constexpr int DX_T = 32;              // s, f and n tile of the dx kernel
 constexpr int NJ_MAX = 64;            // largest exponent table width (dx kernel)
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// a value rounded to T and widened back
-__device__ __forceinline__ float round_as(float v, float) { return v; }
-__device__ __forceinline__ float round_as(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__host__ __device__ constexpr int round4(int v) { return (v + 3) / 4 * 4; }
-
 // s per thread: 2 while the M*G sums of 8 (s, f) fit the registers, else 1
 __host__ __device__ constexpr int s_per_thread(int m, int g) { return m * g <= 8 ? 2 : 1; }
-
-// Shared-memory plan of K1, shared by the host launcher and the kernel.
-struct Plan {
-  int st;     // s per block
-  int tab;    // floats of the two phase tables, rounded to 4
-  int units;  // (s, f, g) units per block
-  int sx;     // floats of the xs stage [M][2*NC][st]
-  int se;     // floats of the es stage [2*NC][FT]
-};
-
-__host__ __device__ inline Plan make_plan(int M, int G, int P1, int RB, int NJ) {
-  Plan p;
-  p.st = SGROUPS * s_per_thread(M, G);
-  p.tab = round4(2 * (P1 + RB) * NJ);
-  p.units = G * p.st * FT;
-  p.sx = M * 2 * NC * p.st;
-  p.se = 2 * NC * FT;
-  return p;
-}
-
-__host__ __device__ inline long long plan_bytes(const Plan& p) {
-  return 4LL * (p.tab + 6LL * p.units + p.sx + p.se);
-}
 
 // idx (2, G, S, F) int: tap index j of mu1 (into t2) and of mu2 (into t1);
 // wts (4, G, S, F) f32: the weights at j and j+1, mu1 then mu2.
@@ -103,16 +64,9 @@ spectral_grads_kernel(const T* __restrict__ xs, const T* __restrict__ es,
                       int NJ, int bins_per_block) {
   constexpr int TS = s_per_thread(M, G);
   constexpr int ST = SGROUPS * TS;
-  const Plan pl = make_plan(M, G, P1, RB, NJ);
+  const Plan pl = make_plan(M, G, P1, RB, NJ, TS);
 
   extern __shared__ float4 smem4[];
-  float* st1 = reinterpret_cast<float*>(smem4);       // [2*P1][NJ]
-  float* st2 = st1 + 2 * P1 * NJ;                      // [2*RB][NJ]
-  int* su_j = reinterpret_cast<int*>(st1 + pl.tab);    // [2][G][ST][FT]
-  float* su_w = st1 + pl.tab + 2 * pl.units;           // [4][G][ST][FT]
-  float* sx = su_w + 4 * pl.units;                     // [M][2*NC][ST]
-  float* se = sx + pl.sx;                              // [2*NC][FT]
-
   const int tid = threadIdx.x;
   const int fg = tid % FGROUPS;
   const int sg = tid / FGROUPS;
@@ -120,24 +74,8 @@ spectral_grads_kernel(const T* __restrict__ xs, const T* __restrict__ es,
   const int s0 = blockIdx.y * ST;
   const int kbeg = blockIdx.z * bins_per_block;
   const int kend = min(B, kbeg + bins_per_block);
-  const int N2 = 2 * N;
-  const size_t SF = (size_t)S * F;
-  const size_t GSF = (size_t)G * SF;
-
-  for (int i = tid; i < 2 * P1 * NJ; i += THREADS) st1[i] = t1[i];
-  for (int i = tid; i < 2 * RB * NJ; i += THREADS) st2[i] = t2[i];
-  for (int i = tid; i < pl.units; i += THREADS) {
-    const int g = i / (ST * FT);
-    const int r = i - g * ST * FT;
-    const int s = s0 + r / FT;
-    const int f = f0 + r % FT;
-    const bool ok = s < S && f < F;
-    const size_t gi = g * SF + (size_t)s * F + f;
-    su_j[i] = ok ? idx[gi] : 0;
-    su_j[pl.units + i] = ok ? idx[GSF + gi] : 0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) su_w[q * pl.units + i] = ok ? wts[q * GSF + gi] : 0.f;
-  }
+  const Smem sm = stage_block(reinterpret_cast<float*>(smem4), pl, t1, t2, idx, wts, G, S, F,
+                              P1, RB, NJ, s0, f0);
 
   float acc[M][G][TS][TF];
 #pragma unroll
@@ -151,87 +89,15 @@ spectral_grads_kernel(const T* __restrict__ xs, const T* __restrict__ es,
 
   for (int k = kbeg; k < kend; ++k) {
     float tre[M][TS][TF], tim[M][TS][TF];
-#pragma unroll
-    for (int m = 0; m < M; ++m)
-#pragma unroll
-      for (int t = 0; t < TS; ++t)
-#pragma unroll
-        for (int u = 0; u < TF; ++u) tre[m][t][u] = tim[m][t][u] = 0.f;
-
-    for (int n0 = 0; n0 < N; n0 += NC) {
-      const int nc = min(NC, N - n0);
-      __syncthreads();  // the previous stage's reads are done
-      // xs rows [n0, n0 + nc) (re) and [N + n0, N + n0 + nc) (im) of each m,
-      // columns [s0, s0 + ST); stage row r < nc is re, r >= nc im. Each
-      // thread owns one column and every (THREADS/ST)-th row: no division,
-      // and the unrolled loads are all in flight before the stores.
-      {
-        constexpr int XR = THREADS / ST;  // rows per pass
-        const int s = tid % ST;
-        const bool s_ok = s0 + s < S;
-        float v[M][2 * NC / XR];
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          const T* src = xs + ((size_t)k * M + m) * N2 * S + s0 + s;
-#pragma unroll
-          for (int q = 0; q < 2 * NC / XR; ++q) {
-            const int r = q * XR + tid / ST;
-            const int row = r < nc ? n0 + r : N + n0 + r - nc;
-            v[m][q] = (r < 2 * nc && s_ok) ? to_f32(src[(size_t)row * S]) : 0.f;
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < M; ++m)
-#pragma unroll
-          for (int q = 0; q < 2 * NC / XR; ++q)
-            sx[(m * 2 * NC + q * XR + tid / ST) * ST + s] = v[m][q];
-      }
-      {
-        constexpr int ER = THREADS / FT;
-        const int f = tid % FT;
-        const bool f_ok = f0 + f < F;
-        const T* src = es + (size_t)k * N2 * F + f0 + f;
-#pragma unroll
-        for (int q = 0; q < 2 * NC / ER; ++q) {
-          const int r = q * ER + tid / FT;
-          const int row = r < nc ? n0 + r : N + n0 + r - nc;
-          se[r * FT + f] = (r < 2 * nc && f_ok) ? to_f32(src[(size_t)row * F]) : 0.f;
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 2
-      for (int i = 0; i < nc; ++i) {
-        const float4 qr = *reinterpret_cast<const float4*>(se + i * FT + fg * TF);
-        const float4 qi = *reinterpret_cast<const float4*>(se + (nc + i) * FT + fg * TF);
-        const float er[TF] = {qr.x, qr.y, qr.z, qr.w};
-        const float ei[TF] = {qi.x, qi.y, qi.z, qi.w};
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          float xr[TS], xi[TS];
-#pragma unroll
-          for (int t = 0; t < TS; ++t) {
-            xr[t] = sx[(m * 2 * NC + i) * ST + sg * TS + t];
-            xi[t] = sx[(m * 2 * NC + nc + i) * ST + sg * TS + t];
-          }
-#pragma unroll
-          for (int t = 0; t < TS; ++t)
-#pragma unroll
-            for (int u = 0; u < TF; ++u) {
-              tre[m][t][u] = fmaf(xr[t], er[u], fmaf(xi[t], ei[u], tre[m][t][u]));
-              tim[m][t][u] = fmaf(xi[t], er[u], fmaf(-xr[t], ei[u], tim[m][t][u]));
-            }
-        }
-      }
-    }
+    cross_bin<T, M, TS>(xs, es, sm, k, N, S, F, s0, f0, tre, tim);
 
     // the gather: grad += Re(phiU) * T_re - Im(phiU) * T_im, T rounded to T
     const int k1 = k / RB;
     const int k2 = k - k1 * RB;
-    const float* t1c = st1 + k1 * NJ;
-    const float* t1s = st1 + (P1 + k1) * NJ;
-    const float* t2c = st2 + k2 * NJ;
-    const float* t2s = st2 + (RB + k2) * NJ;
+    const float* t1c = sm.t1 + k1 * NJ;
+    const float* t1s = sm.t1 + (P1 + k1) * NJ;
+    const float* t2c = sm.t2 + k2 * NJ;
+    const float* t2s = sm.t2 + (RB + k2) * NJ;
 #pragma unroll
     for (int t = 0; t < TS; ++t)
 #pragma unroll
@@ -244,10 +110,10 @@ spectral_grads_kernel(const T* __restrict__ xs, const T* __restrict__ es,
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const int ui = (g * ST + sg * TS + t) * FT + fg * TF + u;
-          const int j1 = su_j[ui];
-          const int j2 = su_j[pl.units + ui];
-          const float a0 = su_w[ui], a1 = su_w[pl.units + ui];
-          const float b0 = su_w[2 * pl.units + ui], b1 = su_w[3 * pl.units + ui];
+          const int j1 = sm.j[ui];
+          const int j2 = sm.j[pl.units + ui];
+          const float a0 = sm.w[ui], a1 = sm.w[pl.units + ui];
+          const float b0 = sm.w[2 * pl.units + ui], b1 = sm.w[3 * pl.units + ui];
           const float pyre = fmaf(t1c[j2 + 1], b1, t1c[j2] * b0);
           const float pyim = fmaf(t1s[j2 + 1], b1, t1s[j2] * b0);
           const float pxre = fmaf(t2c[j1 + 1], a1, t2c[j1] * a0);
@@ -395,23 +261,11 @@ spectral_dx_kernel(const T* __restrict__ esb, const float* __restrict__ t1,
 }
 
 template <typename T, int M, int G>
-cudaError_t grads_kernel_attrs(size_t smem, const void** fn) {
-  auto kernel = spectral_grads_kernel<T, M, G>;
-  *fn = reinterpret_cast<const void*>(kernel);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
-}
-
-template <typename T, int M, int G>
 cudaError_t launch_grads(const void* xs, const void* es, const float* t1, const float* t2,
                          const int* idx, const float* wts, float* out, int B, int N, int S,
                          int F, int P1, int RB, int NJ, int R, size_t smem,
                          cudaStream_t stream) {
-  const void* fn;
-  cudaError_t e = grads_kernel_attrs<T, M, G>(smem, &fn);
+  cudaError_t e = set_smem(spectral_grads_kernel<T, M, G>, smem);
   if (e != cudaSuccess) return e;
   constexpr int ST = SGROUPS * s_per_thread(M, G);
   const int per = (B + R - 1) / R;
@@ -433,29 +287,25 @@ cudaError_t launch_grads(const void* xs, const void* es, const float* t1, const 
     case 4 * 8 + 2: return CALL(4, 2);                                  \
     case 4 * 8 + 3: return CALL(4, 3);                                  \
     case 4 * 8 + 4: return CALL(4, 4);                                  \
-    default: return cudaErrorInvalidValue;                              \
+    default: return -(int)cudaErrorInvalidValue;                        \
   }
 
 template <typename T>
-cudaError_t grads_blocks_per_sm(int M, int G, size_t smem, int* blocks) {
-#define DAU_OCC(MM, GG)                                                              \
-  [&]() {                                                                            \
-    const void* fn;                                                                  \
-    cudaError_t e = grads_kernel_attrs<T, MM, GG>(smem, &fn);                        \
-    if (e != cudaSuccess) return e;                                                  \
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, THREADS, smem); \
-  }()
-  DAU_MG_DISPATCH(DAU_OCC)
-#undef DAU_OCC
+int ranges(int M, int G, int B, int S, int F, size_t smem) {
+  const int blocks = ((F + FT - 1) / FT) * ((S + SGROUPS * s_per_thread(M, G) - 1) /
+                                            (SGROUPS * s_per_thread(M, G)));
+#define DAU_RANGES(MM, GG) fill_ranges(spectral_grads_kernel<T, MM, GG>, smem, blocks, B)
+  DAU_MG_DISPATCH(DAU_RANGES)
+#undef DAU_RANGES
 }
 
 template <typename T>
-cudaError_t dispatch_grads(int M, int G, const void* xs, const void* es, const float* t1,
-                           const float* t2, const int* idx, const float* wts, float* out,
-                           int B, int N, int S, int F, int P1, int RB, int NJ, int R,
-                           size_t smem, cudaStream_t stream) {
+int dispatch_grads(int M, int G, const void* xs, const void* es, const float* t1,
+                   const float* t2, const int* idx, const float* wts, float* out, int B, int N,
+                   int S, int F, int P1, int RB, int NJ, int R, size_t smem,
+                   cudaStream_t stream) {
 #define DAU_LAUNCH(MM, GG) \
-  launch_grads<T, MM, GG>(xs, es, t1, t2, idx, wts, out, B, N, S, F, P1, RB, NJ, R, smem, stream)
+  (int)launch_grads<T, MM, GG>(xs, es, t1, t2, idx, wts, out, B, N, S, F, P1, RB, NJ, R, smem, stream)
   DAU_MG_DISPATCH(DAU_LAUNCH)
 #undef DAU_LAUNCH
 }
@@ -466,7 +316,7 @@ extern "C" {
 
 // Shared-memory bytes of K1 for M filters, G units and the table sizes.
 long long dau_spectral_grads_smem_bytes(int M, int G, int P1, int RB, int NJ) {
-  return plan_bytes(make_plan(M, G, P1, RB, NJ));
+  return plan_bytes(make_plan(M, G, P1, RB, NJ, s_per_thread(M, G)));
 }
 
 // Bin ranges for K1 so its grid fills the card about once: the blocks of
@@ -474,18 +324,9 @@ long long dau_spectral_grads_smem_bytes(int M, int G, int P1, int RB, int NJ) {
 // Returns the count (>= 1, <= B), or -cudaError on failure.
 int dau_spectral_grads_ranges(int dtype, int M, int G, int B, int S, int F, int P1, int RB,
                               int NJ) {
-  const size_t smem = (size_t)plan_bytes(make_plan(M, G, P1, RB, NJ));
-  int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t e = dtype == 0 ? grads_blocks_per_sm<float>(M, G, smem, &per_sm)
-                             : grads_blocks_per_sm<__nv_bfloat16>(M, G, smem, &per_sm);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return -(int)e;
-  const int ST = SGROUPS * s_per_thread(M, G);
-  const int blocks = ((F + FT - 1) / FT) * ((S + ST - 1) / ST);
-  int r = (per_sm * sms) / blocks;
-  r = r < 1 ? 1 : (r > B ? B : r);
-  return (B + ((B + r - 1) / r) - 1) / ((B + r - 1) / r);  // no empty range
+  const size_t smem = (size_t)dau_spectral_grads_smem_bytes(M, G, P1, RB, NJ);
+  return dtype == 0 ? ranges<float>(M, G, B, S, F, smem)
+                    : ranges<__nv_bfloat16>(M, G, B, S, F, smem);
 }
 
 // K1: xs (B, M, 2N, S), es (B, 2N, F) in dtype (0 f32, 1 bf16); t1 (2*P1,
@@ -502,13 +343,16 @@ int dau_spectral_grads_launch(const void* xs, const void* es, const void* t1, co
   const int* ii = static_cast<const int*>(idx);
   const float* fw = static_cast<const float*>(wts);
   float* fo = static_cast<float*>(out);
+  int e;
   if (dtype == 0)
-    return (int)dispatch_grads<float>(M, G, xs, es, ft1, ft2, ii, fw, fo, B, N, S, F, P1, RB,
+    e = dispatch_grads<float>(M, G, xs, es, ft1, ft2, ii, fw, fo, B, N, S, F, P1, RB, NJ, R,
+                              (size_t)smem, st);
+  else if (dtype == 1)
+    e = dispatch_grads<__nv_bfloat16>(M, G, xs, es, ft1, ft2, ii, fw, fo, B, N, S, F, P1, RB,
                                       NJ, R, (size_t)smem, st);
-  if (dtype == 1)
-    return (int)dispatch_grads<__nv_bfloat16>(M, G, xs, es, ft1, ft2, ii, fw, fo, B, N, S, F,
-                                              P1, RB, NJ, R, (size_t)smem, st);
-  return (int)cudaErrorInvalidValue;
+  else
+    return (int)cudaErrorInvalidValue;
+  return e < 0 ? -e : e;
 }
 
 // K2's dx kernel: esb (B, 2N, F) in dtype; wg (G, S, F) f32; dxs (B, 2N, S)

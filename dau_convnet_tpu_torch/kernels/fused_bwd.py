@@ -1,13 +1,14 @@
 """Fused spectral unit gradients for Hopper (K1, and K2 with the input
-gradient), and their plain twin.
+gradient; K8, the factored gather), and their plain twins.
 
-Counterpart of `dau_convnet_tpu/kernels/fused_bwd.py::fused_spectral_grads_call`
-(phi gather). `fused_spectral_grads` launches the hand-written CUDA kernels of
-`csrc/dau_spectral_grads.cu` on a CUDA tensor and calls the plain PyTorch
-twin `fused_spectral_grads_plain` on a CPU tensor. There is no fallback: on
-a CUDA tensor the kernel runs or the call raises.
+Counterpart of `dau_convnet_tpu/kernels/fused_bwd.py::fused_spectral_grads_call`.
+`fused_spectral_grads` launches the hand-written CUDA kernels of
+`csrc/dau_spectral_grads.cu` (gather='phi') or `csrc/dau_factored_grads.cu`
+(gather='factored') on a CUDA tensor and calls the plain PyTorch twin
+(`fused_spectral_grads_plain`, `fused_factored_grads_plain`) on a CPU tensor.
+There is no fallback: on a CUDA tensor the kernel runs or the call raises.
 
-Both compute, for the re/im-stacked spectra xs (B, M, 2N, S) and es (B, 2N,
+All compute, for the re/im-stacked spectra xs (B, M, 2N, S) and es (B, 2N,
 F) cast to xs's dtype,
 
     T[k,m,s,f]    = sum_n X[k,m,n,s] * conj(E[k,n,f])   (f32 sums, rounded
@@ -16,10 +17,20 @@ F) cast to xs's dtype,
 
 with phiU[k] = py[k1] * px[k2] (k = k1*rb + k2), py from the table t1 and
 the one-hot a2 (mu2), px from t2 (which carries the rfft coefficient) and
-a1 (mu1), the tables and one-hots rounded to xs's dtype first. With esb
-(B, 2N, F) and wg (G, S, F) they also return the input-gradient spectra
-dX[k,n,s] = sum_{g,f} conj(phiU) * wg * Eb[k,n,f], (B, 2N, S) f32 as [dXre;
-dXim]; the caller closes them with the raw partial iDFT.
+a1 (mu1), the tables and one-hots rounded to xs's dtype first. The phi
+gather sums over the bins with each unit's phase factor; the factored gather
+first contracts T against the tables, rounding to xs's dtype where the
+Pallas kernel's scratch does,
+
+    P[k1,j2] = sum_k2 t2c[k2,j2] Tre - t2s[k2,j2] Tim,   Q[k1,j2] = sum_k2
+    t2s Tre + t2c Tim   (f32 sums, rounded to xs's dtype)
+    E[j1,j2] = sum_k1 t1c[k1,j1] P - t1s[k1,j1] Q       (f32)
+    grad[g]  = sum_{j1,j2} a2[g,j1] a1[g,j2] E[j1,j2]     (f32)
+
+With esb (B, 2N, F) and wg (G, S, F) they also return the input-gradient
+spectra dX[k,n,s] = sum_{g,f} conj(phiU) * wg * Eb[k,n,f], (B, 2N, S) f32 as
+[dXre; dXim] (the same function under either gather); the caller closes
+them with the raw partial iDFT.
 """
 
 from __future__ import annotations
@@ -32,8 +43,8 @@ import torch
 from ._build import load_library
 from .forward import _DTYPE_CODE, _MAX_SMEM
 
-__all__ = ["FusedPlanError", "spectral_plan", "fused_spectral_grads",
-           "fused_spectral_grads_plain"]
+__all__ = ["FusedPlanError", "spectral_plan", "factored_plan", "fused_spectral_grads",
+           "fused_spectral_grads_plain", "fused_factored_grads_plain"]
 
 # (M, G) pairs the kernel is instantiated for: the M*G*8 f32 sums each
 # thread keeps in registers spill beyond G = 4
@@ -47,16 +58,30 @@ class FusedPlanError(ValueError):
     spectral gather instead (decided before the call, from the shape)."""
 
 
-def spectral_plan(*, m: int, g: int, nj: int, p1b: int, rbb: int):
-    """Shape-only plan of the fused kernel: {'smem': K1's shared-memory
-    bytes}, or None where the kernel cannot take the shape: M not in (3, 4),
-    G > 4, more than 64 exponents, or K1's shared memory above 227 KB."""
+def _plan(m: int, g: int, nj: int, p1b: int, rbb: int, st: int):
+    """{'smem': bytes} of a block of st s x 32 f that stages both phase
+    tables, its units' taps and 16 images of xs and es; None where the
+    kernels cannot take the shape (M not in (3, 4), G > 4, more than 64
+    exponents, shared memory above 227 KB)."""
     if m not in _FILTERS or not 1 <= g <= _MAX_UNITS or nj > _MAX_EXPONENTS:
         return None
-    st = 32 if m * g <= 8 else 16
     tab = -(-2 * (p1b + rbb) * nj // 4) * 4
     smem = 4 * (tab + 6 * g * st * 32 + m * 2 * 16 * st + 2 * 16 * 32)
     return {"smem": smem} if smem <= _MAX_SMEM else None
+
+
+def spectral_plan(*, m: int, g: int, nj: int, p1b: int, rbb: int):
+    """Shape-only plan of the phi-gather kernel K1: {'smem': bytes}, or None
+    where it cannot take the shape (see `_plan`)."""
+    return _plan(m, g, nj, p1b, rbb, 32 if m * g <= 8 else 16)
+
+
+def factored_plan(*, m: int, g: int, nj: int, p1b: int, rbb: int):
+    """Shape-only plan of the factored-gather kernel K8: {'smem': bytes}, or
+    None where it cannot take the shape (see `_plan`; a K8 block owns 16 s,
+    its P/Q sums fill the registers K1 gives a second s). JAX's VMEM budget
+    has no counterpart here."""
+    return _plan(m, g, nj, p1b, rbb, 16)
 
 
 def _dx_spectra_plain(esb, phire, phiim, wg, n_img: int):
@@ -71,37 +96,81 @@ def _dx_spectra_plain(esb, phire, phiim, wg, n_img: int):
     return torch.cat([dre, dim], dim=1)
 
 
-def fused_spectral_grads_plain(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int,
-                               rbb: int, esb=None, wg=None):
-    """Plain PyTorch twin of the fused kernel (the module's contract)."""
+def _cross_plain(xs, es, n_img: int):
+    """T = X conj(E) as (tre, tim), each (B, M, S, F): f32 sums of the
+    operands in xs's dtype, rounded to it, widened to f32."""
     b, m, n2, s = xs.shape
     cdt = xs.dtype
     xs32 = xs.float()
     es32 = es.to(cdt).float()
     xs_im = torch.cat([xs32[:, :, n_img:], -xs32[:, :, :n_img]], dim=2)
 
-    def cross(lhs):                                          # -> (B, M, S, F)
+    def cross(lhs):
         t = torch.bmm(lhs.transpose(2, 3).reshape(b, m * s, n2), es32)
         return t.to(cdt).float().reshape(b, m, s, -1)
 
-    tre, tim = cross(xs32), cross(xs_im)
-    t1 = t1.to(cdt).float()
-    t2 = t2.to(cdt).float()
+    return cross(xs32), cross(xs_im)
+
+
+def _phase_factors(t1, t2, a1, a2, p1b: int, rbb: int, cdt):
+    """Each unit's phase factor over the bins, (phire, phiim), each (B, G,
+    S, F) f32, from the tables and one-hots rounded to cdt."""
     a1 = a1.to(cdt).float()
-    a2 = a2.to(cdt).float()
-    nj, g = a1.shape[0], a1.shape[1]
-    py = torch.matmul(t1, a2.reshape(nj, -1)).reshape(2 * p1b, g, s, -1)
-    px = torch.matmul(t2, a1.reshape(nj, -1)).reshape(2 * rbb, g, s, -1)
+    nj, g, s = a1.shape[:3]
+    py = torch.matmul(t1.to(cdt).float(), a2.to(cdt).float().reshape(nj, -1))
+    px = torch.matmul(t2.to(cdt).float(), a1.reshape(nj, -1))
+    py = py.reshape(2 * p1b, g, s, -1)
+    px = px.reshape(2 * rbb, g, s, -1)
     pyre, pyim = py[:p1b, None], py[p1b:, None]              # (P1, 1, G, S, F)
     pxre, pxim = px[None, :rbb], px[None, rbb:]              # (1, rb, G, S, F)
-    phire = (pyre * pxre - pyim * pxim).reshape(b, g, s, -1)
-    phiim = (pyre * pxim + pyim * pxre).reshape(b, g, s, -1)
+    b = p1b * rbb
+    return ((pyre * pxre - pyim * pxim).reshape(b, g, s, -1),
+            (pyre * pxim + pyim * pxre).reshape(b, g, s, -1))
+
+
+def fused_spectral_grads_plain(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int,
+                               rbb: int, esb=None, wg=None):
+    """Plain PyTorch twin of the phi-gather kernel (the module's contract)."""
+    m, cdt = xs.shape[1], xs.dtype
+    tre, tim = _cross_plain(xs, es, n_img)
+    phire, phiim = _phase_factors(t1, t2, a1, a2, p1b, rbb, cdt)
     grads = torch.stack([
         torch.sum(phire * tre[:, mi, None] - phiim * tim[:, mi, None], dim=0)
         for mi in range(m)])                                 # (M, G, S, F)
     grads = grads.transpose(1, 2)
     if esb is None:
         return grads
+    return grads, _dx_spectra_plain(esb.to(cdt), phire, phiim, wg.to(cdt).float(), n_img)
+
+
+def fused_factored_grads_plain(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int,
+                               rbb: int, esb=None, wg=None):
+    """Plain PyTorch twin of the factored-gather kernel K8: the contraction
+    order and the roundings of the Pallas kernel `_kernel_factored` (the
+    module's contract). The dx spectra are the phi twin's."""
+    _, m, _, s = xs.shape
+    cdt = xs.dtype
+    tre, tim = _cross_plain(xs, es, n_img)                   # (B, M, S, F)
+    f = tre.shape[-1]
+    tre, tim = tre.reshape(p1b, rbb, -1), tim.reshape(p1b, rbb, -1)
+    t1r, t2r = t1.to(cdt).float(), t2.to(cdt).float()
+    t2c, t2s = t2r[:rbb].t(), t2r[rbb:].t()                  # (nj, rb)
+    # the k2 contraction, rounded to cdt: (P1, nj, M*S*F)
+    p = (torch.matmul(t2c, tre) - torch.matmul(t2s, tim)).to(cdt).float()
+    q = (torch.matmul(t2s, tre) + torch.matmul(t2c, tim)).to(cdt).float()
+    nj = t1.shape[1]
+    # the k1 contraction in f32: E[j1, j2, m, s, f]
+    e = (t1r[:p1b].t() @ p.reshape(p1b, -1) - t1r[p1b:].t() @ q.reshape(p1b, -1))
+    e = e.reshape(nj, nj, m, 1, s, f)
+    a1r = a1.to(cdt).float()[:, None]                        # (nj, 1, G, S, F)
+    a2r = a2.to(cdt).float()
+    grads = torch.zeros((m,) + tuple(a2r.shape[1:]), dtype=torch.float32, device=xs.device)
+    for j1 in range(nj):                                     # (M, G, S, F)
+        grads += a2r[j1] * torch.sum(a1r * e[j1], dim=0)
+    grads = grads.transpose(1, 2)
+    if esb is None:
+        return grads
+    phire, phiim = _phase_factors(t1, t2, a1, a2, p1b, rbb, cdt)
     return grads, _dx_spectra_plain(esb.to(cdt), phire, phiim, wg.to(cdt).float(), n_img)
 
 
@@ -147,25 +216,32 @@ def _taps(a, cdt):
 
 
 def fused_spectral_grads(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int, rbb: int,
-                         esb=None, wg=None):
+                         esb=None, wg=None, gather: str = "phi"):
     """Unit gradients (M, S, G, F) f32 from the spectra; with esb and wg,
     (grads, dx spectra (B, 2N, S) f32).
 
     xs: (B, M, 2N, S) f32 or bf16, contiguous; es, esb: (B, 2N, F); t1:
     (2*P1, nj); t2: (2*rb, nj), the rfft coefficient folded in; a1, a2:
     (nj, G, S, F) bilinear one-hots of mu1, mu2 (non-zeros at two
-    neighbouring entries at most); wg: (G, S, F) unit weights.
+    neighbouring entries at most); wg: (G, S, F) unit weights; gather:
+    'phi' or 'factored'.
 
-    On a CUDA tensor this launches the sm_90a kernels: without esb one K1
-    launch (counted in `fused_spectral_grads.launches_k1`), with esb one K2
-    call, K1's kernel and the dx kernel (counted once in `launches_k2`).
-    On a CPU tensor it computes the plain twin. Other devices raise, and so
-    does a shape without a plan (`spectral_plan`) on the card.
+    On a CUDA tensor this launches the sm_90a kernels. gather='phi': without
+    esb one K1 launch (counted in `fused_spectral_grads.launches_k1`), with
+    esb one K2 call, K1's kernel and the dx kernel (counted once in
+    `launches_k2`). gather='factored': one K8 launch (`launches_k8`), with
+    esb K8 and the same dx kernel (counted once in `launches_k8_dx`). On a
+    CPU tensor it computes the gather's plain twin. Other devices raise, and
+    so does a shape without a plan (`spectral_plan`, `factored_plan`) on the
+    card.
     """
+    if gather not in ("phi", "factored"):
+        raise ValueError(f"unknown gather mode {gather!r}")
     _check(xs, es, t1, t2, a1, a2, n_img, p1b, rbb, esb, wg)
+    factored = gather == "factored"
     if xs.device.type == "cpu":
-        return fused_spectral_grads_plain(xs, es, t1, t2, a1, a2, n_img=n_img, p1b=p1b,
-                                          rbb=rbb, esb=esb, wg=wg)
+        twin = fused_factored_grads_plain if factored else fused_spectral_grads_plain
+        return twin(xs, es, t1, t2, a1, a2, n_img=n_img, p1b=p1b, rbb=rbb, esb=esb, wg=wg)
     if xs.device.type != "cuda":
         raise RuntimeError(f"fused_spectral_grads has no kernel for device {xs.device}")
     if not xs.is_contiguous():
@@ -173,10 +249,10 @@ def fused_spectral_grads(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int, rbb: i
     b, m, _, s = xs.shape
     f = es.shape[2]
     nj, g = a1.shape[0], a1.shape[1]
-    plan = spectral_plan(m=m, g=g, nj=nj, p1b=p1b, rbb=rbb)
+    plan = (factored_plan if factored else spectral_plan)(m=m, g=g, nj=nj, p1b=p1b, rbb=rbb)
     if plan is None:
-        raise FusedPlanError(f"fused_spectral_grads: no plan for M={m} G={g} nj={nj} "
-                             f"P1={p1b} rb={rbb}")
+        raise FusedPlanError(f"fused_spectral_grads ({gather}): no plan for M={m} G={g} "
+                             f"nj={nj} P1={p1b} rb={rbb}")
     cdt = xs.dtype
     code = _DTYPE_CODE[cdt]
     es = es.to(cdt).contiguous()
@@ -187,59 +263,74 @@ def fused_spectral_grads(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int, rbb: i
     idx = torch.stack([j1, j2]).contiguous()
     wts = torch.stack([a1lo, a1hi, a2lo, a2hi]).contiguous()
 
-    lib = _library()
-    if lib.dau_spectral_grads_smem_bytes(m, g, p1b, rbb, nj) != plan["smem"]:
-        raise RuntimeError("fused_spectral_grads: the plan disagrees with the kernel's")
-    r = _ranges(code, m, g, b, s, f, p1b, rbb, nj)
+    name = "dau_factored_grads" if factored else "dau_spectral_grads"
+    lib = _library(name)
+    if getattr(lib, f"{name}_smem_bytes")(m, g, p1b, rbb, nj) != plan["smem"]:
+        raise RuntimeError(f"fused_spectral_grads ({gather}): the plan disagrees with the "
+                           "kernel's")
+    r = _ranges(name, code, m, g, b, s, f, p1b, rbb, nj)
     out = torch.empty((r, m, s, g, f), dtype=torch.float32, device=xs.device)
+    counts = fused_spectral_grads
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
-        err = lib.dau_spectral_grads_launch(
+        err = getattr(lib, f"{name}_launch")(
             xs.data_ptr(), es.data_ptr(), t1.data_ptr(), t2.data_ptr(), idx.data_ptr(),
             wts.data_ptr(), out.data_ptr(), code, m, g, b, n_img, s, f, p1b, rbb, nj, r,
             plan["smem"], stream)
         if err != 0:
-            raise RuntimeError(f"fused_spectral_grads launch failed: cudaError {err}")
+            raise RuntimeError(f"fused_spectral_grads ({gather}) launch failed: cudaError {err}")
         grads = out[0] if r == 1 else out.sum(dim=0)
         if esb is None:
-            fused_spectral_grads.launches_k1 += 1
+            if factored:
+                counts.launches_k8 += 1
+            else:
+                counts.launches_k1 += 1
             return grads
+        # the dx spectra: the same function under either gather, K2's kernel
         esb = esb.to(cdt).contiguous()
         wg = wg.to(cdt).float().contiguous()
         dxs = torch.empty((b, 2 * n_img, s), dtype=torch.float32, device=xs.device)
-        err = lib.dau_spectral_dx_launch(
+        err = _library("dau_spectral_grads").dau_spectral_dx_launch(
             esb.data_ptr(), t1.data_ptr(), t2.data_ptr(), idx.data_ptr(), wts.data_ptr(),
             wg.data_ptr(), dxs.data_ptr(), code, g, b, n_img, s, f, p1b, rbb, nj, stream)
     if err != 0:
         raise RuntimeError(f"fused_spectral_grads dx launch failed: cudaError {err}")
-    fused_spectral_grads.launches_k2 += 1
+    if factored:
+        counts.launches_k8_dx += 1
+    else:
+        counts.launches_k2 += 1
     return grads, dxs
 
 
 fused_spectral_grads.launches_k1 = 0
 fused_spectral_grads.launches_k2 = 0
+fused_spectral_grads.launches_k8 = 0
+fused_spectral_grads.launches_k8_dx = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _ranges(code, m, g, b, s, f, p1b, rbb, nj) -> int:
-    """K1's bin ranges for a shape (the grid fills the card about once)."""
-    r = _library().dau_spectral_grads_ranges(code, m, g, b, s, f, p1b, rbb, nj)
+def _ranges(name, code, m, g, b, s, f, p1b, rbb, nj) -> int:
+    """The kernel's bin ranges for a shape (the grid fills the card about
+    once; K8's ranges hold whole k1 rows)."""
+    r = getattr(_library(name), f"{name}_ranges")(code, m, g, b, s, f, p1b, rbb, nj)
     if r < 1:
-        raise RuntimeError(f"fused_spectral_grads occupancy query failed: cudaError {-r}")
+        raise RuntimeError(f"{name} occupancy query failed: cudaError {-r}")
     return r
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The built kernel library with every C signature declared."""
-    lib = load_library("dau_spectral_grads")
+def _library(name: str) -> ctypes.CDLL:
+    """The built kernel library `name` (dau_spectral_grads: K1 and the dx
+    kernel; dau_factored_grads: K8) with every C signature declared."""
+    lib = load_library(name)
     c_int, c_ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    lib.dau_spectral_grads_smem_bytes.argtypes = [c_int] * 5
-    lib.dau_spectral_grads_smem_bytes.restype = c_ll
-    lib.dau_spectral_grads_ranges.argtypes = [c_int] * 9
-    lib.dau_spectral_grads_ranges.restype = c_int
-    lib.dau_spectral_grads_launch.argtypes = [c_ptr] * 7 + [c_int] * 11 + [c_ll, c_ptr]
-    lib.dau_spectral_grads_launch.restype = c_int
-    lib.dau_spectral_dx_launch.argtypes = [c_ptr] * 7 + [c_int] * 9 + [c_ptr]
-    lib.dau_spectral_dx_launch.restype = c_int
+    getattr(lib, f"{name}_smem_bytes").argtypes = [c_int] * 5
+    getattr(lib, f"{name}_smem_bytes").restype = c_ll
+    getattr(lib, f"{name}_ranges").argtypes = [c_int] * 9
+    getattr(lib, f"{name}_ranges").restype = c_int
+    getattr(lib, f"{name}_launch").argtypes = [c_ptr] * 7 + [c_int] * 11 + [c_ll, c_ptr]
+    getattr(lib, f"{name}_launch").restype = c_int
+    if name == "dau_spectral_grads":
+        lib.dau_spectral_dx_launch.argtypes = [c_ptr] * 7 + [c_int] * 9 + [c_ptr]
+        lib.dau_spectral_dx_launch.restype = c_int
     return lib

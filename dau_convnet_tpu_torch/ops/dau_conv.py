@@ -8,8 +8,9 @@ engine: 'xla' (depthwise blur + dense aggregation), 'pallas' (depthwise blur
 kernel K5), whose unit gradients come from the grad-table kernel K6, and
 'fourier' (separable blur + per-bin spectral contractions, what 'auto'
 picks at precision='default'), whose unit gradients come from the fused
-spectral kernel K1 where the gate allows it (K2 also emits dx under
-fused_dx='on'), else from the unfused spectral gather.
+spectral kernel where the gate allows it (K1, or K8 under
+fused_gather='factored'; either also emits dx under fused_dx='on'), else
+from the unfused spectral gather.
 """
 
 from __future__ import annotations
@@ -29,8 +30,11 @@ from .gaussian import (depthwise_blur, gaussian_factor_filters, gaussian_filters
 __all__ = ["DAUConvSettings", "dau_conv2d_op", "dau_conv2d_infer", "precompute_phi",
            "edge_gradient_mask"]
 
-_FACTORED_TODO = ("fused_gather='factored' (K8) is not ported yet: ROADMAP.md "
-                  "'Still to port', K8")
+# Calibration point of fused_gather='auto': the factored gather (K8) at or
+# above this many frequency bins, the phi gather (K1) below. None, as in the
+# JAX package: 'auto' resolves to phi at every bin count, and 'factored' is
+# an explicit opt-in. Its value on the H100 is not measured (ROADMAP.md).
+FACTORED_MIN_BINS = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,23 +272,33 @@ def _reduce_to_shape(g, shape):
     return g.reshape(shape)
 
 
-def _fused_route(cfg: DAUConvSettings, xb, g: int, bins: int) -> bool:
-    """The fused spectral kernel's gate: forced by fused_bwd='on', or under
-    'auto' on a CUDA tensor with B <= 256 bins or G >= 4 (the thresholds of
-    the JAX gate); either way only where the kernel has a plan."""
-    from ..kernels.fused_bwd import spectral_plan
-    gather = "phi" if cfg.fused_gather == "auto" else cfg.fused_gather
+def _resolve_gather(cfg: DAUConvSettings, bins: int) -> str:
+    """The fused backward's gather form for fused_gather and the bin count."""
+    if cfg.fused_gather != "auto":
+        return cfg.fused_gather
+    if FACTORED_MIN_BINS is not None and bins >= FACTORED_MIN_BINS:
+        return "factored"
+    return "phi"
+
+
+def _fused_route(cfg: DAUConvSettings, xb, g: int, bins: int) -> tp.Optional[str]:
+    """The fused kernel's gather ('phi': K1/K2, 'factored': K8), or None for
+    the unfused spectral gather. The JAX gate: forced by fused_bwd='on', or
+    under 'auto' on a CUDA tensor where the factored gather is asked for, or
+    for the phi gather at B <= 256 bins or G >= 4; either way only where the
+    kernel has a plan (decided before the call, as JAX's FusedPlanError)."""
+    from ..kernels.fused_bwd import factored_plan, spectral_plan
+    gather = _resolve_gather(cfg, bins)
     if cfg.fused_bwd == "off":
-        return False
+        return None
     if cfg.fused_bwd == "auto" and not (
             xb.is_cuda and (gather != "phi" or bins <= 256 or g >= 4)):
-        return False
-    if gather == "factored":
-        raise NotImplementedError(_FACTORED_TODO)
+        return None
     m, _, _, h, w_sp = xb.shape
     p1, _, rb = fourier_engine.plan_bins(h, w_sp, cfg.synth_kernel_size)
     nj = 2 * (cfg.synth_kernel_size // 2 + 1) + 2
-    return spectral_plan(m=m, g=g, nj=nj, p1b=p1, rbb=rb) is not None
+    plan = factored_plan if gather == "factored" else spectral_plan
+    return gather if plan(m=m, g=g, nj=nj, p1b=p1, rbb=rb) is not None else None
 
 
 def _param_grads(cfg: DAUConvSettings, x, gy, sigma_value, w3m, mu13, mu23, dx_fused: bool):
@@ -303,17 +317,18 @@ def _param_grads(cfg: DAUConvSettings, x, gy, sigma_value, w3m, mu13, mu23, dx_f
         vecs, fterms = _factor_filters(cfg, sigma_value)
         xb = rank1_blur_stack(x, vecs, fterms, names)  # (M, N, S, H, W)
         p1, _, rb = fourier_engine.plan_bins(h, w_sp, ks)
-        if not _fused_route(cfg, xb, w3m.shape[1], p1 * rb):
+        gather = _fused_route(cfg, xb, w3m.shape[1], p1 * rb)
+        if gather is None:
             return fourier_engine.fourier_unit_grads(
                 xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, precision=cfg.precision), None
         if not (dx_fused and cfg.fused_dx == "on"):
             return fourier_engine.fourier_unit_grads_fused2(
-                xb, gy_p, mu13, mu23, ks, cfg.use_interpolation), None
-        # dx from the same kernel call as the unit gradients (K2)
+                xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, gather=gather), None
+        # dx from the same kernel call as the unit gradients (K2, or K8 with dx)
         gy_blur = _blur(cfg, gy, sigma_value, "error")
         grads, dx = fourier_engine.fourier_unit_grads_fused2(
             xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, err_blur=gy_blur,
-            w_units=w3m.to(xb.dtype))
+            w_units=w3m.to(xb.dtype), gather=gather)
         return grads, dx.to(x.dtype)
     fstack = torch.stack([_filters(cfg, sigma_value)[k] for k in names])  # (M, kb, kb)
     xb = depthwise_blur(x, fstack)  # (N, S*M, H, W)

@@ -37,7 +37,7 @@ import torch
 
 __all__ = ["plan_bins", "build_phi", "fourier_forward", "fourier_apply_phi",
            "fourier_input_grad", "fourier_cross_spectra", "fourier_unit_grads",
-           "fourier_unit_grads_fused2"]
+           "fourier_unit_grads_fused2", "fourier_grad_tables", "fourier_apply_phi_fused"]
 
 
 def plan_bins(h: int, w: int, ks: int):
@@ -159,18 +159,22 @@ def _phase_table_host(p: int, nbins: int, span: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _phase_table_cached(p, nbins, span, dtype, device, coef_p1):
+def _phase_table_cached(p, nbins, span, dtype, device, coef_p1, conj):
     tab = _phase_table_host(p, nbins, span)
     if coef_p1:  # the rfft conjugate-half weights and 1/(P1*P2) folded in
         w2 = _rfft_coef(p, nbins)
         tab = tab * (np.concatenate([w2, w2])[:, None] / (coef_p1 * p))
+    if conj:
+        tab[nbins:] = -tab[nbins:]
     return torch.tensor(tab, dtype=dtype, device=device)
 
 
-def _phase_table(p: int, nbins: int, span: int, dtype, device=None, coef_p1: int = 0):
+def _phase_table(p: int, nbins: int, span: int, dtype, device=None, coef_p1: int = 0,
+                 conj: bool = False):
     """`_phase_table_host` as a device tensor, cached; with coef_p1 = P1 the
-    rows carry w2[k]/(P1*P2) (the fused kernel's t2)."""
-    return _phase_table_cached(p, nbins, span, dtype, _device(device), coef_p1)
+    rows carry w2[k]/(P1*P2) (the fused kernel's t2); conj negates the sin
+    half (the factor's conjugate)."""
+    return _phase_table_cached(p, nbins, span, dtype, _device(device), coef_p1, conj)
 
 
 def _rfft_coef(p2: int, rb: int):
@@ -368,15 +372,18 @@ def fourier_unit_grads(x_blur_k, err, mu1, mu2, ks: int, use_interpolation: bool
 
 def fourier_unit_grads_fused2(x_blur_k, err, mu1, mu2, ks: int,
                               use_interpolation: bool = True,
-                              err_blur=None, w_units=None):
+                              err_blur=None, w_units=None, gather: str = "phi"):
     """`fourier_unit_grads` with the cross-spectra and the spectral
-    tap-gather in one kernel (K1, `kernels/fused_bwd.py`). Same contract:
-    (M, S, G, F) f32.
+    tap-gather in one kernel (`kernels/fused_bwd.py`): K1 with gather='phi'
+    (each unit's phase factor over the bins), K8 with gather='factored'
+    (the cross-spectra contracted against the integer-exponent tables, then
+    combined per unit). Same contract: (M, S, G, F) f32.
 
     err_blur (N, F, H, W, the mirror-blurred error) with w_units (S, G, F,
     dummy-masked) also takes the input gradient from the same kernel call
-    (K2); returns (grads, dx) with dx (N, S, H, W) f32. The kernel's t2
-    carries the rfft coefficient, so dx is closed by the RAW partial iDFT.
+    (K2, or K8 with dx); returns (grads, dx) with dx (N, S, H, W) f32. The
+    kernel's t2 carries the rfft coefficient, so dx is closed by the RAW
+    partial iDFT.
     """
     from ..kernels.fused_bwd import fused_spectral_grads
 
@@ -399,9 +406,76 @@ def fourier_unit_grads_fused2(x_blur_k, err, mu1, mu2, ks: int,
     a2 = _phase_onehot(mu2, span, use_interpolation).permute(0, 2, 1, 3)
     res = fused_spectral_grads(
         xs.to(dtype).contiguous(), es.to(dtype).contiguous(), t1, t2, a1, a2,
-        n_img=n, p1b=p1, rbb=rb, esb=esb, wg=wg)
+        n_img=n, p1b=p1, rbb=rb, esb=esb, wg=wg, gather=gather)
     if err_blur is None:
         return res
     grads, dxs = res
     dx = _spectra_to_image(dxs[:, :n], dxs[:, n:], p1, p2, rb, h, wd, apply_coef=False)
     return grads, dx
+
+
+def fourier_grad_tables(x_blur_k, err, ks: int, precision: str = "default"):
+    """Position table T[p,m,s,f] = sum_{n,ij} xbk[m,n,s,ij+p] err[n,f,ij] via
+    the cross-spectra and the partial iDFT (K7, `kernels/spectral.py`): the
+    function of `xla_engine.grad_tables`, position-major, which
+    `xla_engine.tap_gather(..., table_layout='pmsf')` reads. x_blur_k: (M,
+    N, S, H, W); err: (N, F, H, W). Returns (ks*ks, M, S, F) in the
+    cross-spectra's dtype (f32 at precision='highest')."""
+    from ..kernels.spectral import partial_idft
+
+    m, _, s, _, _ = x_blur_k.shape
+    f = err.shape[1]
+    c = ks // 2
+    tre, tim, (p1, p2, rb) = fourier_cross_spectra(x_blur_k, err, ks, precision)
+    pos = np.arange(-c, c + 1)
+    cmat, smat = _idft_mats(p1, p2, rb, pos, pos, tre.dtype, tre.device)
+    table = partial_idft(cmat, smat, tre.reshape(p1 * rb, -1), tim.reshape(p1 * rb, -1),
+                         out_dtype=tre.dtype)
+    return table.reshape(ks * ks, m, s, f)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_idft_mats_cached(p1, p2, rb, h, wd, device):
+    cmat, smat = _idft_mats(p1, p2, rb, range(h), range(wd), torch.float32, device)
+    hwp = -(-h * wd // 8) * 8
+    pad = (0, 0, 0, hwp - h * wd)
+    return (torch.nn.functional.pad(cmat.t(), pad), torch.nn.functional.pad(smat.t(), pad),
+            hwp)
+
+
+def _fused_idft_mats(p1: int, p2: int, rb: int, h: int, wd: int, device=None):
+    """(HWp, B) partial-iDFT cos/sin matrices of the fused apply-phi (rows
+    padded to a multiple of 8 with zeros; rfft coefficient folded), and HWp;
+    cached per device."""
+    return _fused_idft_mats_cached(p1, p2, rb, h, wd, _device(device))
+
+
+def fourier_apply_phi_fused(x_blur, w, mu1, mu2, ks: int, use_interpolation: bool = True,
+                            contract_f: bool = False):
+    """`fourier_forward` (contract_f=False) or the input gradient
+    (contract_f=True, x_blur the mirror-blurred error) with Phi built from
+    the taps inside the fused kernel (K3, `kernels/fused_fwd.py`): Phi never
+    reaches device memory. The conjugate Phi of the input gradient is the
+    same tables with their sin halves negated, contracted over F.
+
+    w, mu1, mu2: (S, G, F). Returns (N, F, H, W), or (N, S, H, W) for the
+    input gradient, in x_blur's dtype.
+    """
+    from ..kernels.fused_fwd import fused_apply_phi
+
+    n, _, h, wd = x_blur.shape
+    p1, p2, rb = plan_bins(h, wd, ks)
+    span = ks // 2 + 1
+    dtype = x_blur.dtype
+    xre, xim = _rdft2(x_blur, p1, p2, rb)                    # (N, CI, B)
+    xs = torch.cat([xre, xim], dim=0).permute(2, 0, 1)      # (B, 2N, CI)
+    t1 = _phase_table(p1, p1, span, torch.float32, x_blur.device, conj=contract_f)
+    t2 = _phase_table(p2, rb, span, torch.float32, x_blur.device, conj=contract_f)
+    aw = _phase_onehot(mu2, span, use_interpolation) * w.float()[None]   # (nj, S, G, F)
+    a1 = _phase_onehot(mu1, span, use_interpolation)
+    order = (0, 2, 3, 1) if contract_f else (0, 2, 1, 3)    # (nj, G, CI, CO)
+    dct, dst, _ = _fused_idft_mats(p1, p2, rb, h, wd, x_blur.device)
+    out = fused_apply_phi(xs.to(dtype).contiguous(), t1, t2, aw.permute(order).to(dtype),
+                          a1.permute(order).to(dtype), dct, dst, n_img=n, p1b=p1, rbb=rb)
+    co = out.shape[2]
+    return out[:h * wd].permute(1, 2, 0).reshape(n, co, h, wd).to(dtype)

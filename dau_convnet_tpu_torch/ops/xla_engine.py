@@ -115,15 +115,27 @@ def grad_tables(x_blur_k, err, ks: int):
     return table.reshape(m, s, f, ks, ks)
 
 
-def tap_gather(table, mu1, mu2, ks: int, use_interpolation: bool = True):
-    """Per-unit gradients from a (M, S, F, ks, ks) position table:
+def tap_gather(table, mu1, mu2, ks: int, use_interpolation: bool = True,
+               table_layout: str = "msfp"):
+    """Per-unit gradients from a position table:
 
         grad[m,s,g,f] = sum_taps iw * table[m,s,f, tap position]
 
     as one one-hot multiply-reduce over the flat position axis, with the
-    mask built in the table's dtype. Returns (M, S, G, F). (The JAX
-    package's position-major 'pmsf' layout belongs to the Fourier engine.)
+    mask built in the table's dtype. table_layout: "msfp" = (M, S, F, ks,
+    ks) (`grad_tables`) or "pmsf" = (ks*ks, M, S, F) (the position-major
+    table of `fourier_engine.fourier_grad_tables`). Returns (M, S, G, F).
     """
+    if table_layout == "pmsf":
+        p2, m, s, f = table.shape
+        g = mu1.shape[1]
+        p = torch.arange(ks * ks, dtype=mu1.dtype, device=mu1.device).reshape(-1, 1, 1, 1)
+        mask = torch.zeros((ks * ks, s, g, f), dtype=table.dtype, device=table.device)
+        for iw, tgt in _flat_taps(mu1, mu2, ks, use_interpolation):
+            mask = mask + (iw * (p == tgt)).to(table.dtype)
+        return torch.sum(table.reshape(p2, m, s, 1, f) * mask[:, None], dim=0)
+    if table_layout != "msfp":
+        raise ValueError(f"unknown table_layout {table_layout!r}")
     m, s, f = table.shape[:3]
     g = mu1.shape[1]
     tf = table.reshape(m, s, 1, f, ks * ks)

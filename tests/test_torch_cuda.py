@@ -16,8 +16,11 @@ import torch.nn.functional as F
 from dau_convnet_tpu_torch.kernels import backward as tkb
 from dau_convnet_tpu_torch.kernels import forward as tk
 from dau_convnet_tpu_torch.kernels import fused_bwd as tfb
+from dau_convnet_tpu_torch.kernels import fused_fwd as tff
+from dau_convnet_tpu_torch.kernels import spectral as tsp
 from dau_convnet_tpu_torch.nn import DAUConv2d
 from dau_convnet_tpu_torch.ops import fourier_engine as tfe
+from dau_convnet_tpu_torch.ops import xla_engine as tke
 from dau_convnet_tpu_torch.ops.gaussian import gaussian_filters
 
 KS = 9
@@ -283,3 +286,165 @@ def test_layer_fourier_fused_backward_matches_unfused(cuda_device, fused_dx):
     for name, want in grads["off"].items():
         got = grads["on"][name]
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+
+# K8, the factored gather: K1's shapes and bounds (the twin rounds T, P and Q
+# to bf16 where the kernel does)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("name", sorted(SPECTRAL))
+def test_factored_grads_kernel_matches_twin(cuda_device, name, dtype, bound):
+    args, kw, (esb, wg) = _spectral_case(name, cuda_device, dtype, seed=2)
+    counts = tfb.fused_spectral_grads
+    before = (counts.launches_k8, counts.launches_k8_dx, counts.launches_k1)
+    got = tfb.fused_spectral_grads(*args, **kw, gather="factored")
+    got_dx = tfb.fused_spectral_grads(*args, **kw, esb=esb, wg=wg, gather="factored")
+    torch.cuda.synchronize()
+    assert (counts.launches_k8, counts.launches_k8_dx, counts.launches_k1) == (
+        before[0] + 1, before[1] + 1, before[2])
+    want = tfb.fused_factored_grads_plain(*args, **kw, esb=esb, wg=wg)
+    for g, w in zip((got, *got_dx), (want[0], *want)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert float((g - w).abs().max()) <= bound * float(w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_dx", ["off", "on"])
+def test_layer_factored_backward_matches_unfused(cuda_device, fused_dx):
+    grads = {}
+    counts = tfb.fused_spectral_grads
+    for gather, fused in (("factored", "auto"), ("phi", "off")):
+        layer = DAUConv2d(16, 40, (2, 1), 9, engine="fourier", fused_bwd=fused,
+                          fused_gather=gather, fused_dx=fused_dx, activation=F.relu,
+                          dau_sigma_trainable=True, device=cuda_device,
+                          generator=torch.Generator().manual_seed(0))
+        x = torch.rand((3, 16, 27, 27), generator=torch.Generator().manual_seed(1))
+        x = x.to(cuda_device).requires_grad_()
+        err = torch.randn((3, 40, 27, 27), generator=torch.Generator().manual_seed(2))
+        before = counts.launches_k8 + counts.launches_k8_dx
+        (layer(x) * err.to(cuda_device)).sum().backward()
+        after = counts.launches_k8 + counts.launches_k8_dx
+        assert after - before == (1 if gather == "factored" else 0)  # 496 bins: no gate
+        grads[gather] = {"x": x.grad, **{k: p.grad for k, p in layer.named_parameters()}}
+    for name, want in grads["phi"].items():
+        got = grads["factored"][name]
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_kernels_raise_without_a_plan_and_compute_no_twin(cuda_device, monkeypatch):
+    def no_twin(*args, **kw):
+        raise AssertionError("the twin ran on a CUDA tensor")
+
+    monkeypatch.setattr(tfb, "fused_factored_grads_plain", no_twin)
+    monkeypatch.setattr(tfb, "fused_spectral_grads_plain", no_twin)
+    monkeypatch.setattr(tff, "fused_apply_phi_plain", no_twin)
+    args, kw, _ = _spectral_case("small", cuda_device, torch.float32)
+    xs = torch.cat([args[0]] * 2, dim=1)[:, :5].contiguous()  # M = 5
+    for gather in ("phi", "factored"):
+        with pytest.raises(tfb.FusedPlanError):
+            tfb.fused_spectral_grads(xs, *args[1:], **kw, gather=gather)
+    ops, kw = _apply_phi_case(2, 8, 2, 16, 9, False, cuda_device, torch.float32)
+    wide = {k: torch.cat([v] * 6, dim=-1 if k in ("t1", "t2") else 0)
+            for k, v in ops.items() if k in ("t1", "t2", "aw", "a")}  # 72 exponents
+    with pytest.raises(ValueError, match="plan"):
+        tff.fused_apply_phi(**dict(ops, **wide), **kw)
+
+
+# K7, the partial iDFT: (H, ks, C) with C not a multiple of the 128-column
+# tile and P not of the 96-row tile; the (B, P) matrices of fourier_grad_tables
+IDFT = {"9px": (9, 9, 3 * 37 * 41), "27px": (27, 9, 1000), "ks17": (13, 17, 300)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("name", sorted(IDFT))
+def test_partial_idft_kernel_matches_twin(cuda_device, name, dtypes):
+    h, ks, c = IDFT[name]
+    p1, p2, rb = tfe.plan_bins(h, h, ks)
+    pos = range(-(ks // 2), ks // 2 + 1)
+    cmat, smat = tfe._idft_mats(p1, p2, rb, pos, pos, torch.float32, cuda_device)
+    gen = torch.Generator().manual_seed(3)
+    tre, tim = torch.randn((2, p1 * rb, c), generator=gen).to(cuda_device, dtypes[0])
+    before = tsp.partial_idft.launches
+    got = tsp.partial_idft(cmat, smat, tre, tim, out_dtype=dtypes[1])
+    torch.cuda.synchronize()
+    assert tsp.partial_idft.launches == before + 1
+    want = tsp.partial_idft_plain(cmat, smat, tre, tim, out_dtype=torch.float32)
+    bound = 1e-2 if dtypes[1] == torch.bfloat16 else 1e-4
+    assert got.dtype == dtypes[1] and got.shape == (ks * ks, c)
+    assert float((got.float() - want).abs().max()) <= bound * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_pmsf_tables_give_the_unit_grads_on_the_card(cuda_device):
+    gen = torch.Generator().manual_seed(4)
+    xb = torch.randn((3, 2, 8, 13, 13), generator=gen).to(cuda_device)
+    err = torch.randn((2, 16, 13, 13), generator=gen).to(cuda_device)
+    mu1, mu2 = (torch.rand((2, 8, 2, 16), generator=gen) * 7.98 - 3.99).to(cuda_device)
+    table = tfe.fourier_grad_tables(xb, err, KS, "highest")
+    got = tke.tap_gather(table, mu1, mu2, KS, table_layout="pmsf")
+    want = tfe.fourier_unit_grads(xb, err, mu1, mu2, KS, precision="highest")
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# K3, the fused apply-phi: (N, S, G, F, H) with N above the 32 images of a
+# pass, CI and CO not multiples of the 32 tiles; both directions
+
+
+def _apply_phi_case(n, s, g, f, h, contract_f, device, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    p1, p2, rb = tfe.plan_bins(h, h, KS)
+    span = KS // 2 + 1
+    ci = f if contract_f else s
+    w = torch.randn((s, g, f), generator=gen) * 0.1
+    mu1, mu2 = torch.rand((2, s, g, f), generator=gen) * 7.98 - 3.99
+    order = (0, 2, 3, 1) if contract_f else (0, 2, 1, 3)
+    aw = (tfe._phase_onehot(mu2, span, True) * w[None]).permute(order)
+    a = tfe._phase_onehot(mu1, span, True).permute(order)
+    dct, dst, _ = tfe._fused_idft_mats(p1, p2, rb, h, h, device)
+    ops = dict(xs=torch.randn((p1 * rb, 2 * n, ci), generator=gen).to(device, dtype),
+               t1=tfe._phase_table(p1, p1, span, torch.float32, device, conj=contract_f),
+               t2=tfe._phase_table(p2, rb, span, torch.float32, device, conj=contract_f),
+               aw=aw.to(device, dtype), a=a.to(device, dtype), dct=dct, dst=dst)
+    return ops, dict(n_img=n, p1b=p1, rbb=rb)
+
+
+APPLY_PHI = {"small": (2, 8, 2, 16, 9), "ragged": (3, 37, 1, 41, 13),
+             "many_images": (35, 20, 3, 24, 9), "wide": (2, 64, 2, 96, 27)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("contract_f", [False, True])
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("name", sorted(APPLY_PHI))
+def test_apply_phi_kernel_matches_twin(cuda_device, name, dtype, bound, contract_f):
+    ops, kw = _apply_phi_case(*APPLY_PHI[name], contract_f, cuda_device, dtype)
+    before = (tff.fused_apply_phi.launches, tsp.partial_idft.launches)
+    got = tff.fused_apply_phi(**ops, **kw)
+    torch.cuda.synchronize()
+    assert (tff.fused_apply_phi.launches, tsp.partial_idft.launches) == (before[0] + 1,
+                                                                           before[1])
+    want = tff.fused_apply_phi_plain(**ops, **kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= bound * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("contract_f", [False, True])
+def test_apply_phi_fused_matches_the_unfused_chain(cuda_device, contract_f):
+    gen = torch.Generator().manual_seed(5)
+    n, s, g, f, h = 3, 24, 2, 40, 13
+    w = (torch.randn((s, g, f), generator=gen) * 0.1).to(cuda_device)
+    mu1, mu2 = (torch.rand((2, s, g, f), generator=gen) * 7.98 - 3.99).to(cuda_device)
+    x = torch.rand((n, f if contract_f else s, h, h), generator=gen).to(cuda_device)
+    got = tfe.fourier_apply_phi_fused(x, w, mu1, mu2, KS, contract_f=contract_f)
+    if contract_f:
+        p1, p2, rb = tfe.plan_bins(h, h, KS)
+        want = tfe.fourier_input_grad(x, tfe.build_phi(w, mu1, mu2, p1, p2, rb, True, 5), KS)
+    else:
+        want = tfe.fourier_forward(x, w, mu1, mu2, KS)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

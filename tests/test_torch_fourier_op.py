@@ -14,6 +14,8 @@ bf16 logits at 5e-2 * max|logits| (bf16 roundings through four DAU layers
 and three 4096-wide FCs).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -146,9 +148,12 @@ def test_fused_route_follows_the_jax_gate():
     assert not tdc._fused_route(tdc.DAUConvSettings(engine="fourier", fused_bwd="off"), xb, 4, 9)
     # no plan (M=5): the unfused gather
     assert not tdc._fused_route(on, torch.zeros((5, 1, 8, 9, 9)), 2, 153)
+    assert tdc._fused_route(on, xb, 2, 153) == "phi"
+    # the factored gather routes to K8 at every bin count, under 'auto' only
+    # on the card (tests/test_torch_factored.py drives it through the op)
     factored = tdc.DAUConvSettings(engine="fourier", fused_bwd="on", fused_gather="factored")
-    with pytest.raises(NotImplementedError, match="K8"):
-        tdc._fused_route(factored, xb, 2, 153)
+    assert tdc._fused_route(factored, xb, 2, 153) == "factored"
+    assert tdc._fused_route(dataclasses.replace(factored, fused_bwd="auto"), xb, 2, 153) is None
 
 
 def test_precompute_phi_serves_bit_exact():
