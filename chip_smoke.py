@@ -9,7 +9,9 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    at once (K5 the fused forward, K4 the aggregation, K6 the grad tables,
    K1/K2 the fused spectral gradients, K8 the factored gather, K7 the
    partial iDFT, K3 the fused apply-phi), and print their registers and
-   spills (ks=9; K1 and K8 at M=3, G=2);
+   spills (ks=9; K1 and K8 at M=3, G=2); count the tensor-core
+   instructions (HGMMA, HMMA) in the SASS of the K6 and K7 libraries
+   (`cuobjdump -sass`) and fail if either has none;
 2. kernel vs twin: `dau_forward_fused` against `dau_forward_fused_plain` at
    the four AlexNet-DAU layer shapes (N=4) in f32 (TF32 off, bound
    1e-4*max|y|) and bf16 (twin in f32 on the same bf16 values, bound
@@ -24,9 +26,11 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
 5. timing: CUDA-event times of each layer's kernel and twin at N=32, and of
    a whole request through either, beside the card's name and power limit;
 6. backward kernels vs twins at the four layer shapes (N=4), f32 and bf16:
-   K6 with M=3 (bound 1e-4*max|table|: f32 sums of N*H*W products in
-   another order), K4 (bounds as K5's), and K5 at the four transposed dx
-   shapes with the mirrored 'error' filter;
+   K6 with M=3 (bound 1e-4*max|table| in both: bf16 products are exact in
+   f32, so only the order of the f32 sums differs; f32 input goes through
+   the bf16 hi/lo split, ~3*2^-16 of each product), K4 (bounds as K5's),
+   and K5 at the four transposed dx shapes with the mirrored 'error'
+   filter;
 7. training: the default-variant AlexNet-DAU in bf16 takes 3 SGD steps
    (lr 1e-4) on batches of 32 images at 3x227x227 through
    `make_train_step`, first with engine 'pallas_fused' (8 K5 + 4 K6
@@ -39,8 +43,9 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    agree within 1e-3*max|grad| of that tensor;
 9. timing: per-layer K6, K4 and dx-shape K5 against their twins (and,
    where one PyTorch call computes the same function, that call) at N=32
-   bf16, and a whole bf16 training step through the kernels and through the
-   twins, per engine;
+   bf16, K6 also summed over the layers with its wrapper's operand copies
+   timed apart, and a whole bf16 training step
+   through the kernels and through the twins, per engine;
 10. K1/K2 vs twin: `fused_spectral_grads` without and with the dx operands
    against `fused_spectral_grads_plain` at the four layer shapes (N=4;
    conv2's 496 bins are forced, the op sends conv2 to the unfused gather)
@@ -63,8 +68,9 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    first at N=32 in bf16, bounds as in phase 10) and the unfused torch
    path (`fourier_unit_grads`), whole bf16 requests (Fourier uncached,
    phi-cached, pallas_fused) and whole bf16 steps (Fourier, Fourier with
-   fused_dx, both Pallas engines), the device time by kernel of both
-   Fourier steps (`torch.profiler`) and the Fourier step's peak memory;
+   fused_dx, both Pallas engines), the device time by kernel of the
+   pallas_fused step and both Fourier steps (`torch.profiler`) and the
+   Fourier step's peak memory;
 14. K8 vs twin: `fused_spectral_grads(gather="factored")` without and with
    the dx operands against `fused_factored_grads_plain` at the four layer
    shapes (N=4), bounds as in phase 10;
@@ -75,7 +81,9 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    twins (every gradient within 1e-3*max|grad|), whose gradients must also
    agree with the f32 fused_bwd='on' phi-gather step's of phase 12;
 16. K7 vs twin at the four layers' cross-spectra (N=4, M=3), f32 (bound
-   1e-4*max|ref|) and bf16 (the table rounded once to bf16: 1e-2); the
+   1e-4*max|ref|) and bf16 (the table rounded once to bf16: 1e-2), and at
+   K3's closing operands (P = 169 and 729 positions, f32 spectra of N=4
+   images, 1e-4); the
    'pmsf' gather of `fourier_grad_tables` against `fourier_unit_grads`,
    f32 within K1's 1e-4 and bf16 within 2e-2 (the two gathers round at
    different places in bf16: the table, the mask and their product against
@@ -88,7 +96,9 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    directions at the four layers (N=32, bf16), 8 K3 calls;
 18. timing: per layer at N=32 bf16, K8 and K8 dx against their twin, K1
    and the unfused torch path; K7 against its twin and one bf16 matmul of
-   the stacked operands; K3 against its twin and the unfused chain; the
+   the stacked operands, also summed over the layers; K3 against its twin
+   and the unfused chain, and its closing launch (K7's kernel on f32
+   spectra) alone; the
    factored steps (and the phi-gather Fourier step beside them) as medians
    of 5 runs with min and max, and the device time by kernel of the
    factored step.
@@ -103,6 +113,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -119,7 +130,7 @@ from dau_convnet_tpu_torch.kernels import forward as kfwd  # noqa: E402
 from dau_convnet_tpu_torch.kernels import fused_bwd as kfb  # noqa: E402
 from dau_convnet_tpu_torch.kernels import fused_fwd as kff  # noqa: E402
 from dau_convnet_tpu_torch.kernels import spectral as ksp  # noqa: E402
-from dau_convnet_tpu_torch.kernels._build import build, build_log  # noqa: E402
+from dau_convnet_tpu_torch.kernels._build import build, build_log, disassemble  # noqa: E402
 from dau_convnet_tpu_torch.models import AlexNetDAU  # noqa: E402
 from dau_convnet_tpu_torch.nn import refresh_phi_cache  # noqa: E402
 from dau_convnet_tpu_torch.ops import DAUConvSettings, gaussian_filters  # noqa: E402
@@ -603,9 +614,20 @@ def _ptxas(lib, markers):
     for i, line in enumerate(lines):
         if "Compiling entry" in line and all(mk in line for mk in markers):
             entry = line.split("'")[1] if "'" in line else line
-            kind = "bf16" if "bfloat16" in line else "f32"
+            kind = "bf16" if "bfloat16" in line else "f32" if re.search(r"If[LE]", line) else "-"
             print(f"  {lib} {kind} {entry[:60]}: " + " | ".join(
                 l.split("info    : ")[-1].strip() for l in lines[i + 2:i + 4]))
+
+
+def _tensor_core_count(lib):
+    """Print the tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) in
+    the library's SASS; raise if it has none."""
+    sass = disassemble(lib)
+    counts = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
+    print(f"  {lib} SASS: {counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA, "
+          f"{sass.count('UTMALDG')} UTMALDG (TMA loads)")
+    if not any(counts.values()):
+        raise AssertionError(f"{lib}: no tensor-core instruction in the SASS")
 
 
 def _dense_work(n, s, f, hw, x_bytes, blur: bool):
@@ -617,7 +639,9 @@ def _dense_work(n, s, f, hw, x_bytes, blur: bool):
 
 
 # kernel-name fragments -> the breakdown's categories, first match wins
-CATEGORIES = (("K1/K2 spectral_grads_kernel", ("spectral_grads_kernel",)),
+CATEGORIES = (("K5/K4 dau_forward_kernel", ("dau_forward_kernel",)),
+              ("K6 grad_tables_kernel", ("grad_tables_kernel",)),
+              ("K1/K2 spectral_grads_kernel", ("spectral_grads_kernel",)),
               ("K2/K8 spectral_dx_kernel", ("spectral_dx_kernel",)),
               ("K8 factored_grads_kernel", ("factored_grads_kernel",)),
               ("GEMM (cuBLAS)", ("gemm", "Gemm", "cutlass", "xmma", "sm90_", "sm80_")),
@@ -703,10 +727,11 @@ def _idft_work(ops, out_dtype):
 
 def compare_idft(gen, dev):
     """Phase 16: K7 vs its twin at each layer's cross-spectra (N=4, M=3), f32
-    (bound 1e-4*max|ref|) and bf16 (the table rounded to bf16: 1e-2); and
-    the 'pmsf' gather of `fourier_grad_tables` against `fourier_unit_grads`
-    (f32 1e-4, bf16 2e-2: the gathers round at different places). Returns
-    the largest |error| of K7."""
+    (bound 1e-4*max|ref|) and bf16 (the table rounded to bf16: 1e-2), and at
+    K3's closing operands (f32 spectra, 1e-4); and the 'pmsf' gather of
+    `fourier_grad_tables` against `fourier_unit_grads` (f32 1e-4, bf16 2e-2:
+    the gathers round at different places). Returns the largest |error| of
+    K7."""
     worst = 0.0
     for name, s, f, hw in LAYERS:
         for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
@@ -722,6 +747,16 @@ def compare_idft(gen, dev):
                        xla_engine.tap_gather(table, mu1, mu2, 9, table_layout="pmsf"),
                        fe.fourier_unit_grads(xb, err, mu1, mu2, 9), 2 * bound if
                        dtype == torch.bfloat16 else bound)
+    # K3's closing launch: the fused apply-phi's (HWp, B) iDFT matrices (P =
+    # 169 or 729 rows, padded to 8) against the f32 spectra of N=4 images
+    for name, s, f, hw in LAYERS[:2]:
+        p1, p2, rb = fe.plan_bins(hw, hw, 9)
+        dct, dst, _ = fe._fused_idft_mats(p1, p2, rb, hw, hw, dev)
+        yre, yim = torch.randn((2, p1 * rb, 4 * f), generator=gen).to(dev)
+        worst = max(worst, _check_err(
+            f"K7 {name} K3 closing P={dct.shape[0]} B={p1 * rb} C={4 * f} f32",
+            ksp.partial_idft(dct.t(), dst.t(), yre, yim),
+            ksp.partial_idft_plain(dct.t(), dst.t(), yre, yim), 1e-4))
     return worst
 
 
@@ -871,10 +906,16 @@ def time_new_kernels(gen, dev, card, worst):
             t_f = _cuda_ms(lambda: fe.fourier_apply_phi_fused(x, w, mu1, mu2, 9,
                                                               contract_f=contract_f))
             t_u = _cuda_ms(lambda: _unfused_apply(x, w, mu1, mu2, contract_f))
+            # its closing launch alone: K7's kernel on f32 spectra of this shape
+            dct, dst = ops["dct"], ops["dst"]
+            y = torch.randn((2, dct.shape[1], BATCH * ops["aw"].shape[-1]), generator=gen).to(dev)
+            t_c = _cuda_ms(lambda: ksp.idft_launch(dct.t(), dst.t(), y[0], y[1], torch.float32,
+                                                   mat_dtype=torch.bfloat16))
             bd = out["k3"][3].add(*_apply_phi_work(ops, kw))
             print(f"layer {name} K3 {way} N={BATCH} bf16: kernel {t_k:.3f} ms (bound "
-                  f"{bd:.4f}), twin {t_p:.3f} ms; from the image: fourier_apply_phi_fused "
-                  f"{t_f:.3f} ms, unfused chain {t_u:.3f} ms [{card}]")
+                  f"{bd:.4f}; its closing launch alone {t_c:.3f} ms), twin {t_p:.3f} ms; from "
+                  f"the image: fourier_apply_phi_fused {t_f:.3f} ms, unfused chain {t_u:.3f} ms "
+                  f"[{card}]")
             out["k3"][0] += t_k
             out["k3"][1] += t_p
     return out
@@ -905,13 +946,16 @@ def main(argv=None) -> int:
     build(LIBRARIES)
     print(f"build: {', '.join(LIBRARIES)} (.cu) for sm_90a, one nvcc each, "
           f"{time.perf_counter() - t0:.1f} s; ptxas:")
-    for lib in LIBRARIES[:3]:
+    for lib in LIBRARIES[:2]:
         _ptxas(lib, ["Li9E"])
+    _ptxas("dau_grad_tables", ["grad_tables_kernel"])
     _ptxas("dau_spectral_grads", ["spectral_grads_kernel", "Li3ELi2E"])
     _ptxas("dau_spectral_grads", ["spectral_dx_kernel"])
     _ptxas("dau_factored_grads", ["factored_grads_kernel", "Li3ELi2E"])
     _ptxas("dau_partial_idft", ["partial_idft_kernel"])
     _ptxas("dau_apply_phi", ["apply_phi_kernel"])
+    for lib in ("dau_grad_tables", "dau_partial_idft"):
+        _tensor_core_count(lib)
 
     # 2. kernel vs twin
     gen = torch.Generator().manual_seed(args.seed)
@@ -997,12 +1041,14 @@ def main(argv=None) -> int:
         reference_step(engine, dev, args.seed, batches[0], labels)
 
     # 9. timing of the backward kernels and the training step
-    k6_ms = k6_plain = k6_lib = k4_ms = k4_plain = k4_lib = 0.0
+    k6_ms = k6_ops = k6_plain = k6_lib = k4_ms = k4_plain = k4_lib = 0.0
     k6_bound, k4_bound = Bounds(), Bounds()
     error_filt = gaussian_filters(0.5, size=9, device=dev)["error"]
     for name, s, f, hw in LAYERS:
         xb, err = _tables_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
         t_k = _cuda_ms(lambda: kbwd.grad_tables(xb, err, ks))
+        # the wrapper's share: its operand copies alone
+        t_o = _cuda_ms(lambda: kbwd.grad_tables_operands(xb, err))
         t_p = _cuda_ms(lambda: kbwd.grad_tables_plain(xb, err, ks))
         # one library call of the same function: the table as one bf16
         # correlation (cuDNN), its operands laid out beforehand
@@ -1012,9 +1058,9 @@ def main(argv=None) -> int:
         gflops = 2 * ks * ks * M * s * f * hw * hw * BATCH / 1e9
         bd = k6_bound.add(gflops * 1e9, _nbytes(xb, err) + M * s * f * ks * ks * 4)
         print(f"layer {name} K6 N={BATCH} M={M} bf16: kernel {t_k:.3f} ms "
-              f"({gflops / t_k:.1f} TFLOP/s), plain {t_p:.3f} ms, conv2d {t_l:.3f} ms, "
-              f"bound {bd:.4f} ms [{card}]")
-        k6_ms, k6_plain, k6_lib = k6_ms + t_k, k6_plain + t_p, k6_lib + t_l
+              f"({gflops / t_k:.1f} TFLOP/s; its operand copies {t_o:.3f} ms), plain "
+              f"{t_p:.3f} ms, conv2d {t_l:.3f} ms, bound {bd:.4f} ms [{card}]")
+        k6_ms, k6_ops, k6_plain, k6_lib = k6_ms + t_k, k6_ops + t_o, k6_plain + t_p, k6_lib + t_l
         x, w, mu1, mu2 = _layer_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
         t_k = _cuda_ms(lambda: kfwd.aggregate_forward(x, w, mu1, mu2, ks))
         t_p = _cuda_ms(lambda: kfwd.aggregate_forward_plain(x, w, mu1, mu2, ks))
@@ -1032,6 +1078,9 @@ def main(argv=None) -> int:
         print(f"layer {name} K5 dx {f}->{s} N={BATCH} bf16: kernel {t_k:.3f} ms, "
               f"plain {t_p:.3f} ms [{card}]")
     del xb, err, lhs, rhs, x, e, kern
+    print(f"K6 over the four layers N={BATCH} M={M} bf16: kernel {k6_ms:.3f} ms (its operand "
+          f"copies {k6_ops:.3f} ms), bound {k6_bound.ms:.4f} ms ({k6_bound.bound_by}), conv2d "
+          f"{k6_lib:.3f} ms, plain {k6_plain:.3f} ms [{card}]")
 
     # 10. K1/K2 vs twin
     worst_spec = compare_spectral(gen, dev)
@@ -1063,7 +1112,7 @@ def main(argv=None) -> int:
         step_ms[engine] = t_k[0]
         print(f"train step {engine} {BATCH}x3x{IMAGE}x{IMAGE} bf16: kernel path {_fmt(t_k)}, "
               f"plain path {_fmt(t_p)}, over 5 runs of 3 [{card}]")
-    for engine in ("fourier", "fourier fused_dx"):
+    for engine in ("pallas_fused", "fourier", "fourier fused_dx"):
         profile_step(engine, runs[engine][0], batches[0], labels, step_ms[engine], card)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1111,6 +1160,12 @@ def main(argv=None) -> int:
 
     # 18. timing: K8, K7, K3 per layer and the factored steps
     new = time_new_kernels(gen, dev, card, worst_fac)
+    for key, what in (("k7", "K7"), ("k3", "K3 (both directions)")):
+        ms, plain, lib, bound = new[key]
+        print(f"{what} over the four layers N={BATCH} bf16: kernel {ms:.3f} ms, bound "
+              f"{bound.ms:.4f} ms ({bound.bound_by}), "
+              + (f"one matmul {lib:.3f} ms, " if lib is not None else "")
+              + f"twin {plain:.3f} ms [{card}]")
     for engine in ("fourier factored", "fourier factored fused_dx", "fourier"):
         step = runs[engine][0]
         t_k = _spread(lambda: step(batches[0], labels), iters=3)

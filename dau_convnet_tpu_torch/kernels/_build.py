@@ -18,7 +18,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "build", "build_log"]
+__all__ = ["load_library", "build", "build_log", "disassemble"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "build"
@@ -26,18 +26,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str:
+    """A CUDA toolkit program (nvcc, cuobjdump): from CUDA_HOME or
+    CUDA_PATH, PATH, or /usr/local/cuda."""
     for var in ("CUDA_HOME", "CUDA_PATH"):
         root = os.environ.get(var)
-        if root and (Path(root) / "bin" / "nvcc").exists():
-            return str(Path(root) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
+        if root and (Path(root) / "bin" / name).exists():
+            return str(Path(root) / "bin" / name)
+    found = shutil.which(name)
     if found:
         return found
-    default = Path("/usr/local/cuda/bin/nvcc")
+    default = Path("/usr/local/cuda/bin") / name
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise RuntimeError(f"{name} not found: set CUDA_HOME or put it on PATH")
 
 
 def _lib_path(name: str) -> Path:
@@ -53,7 +55,7 @@ def load_library(name: str) -> ctypes.CDLL:
     if not lib.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -77,3 +79,12 @@ def build_log(name: str) -> str:
     spills) from the build of `csrc/<name>.cu`, or '' if it was not built."""
     log = _lib_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def disassemble(name: str) -> str:
+    """The SASS of the built library of `csrc/<name>.cu` (`cuobjdump
+    -sass`), building it first if needed."""
+    load_library(name)
+    proc = subprocess.run([_tool("cuobjdump"), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True)
+    return proc.stdout

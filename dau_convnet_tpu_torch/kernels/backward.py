@@ -13,6 +13,13 @@ Both compute, in f32 (bf16 input is widened),
 with xb zero outside the image, and return the (M, S, F, ks, ks) table in
 f32, the contract of `ops.xla_engine.grad_tables`. The op reads the unit
 gradients out of it with `xla_engine.tap_gather`.
+
+The kernel multiplies bf16 operands on the tensor cores with f32 sums and
+writes the table position-major, (ks*ks, F, M*S); `grad_tables` returns the
+(M, S, F, ks, ks) view of it. `grad_tables_operands` prepares the operands
+in torch: channels last, chunk-major (see `chunk_major`), and f32 input
+split into bf16 hi + lo parts that the same bf16 products sum as
+xh*eh + xl*eh + xh*el over a batch of 3N images.
 """
 
 from __future__ import annotations
@@ -24,11 +31,10 @@ import torch
 
 from ..ops import xla_engine
 from ._build import load_library
-from .forward import _DTYPE_CODE, _KERNEL_SIZES, _MAX_SMEM
+from .forward import _DTYPE_CODE, _KERNEL_SIZES, split_bf16
 
-__all__ = ["grad_tables", "grad_tables_plain"]
-
-_ROWS_PER_STAGE = 13  # err rows staged per pass, at most
+__all__ = ["grad_tables", "grad_tables_plain", "grad_tables_operands", "chunk_major",
+           "table_view"]
 
 
 def grad_tables_plain(x_blur_k, err, ks: int):
@@ -56,17 +62,45 @@ def _check(x_blur_k, err, ks):
         raise ValueError(f"ks must be odd, got {ks}")
 
 
-def _rows_per_stage(h: int) -> int:
-    """Err rows per stage: the fewest equal stages of at most
-    `_ROWS_PER_STAGE` rows (27 rows -> 3 stages of 9)."""
-    stages = -(-h // _ROWS_PER_STAGE)
-    return -(-h // stages)
+def chunk_major(t):
+    """(N, H, W, C) -> (ceil(C/8), N, H, W*8) contiguous, in t's dtype:
+    channel c at chunk c // 8, lane c % 8, the channels past C zero. One
+    TMA box of it, (columns x 8 lanes) per chunk, is the kernel's
+    no-swizzle MN-major wgmma tile."""
+    n, h, w, c = t.shape
+    cc = -(-c // 8)
+    if c % 8:
+        t = torch.nn.functional.pad(t, (0, cc * 8 - c))
+    out = t.new_empty((cc, n, h, w, 8))
+    out.permute(1, 2, 3, 0, 4).copy_(t.reshape(n, h, w, cc, 8))  # one strided copy
+    return out.reshape(cc, n, h, w * 8)
+
+
+def grad_tables_operands(x_blur_k, err):
+    """The kernel's operands: (err_t, xb_t), chunk-major bf16 copies of err
+    as (N, H, W, F) and of xb as (N, H, W, M*S) with ms = m*S + s. f32
+    input is split (`split_bf16`) and concatenated along N, xb as [xh, xl,
+    xh] against err as [eh, eh, el]."""
+    m, n, s, h, w = x_blur_k.shape
+    x = x_blur_k.permute(1, 3, 4, 0, 2).reshape(n, h, w, m * s)
+    e = err.permute(0, 2, 3, 1)
+    if x.dtype == torch.float32:
+        xh, xl = split_bf16(x)
+        eh, el = split_bf16(e)
+        x, e = torch.cat([xh, xl, xh]), torch.cat([eh, eh, el])
+    return chunk_major(e.to(torch.bfloat16)), chunk_major(x.to(torch.bfloat16))
+
+
+def table_view(table, m: int, s: int, ks: int):
+    """The (M, S, F, ks, ks) view of a position-major (ks*ks, F, M*S) table."""
+    f = table.shape[1]
+    return table.reshape(ks, ks, f, m, s).permute(3, 4, 2, 0, 1)
 
 
 def grad_tables(x_blur_k, err, ks: int):
     """Position table of the parameter gradients. x_blur_k: (M, N, S, H, W)
-    with its rows contiguous (any strides over m, n, s); err: (N, F, H, W).
-    Returns (M, S, F, ks, ks) f32.
+    (any strides); err: (N, F, H, W). Returns (M, S, F, ks, ks) f32: on the
+    card, the view of the position-major table the kernel writes.
 
     On a CUDA tensor this launches the sm_90a kernel (one launch per call,
     counted in `grad_tables.launches`); on a CPU tensor it computes the
@@ -80,27 +114,18 @@ def grad_tables(x_blur_k, err, ks: int):
     if ks not in _KERNEL_SIZES:
         raise ValueError(f"ks={ks} has no kernel instance (built: {_KERNEL_SIZES})")
     m, n, s, h, w = x_blur_k.shape
-    if x_blur_k.stride(4) != 1 or x_blur_k.stride(3) != w:
-        raise ValueError("xb must have contiguous rows (strides W, 1 over H, W)")
     f = err.shape[1]
-    err_t = err.permute(0, 2, 3, 1).contiguous()  # (N, H, W, F): f fastest
-    table = torch.empty((m * s, f, ks, ks), dtype=torch.float32, device=err.device)
-
-    lib = _library()
-    rt = _rows_per_stage(h)
-    smem = lib.dau_grad_tables_smem_bytes(ks, rt, w)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"plan needs {smem} bytes of shared memory (> {_MAX_SMEM})")
-    sm, sn, ss = x_blur_k.stride(0), x_blur_k.stride(1), x_blur_k.stride(2)
+    err_t, xb_t = grad_tables_operands(x_blur_k, err)
+    table = torch.empty((ks * ks, f, m * s), dtype=torch.float32, device=err.device)
     with torch.cuda.device(err.device):
         stream = torch.cuda.current_stream(err.device).cuda_stream
-        code = lib.dau_grad_tables_launch(
-            x_blur_k.data_ptr(), err_t.data_ptr(), table.data_ptr(),
-            _DTYPE_CODE[err.dtype], m, n, s, f, h, w, sm, sn, ss, ks, rt, smem, stream)
+        code = _library().dau_grad_tables_launch(
+            err_t.data_ptr(), xb_t.data_ptr(), table.data_ptr(), f, m * s, err_t.shape[1], h,
+            w, ks, stream)
     if code != 0:
         raise RuntimeError(f"grad_tables launch failed: cudaError {code}")
     grad_tables.launches += 1
-    return table.reshape(m, s, f, ks, ks)
+    return table_view(table, m, s, ks)
 
 
 grad_tables.launches = 0
@@ -110,10 +135,7 @@ grad_tables.launches = 0
 def _library() -> ctypes.CDLL:
     """The built kernel library with every C signature declared."""
     lib = load_library("dau_grad_tables")
-    c_int, c_ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    lib.dau_grad_tables_smem_bytes.argtypes = [c_int] * 3
-    lib.dau_grad_tables_smem_bytes.restype = c_ll
-    lib.dau_grad_tables_launch.argtypes = (
-        [c_ptr] * 3 + [c_int] * 7 + [c_ll] * 3 + [c_int] * 2 + [c_ll, c_ptr])
+    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+    lib.dau_grad_tables_launch.argtypes = [c_ptr] * 3 + [c_int] * 6 + [c_ptr]
     lib.dau_grad_tables_launch.restype = c_int
     return lib

@@ -6,272 +6,200 @@
 //
 //   table[m,s,f,ky,kx] = sum_n sum_{i,j} xb[m,n,s,i+ky-c,j+kx-c] * err[n,f,i,j]
 //
-// c = ks/2, xb zero outside the image; bf16 input is widened on load, the sum
-// is taken in f32 and the table is written in f32. The per-unit gradients are
-// read out of the table afterwards by a tap-gather in torch.
+// c = ks/2, xb zero outside the image, bf16 operands and f32 sums; the table
+// is written position-major, (ks*ks, F, M*S) f32, and the wrapper
+// (`backward.py`) returns its (M, S, F, ks, ks) view. f32 operands reach the
+// kernel split by the wrapper into bf16 hi + lo parts, concatenated along N.
 //
-// Bound: for each position p = (ky, kx) the table is a GEMM, F x (M*S),
-// contracting over N*H*W (5,408 terms at 13x13, 23,328 at 27x27 for N = 32),
-// so the kernel is FLOP-bound: 2*ks^2*M*S*F*N*H*W FLOPs (1.18 TFLOP per
-// AlexNet-DAU step at M = 3) on a few MB of input. The design keeps the FMA
-// units fed from registers:
-//   - one block per (32 output channels f, 8*TM planes (m, s), 3 kernel rows
-//     ky); it loops over every image and every row tile of it, so each
-//     output element is summed by one thread in one fixed order: no atomics,
-//     and a step is deterministic;
-//   - per stage it copies a tile of err rows (f fastest, from the (N, H, W,
-//     F) copy the wrapper makes) and the xb rows those err rows meet at the
-//     block's 3 ky, with the ks/2 halo, into shared memory, zero outside the
-//     image. The staged xb rows serve all 3 ky (row r of the err tile meets
-//     xb row r + ky) and all ks kx;
-//   - each thread owns 4 f x TM planes x all ks kx of one ky (4*TM*ks f32
-//     accumulators). Per 4 columns j of an err row it loads a (4 + ks - 1)
-//     wide window of each of its xb rows once and reuses it across the 4 j
-//     and all kx, and reads 4 err values per j with one 16-byte load that
-//     the warp broadcasts: 4*TM*ks*4 FMAs per 4 + 3*TM shared loads (29 at
-//     ks = 9, TM = 2).
-// What it leaves for later: tensor cores, cp.async/TMA double buffering,
-// and computing only the 4*G taps per unit the tap-gather reads.
+// Bound: per position p = (ky, kx) the table is a GEMM, F x (M*S), over
+// K = (n, i, j): 2*ks^2*M*S*F*N*H*W operations (1.18 TFLOP per AlexNet-DAU
+// step at M = 3) on a few MB of input, so the tensor cores bound it. Design:
+//   - the wrapper lays both operands out chunk-major, (C/8, N, H, W*8) with
+//     eight channels innermost, so one TMA box (channels x rows x columns)
+//     lands in shared memory already in wgmma's no-swizzle MN-major layout:
+//     8x8 core matrices of 128 bytes, one image column per 16-byte K row.
+//     TMA reads coordinates outside the tensor as zeros: the halo, the 13 ->
+//     16 (27 -> 32) column padding, rows past the image and the ragged
+//     channel edge cost no copy and no mask;
+//   - one block per (128 f, 64 planes ms, kernel row ky, group of T = 3
+//     kernel columns kx). Its producer warp streams R = 4 image rows per
+//     stage into a ring of STAGES = 6 stages: the err tile (R rows x 16
+//     columns x 128 f) and the xb rows the T taps meet (R x (16 + T - 1)
+//     columns x 64 ms). Its two consumer warpgroups (64 f each) issue R * T
+//     wgmma m64n64k16 per stage, tap kx reading the staged xb row from its
+//     K row kx - kx0 on (a descriptor 16 bytes further per tap): each err
+//     tile and xb row is staged once for the T taps of the block;
+//   - image rows whose xb row lies outside the image are not streamed;
+//   - every table entry is summed by one block in one fixed order: no
+//     atomics, and a step is deterministic.
+// Why these sizes: one row per stage pays a barrier round trip and two TMA
+// issues for every T small wgmmas; T = 9 taps with their 144 f32 sums per
+// thread does not fit the registers beside the pipeline, and ptxas then
+// serializes the wgmmas.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "dau_hopper_gemm.cuh"
 
 namespace {
 
-constexpr int TF = 4;                   // output channels per thread
-constexpr int FG = 8;                   // channel groups per block
-constexpr int FT = TF * FG;             // output channels per block
-constexpr int MG = 8;                   // plane groups per block
-constexpr int KYG = 3;                  // kernel rows per block, one per thread
-constexpr int THREADS = FG * MG * KYG;  // 192
+using namespace dau_hopper;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int FB = 128;                // output channels f per block: 2 warpgroups x 64
+constexpr int NB = 64;                 // planes ms per block: the wgmma N
+constexpr int KC = 16;                 // image columns j per row of a stage: the wgmma K
+constexpr int T = 3;                   // kernel columns kx per block
+constexpr int R = 4;                   // image rows per stage
+constexpr int STAGES = 6;
+constexpr int KB = KC + T - 1;         // xb columns staged per row
+constexpr int CONSUMERS = 2;           // warpgroups
+constexpr int THREADS = CONSUMERS * 128 + 32;
 
-__host__ __device__ constexpr int round4(int v) { return (v + 3) / 4 * 4; }
+constexpr uint32_t round128(uint32_t v) { return (v + 127) / 128 * 128; }
+constexpr uint32_t A_BYTES = FB * R * KC * 2;
+constexpr uint32_t B_BYTES = NB * R * KB * 2;
 
-// planes (m, s) per thread: fewer at large ks, so 4*TM*ks accumulators fit
-__host__ __device__ constexpr int planes_per_thread(int ks) { return ks <= 9 ? 2 : 1; }
-
-// Shared-memory plan, shared by the host launcher and the kernel.
-struct Plan {
-  int wp;        // staged err row: W rounded up to 4 (zeros past W)
-  int xw;        // staged xb row: image column j sits at j + ks/2
-  int xr;        // staged xb rows per plane: rt + KYG - 1
-  int e_floats;  // [rt][wp][FT]
-  int x_floats;  // [MG*TM][xr][xw]
+struct Shared {
+  uint8_t a[STAGES][round128(A_BYTES)];  // err: [f/8][row][column][8 f]
+  uint8_t b[STAGES][round128(B_BYTES)];  // xb:  [ms/8][row][column][8 ms]
+  Ring<STAGES> ring;
 };
 
-__host__ __device__ inline Plan make_plan(int ks, int rt, int W) {
-  Plan p;
-  p.wp = round4(W);
-  p.xw = p.wp + round4(ks - 1);
-  p.xr = rt + KYG - 1;
-  p.e_floats = rt * p.wp * FT;
-  p.x_floats = MG * planes_per_thread(ks) * p.xr * p.xw;
-  return p;
-}
+__global__ void __launch_bounds__(THREADS, 1)
+grad_tables_kernel(const __grid_constant__ CUtensorMap err_map,
+                   const __grid_constant__ CUtensorMap xb_map, float* __restrict__ table, int F,
+                   int MS, int N, int H, int W, int ks) {
+  extern __shared__ uint8_t smem_raw[];
+  Shared& sm = *reinterpret_cast<Shared*>(align1024(smem_raw));
 
-template <typename T, int KS>
-__global__ void __launch_bounds__(THREADS)
-dau_grad_tables_kernel(const T* __restrict__ xb, const T* __restrict__ err,
-                       float* __restrict__ table, int M, int N, int S, int F, int H, int W,
-                       long long sm, long long sn, long long ss, int rt) {
-  constexpr int CA = KS / 2;
-  constexpr int TM = planes_per_thread(KS);
-  constexpr int MT = MG * TM;                  // planes per block
-  constexpr int NV = round4(4 + KS - 1) / 4;   // float4 loads per xb window
-  const Plan pl = make_plan(KS, rt, W);
+  const int c = ks / 2;
+  const int groups = (ks + T - 1) / T;
+  const int ky = blockIdx.z / groups;
+  const int kx0 = (blockIdx.z % groups) * T;
+  const int f0 = blockIdx.x * FB;
+  const int ms0 = blockIdx.y * NB;
+  const int i_lo = max(0, c - ky);
+  const int rows = max(0, min(H, H + c - ky) - i_lo);  // err rows whose xb row is inside
+  const int row_groups = (rows + R - 1) / R;           // the last may run past: zeros
+  const int chunks = (W + KC - 1) / KC;
+  const int steps = N * row_groups * chunks;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
 
-  extern __shared__ float4 smem4[];
-  float* sE = reinterpret_cast<float*>(smem4);  // [rt][wp][FT]
-  float* sX = sE + pl.e_floats;                  // [MT][xr][xw]
+  if (threadIdx.x == 0) sm.ring.init(128 * CONSUMERS);
+  __syncthreads();
 
-  const int f0 = blockIdx.x * FT;
-  const int ms0 = blockIdx.y * MT;
-  const int ky0 = blockIdx.z * KYG;
-  const int MS = M * S;
-  const int tid = threadIdx.x;
-  const int fg = tid % FG;
-  const int mg = (tid / FG) % MG;
-  const int kyl = tid / (FG * MG);
-  const int ky = ky0 + kyl;
-  const int xplane = pl.xr * pl.xw;
-
-  float acc[TF][TM][KS];
-#pragma unroll
-  for (int t = 0; t < TF; ++t)
-#pragma unroll
-    for (int u = 0; u < TM; ++u)
-#pragma unroll
-      for (int kx = 0; kx < KS; ++kx) acc[t][u][kx] = 0.f;
-
-  for (int n = 0; n < N; ++n) {
-    for (int i0 = 0; i0 < H; i0 += rt) {
-      __syncthreads();  // the previous stage's reads of sE and sX are done
-      // err rows [i0, i0 + rt), channels [f0, f0 + FT) of image n, from the
-      // (N, H, W, F) copy: f fastest, four loads in flight per thread
-      for (int base = tid; base < pl.e_floats; base += 4 * THREADS) {
-        float v[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = base + u * THREADS;
-          const int f = i % FT;
-          const int rj = i / FT;
-          const int r = rj / pl.wp;
-          const int j = rj - r * pl.wp;
-          v[u] = 0.f;
-          if (i < pl.e_floats && i0 + r < H && j < W && f0 + f < F)
-            v[u] = to_f32(err[(((size_t)n * H + i0 + r) * W + j) * F + f0 + f]);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (base + u * THREADS < pl.e_floats) sE[base + u * THREADS] = v[u];
-      }
-      // xb rows [i0 + ky0 - CA, i0 + rt + ky0 + KYG - 1 - CA), columns
-      // [-CA, xw - CA) of planes [ms0, ms0 + MT), zero outside the image
-      for (int base = tid; base < pl.x_floats; base += 4 * THREADS) {
-        float v[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = base + u * THREADS;
-          const int p = i / xplane;
-          const int rem = i - p * xplane;
-          const int rr = rem / pl.xw;
-          const int gy = i0 + ky0 - CA + rr;
-          const int gx = rem - rr * pl.xw - CA;
-          const int ms = ms0 + p;
-          v[u] = 0.f;
-          if (i < pl.x_floats && ms < MS && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-            const int m = ms / S;
-            const int s = ms - m * S;
-            v[u] = to_f32(xb[m * sm + n * sn + s * ss + (long long)gy * W + gx]);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (base + u * THREADS < pl.x_floats) sX[base + u * THREADS] = v[u];
-      }
-      __syncthreads();
-
-      if (ky < KS) {
-        const int rows = min(rt, H - i0);
-#pragma unroll 1
-        for (int r = 0; r < rows; ++r) {
-          const float* erow = sE + r * pl.wp * FT + fg * TF;
-          const float* xrow = sX + (mg * TM) * xplane + (r + kyl) * pl.xw;
-#pragma unroll 1
-          for (int j0 = 0; j0 < pl.wp; j0 += 4) {
-            float xv[TM][4 * NV];
-#pragma unroll
-            for (int u = 0; u < TM; ++u) {
-              const float4* src = reinterpret_cast<const float4*>(xrow + u * xplane + j0);
-#pragma unroll
-              for (int v = 0; v < NV; ++v) {
-                const float4 q = src[v];
-                xv[u][4 * v] = q.x; xv[u][4 * v + 1] = q.y;
-                xv[u][4 * v + 2] = q.z; xv[u][4 * v + 3] = q.w;
-              }
-            }
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              const float4 q = *reinterpret_cast<const float4*>(erow + (j0 + jj) * FT);
-              const float e[TF] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-              for (int t = 0; t < TF; ++t)
-#pragma unroll
-                for (int u = 0; u < TM; ++u)
-#pragma unroll
-                  for (int kx = 0; kx < KS; ++kx)
-                    acc[t][u][kx] = fmaf(e[t], xv[u][jj + kx], acc[t][u][kx]);
-            }
-          }
-        }
+  if (warp == 4 * CONSUMERS) {  // the producer warp
+    if (lane == 0) {
+      RingPos<STAGES> pos;
+      for (int s = 0; s < steps; ++s) {
+        const int jc = s % chunks;
+        const int g = s / chunks;
+        const int i = i_lo + R * (g % row_groups);
+        const int n = g / row_groups;
+        uint64_t* full = pos.acquire(sm.ring, A_BYTES + B_BYTES);
+        tma_load_4d(sm.a[pos.stage], &err_map, full, jc * KC * 8, i, n, f0 / 8);
+        tma_load_4d(sm.b[pos.stage], &xb_map, full, (jc * KC - c + kx0) * 8, i + ky - c, n,
+                    ms0 / 8);
+        pos.next();
       }
     }
+    return;
   }
 
-  if (ky >= KS) return;
+  const int wg = warp / 4;
+  float acc[T][NB / 2];
 #pragma unroll
-  for (int t = 0; t < TF; ++t) {
-    const int f = f0 + fg * TF + t;
-    if (f >= F) continue;
+  for (int t = 0; t < T; ++t)
 #pragma unroll
-    for (int u = 0; u < TM; ++u) {
-      const int ms = ms0 + mg * TM + u;
-      if (ms >= MS) continue;
-      float* o = table + (((size_t)ms * F + f) * KS + ky) * KS;
+    for (int v = 0; v < NB / 2; ++v) acc[t][v] = 0.f;
+
+  RingPos<STAGES> pos;
+  int pending = -1;  // the stage whose wgmmas may still be reading it
+  for (int s = 0; s < steps; ++s) {
+    pos.wait_full(sm.ring);
+    // chunk strides R*KC*16 (err) and R*KB*16 (xb) bytes; row r of the
+    // stage r*KC*16 (r*KB*16) bytes into its chunk, tap t 16*t bytes further
+    const uint64_t da = make_desc(&sm.a[pos.stage][wg * 8 * R * KC * 16], 128, R * KC * 16,
+                                  kNoSwizzle);
+    const uint64_t db = make_desc(sm.b[pos.stage], 128, R * KB * 16, kNoSwizzle);
 #pragma unroll
-      for (int kx = 0; kx < KS; ++kx) o[kx] = acc[t][u][kx];
+    for (int t = 0; t < T; ++t) fence_regs(acc[t]);
+    wgmma_fence();
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+        wgmma_m64n64<1, 1>(acc[t], desc_advance(da, r * KC * 16),
+                           desc_advance(db, (r * KB + t) * 16));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's wgmmas are done
+#pragma unroll
+    for (int t = 0; t < T; ++t) fence_regs(acc[t]);
+    if (pending >= 0) mbar_arrive(&sm.ring.empty[pending]);
+    pending = pos.stage;
+    pos.next();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int t = 0; t < T; ++t) fence_regs(acc[t]);
+
+  // table[(ky*ks + kx), f, ms]: 4 lanes write 8 consecutive ms of one f row
+  const int frow = f0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int kx = kx0 + t;
+    if (kx >= ks) break;
+    float* out = table + (size_t)(ky * ks + kx) * F * MS;
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+      const int col = ms0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int f = frow + 8 * h;
+        if (f >= F) continue;
+        float* o = out + (size_t)f * MS;
+        if (col < MS) o[col] = acc[t][4 * j + 2 * h];
+        if (col + 1 < MS) o[col + 1] = acc[t][4 * j + 2 * h + 1];
+      }
     }
   }
 }
 
-template <typename T, int KS>
-cudaError_t launch(const void* xb, const void* err, void* table, int M, int N, int S, int F,
-                   int H, int W, long long sm, long long sn, long long ss, int rt, size_t smem,
-                   cudaStream_t stream) {
-  auto kernel = dau_grad_tables_kernel<T, KS>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  constexpr int MT = MG * planes_per_thread(KS);
-  dim3 grid((F + FT - 1) / FT, (M * S + MT - 1) / MT, (KS + KYG - 1) / KYG);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(xb), static_cast<const T*>(err), static_cast<float*>(table),
-      M, N, S, F, H, W, sm, sn, ss, rt);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_ks(int ks, const void* xb, const void* err, void* table, int M, int N,
-                        int S, int F, int H, int W, long long sm, long long sn, long long ss,
-                        int rt, size_t smem, cudaStream_t stream) {
-#define DAU_KS_CASE(K)                                                                   \
-  case K:                                                                                \
-    return launch<T, K>(xb, err, table, M, N, S, F, H, W, sm, sn, ss, rt, smem, stream);
-  switch (ks) {
-    DAU_KS_CASE(3)
-    DAU_KS_CASE(5)
-    DAU_KS_CASE(7)
-    DAU_KS_CASE(9)
-    DAU_KS_CASE(11)
-    DAU_KS_CASE(13)
-    DAU_KS_CASE(15)
-    DAU_KS_CASE(17)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef DAU_KS_CASE
+// (C/8, N, H, W*8) bf16, chunk-major: the box is `cols` image columns of R
+// rows of one image, for `chunks` channel chunks.
+cudaError_t chunk_map(CUtensorMap* map, const void* base, int C, int N, int H, int W, int cols,
+                      int chunks) {
+  const cuuint64_t dims[4] = {(cuuint64_t)W * 8, (cuuint64_t)H, (cuuint64_t)N,
+                              (cuuint64_t)(C + 7) / 8};
+  const cuuint64_t strides[3] = {(cuuint64_t)W * 16, (cuuint64_t)H * W * 16,
+                                 (cuuint64_t)N * H * W * 16};
+  const cuuint32_t box[4] = {(cuuint32_t)cols * 8, R, 1, (cuuint32_t)chunks};
+  return make_map(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes the kernel needs for kernel size ks, rt err rows per
-// stage and image width W.
-long long dau_grad_tables_smem_bytes(int ks, int rt, int W) {
-  const Plan p = make_plan(ks, rt, W);
-  return 4LL * (p.e_floats + p.x_floats);
-}
-
-// xb: (M, N, S, H, W) f32 (dtype 0) or bf16 (dtype 1) with element strides
-// sm, sn, ss for m, n, s and rows contiguous (row stride W); err: (N, H, W, F)
-// contiguous, in xb's dtype; table: (M*S, F, ks, ks) f32. rt err rows are
-// staged per pass. Returns a cudaError_t.
-int dau_grad_tables_launch(const void* xb, const void* err, void* table, int dtype, int M,
-                           int N, int S, int F, int H, int W, long long sm, long long sn,
-                           long long ss, int ks, int rt, long long smem, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_ks<float>(ks, xb, err, table, M, N, S, F, H, W, sm, sn, ss, rt,
-                                   (size_t)smem, st);
-  if (dtype == 1)
-    return (int)dispatch_ks<__nv_bfloat16>(ks, xb, err, table, M, N, S, F, H, W, sm, sn, ss,
-                                           rt, (size_t)smem, st);
-  return (int)cudaErrorInvalidValue;
+// err_t: (F8/8, N, H, W*8) and xb_t: (MS8/8, N, H, W*8), bf16, chunk-major
+// (channel c at chunk c/8, lane c%8; F8, MS8 = F, MS rounded up to 8; the
+// (m, s) planes in m-major order ms = m*S + s); table: (ks*ks, F, MS) f32.
+// Returns a cudaError_t.
+int dau_grad_tables_launch(const void* err_t, const void* xb_t, void* table, int F, int MS, int N,
+                           int H, int W, int ks, void* stream) {
+  if (ks < 1 || ks % 2 == 0 || F <= 0 || MS <= 0 || N <= 0 || H <= 0 || W <= 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap err_map, xb_map;
+  cudaError_t e = chunk_map(&err_map, err_t, F, N, H, W, KC, FB / 8);
+  if (e != cudaSuccess) return (int)e;
+  e = chunk_map(&xb_map, xb_t, MS, N, H, W, KB, NB / 8);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = sizeof(Shared) + 1024;
+  e = set_smem(grad_tables_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((F + FB - 1) / FB, (MS + NB - 1) / NB, ks * ((ks + T - 1) / T));
+  grad_tables_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      err_map, xb_map, static_cast<float*>(table), F, MS, N, H, W, ks);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

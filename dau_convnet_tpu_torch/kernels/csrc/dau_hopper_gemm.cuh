@@ -1,0 +1,301 @@
+// Hopper (sm_90a) GEMM building blocks shared by the tensor-core kernels K6
+// (dau_grad_tables.cu) and K7 (dau_partial_idft.cu).
+//
+//   - host: bf16 TMA tensor maps through cuTensorMapEncodeTiled, which is
+//     taken from the driver with cudaGetDriverEntryPoint(ByVersion), so the
+//     libraries need no -lcuda;
+//   - device: mbarrier init / arrive / expect-tx / wait (the wait traps after
+//     ~2^32 cycles instead of hanging the card), TMA tile loads into shared
+//     memory, wgmma shared-memory descriptors, the wgmma fence / commit /
+//     wait, and m64nNk16 bf16 products with f32 sums;
+//   - the pipeline skeleton both kernels use: a `Ring` of STAGES shared-memory
+//     stages, each with a "full" barrier (armed by the producer with the
+//     stage's byte count, completed by TMA) and an "empty" barrier (one
+//     arrive per consumer thread once its wgmmas on the stage are done).
+//     Warps 0 .. 4*CONSUMERS-1 are the consumer warpgroups; the last warp is
+//     the producer, whose lane 0 issues every TMA load.
+//
+// Descriptor layouts used (PTX ISA, "matrix descriptor"; LBO/SBO in bytes):
+//   - no swizzle (layout 0), MN-major: 8x8 core matrices of 128 contiguous
+//     bytes, each a K row of 8 MN-consecutive values per 16 bytes; LBO is
+//     the step between 8-row groups along K, SBO the step between 8-wide
+//     groups along MN. With LBO = 128 the K rows are evenly 16 bytes apart,
+//     so a window shifted by r rows along K is the same descriptor 16*r
+//     bytes on (K6's taps);
+//   - 128-byte swizzle (layout 1), as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes
+//     it into 1024-byte aligned buffers: K-major, SBO = 1024 between 8-row
+//     groups; MN-major, LBO between 64-wide MN blocks and SBO = 1024 between
+//     8-row groups along K.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dau_hopper {
+
+// ---------------------------------------------------------------- host side
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dimensions, innermost first: dims, the byte
+// strides of dims 1 .. rank-1, the box copied per load. Coordinates outside
+// the tensor (negative ones included) read as zeros.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                            const cuuint64_t* strides, const cuuint32_t* box,
+                            CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
+                  dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Raises the kernel's dynamic shared-memory limit to `smem` bytes.
+template <typename K>
+inline cudaError_t set_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The number of SMs of the current device (for persistent grids).
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// -------------------------------------------------------------- device side
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory rounded up to 1024 bytes (the 128-byte swizzle's
+// period); the launcher asks for 1024 bytes more than it uses.
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  long long start = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1LL << 32)) {
+      __trap();  // a lost phase: fail the launch instead of hanging the card
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// ------------------------------------------------------------- the pipeline
+
+template <int STAGES>
+struct Ring {
+  uint64_t full[STAGES];
+  uint64_t empty[STAGES];
+
+  // by one thread, before the block's __syncthreads; consumer_threads
+  // arrive on each empty barrier per round
+  __device__ void init(int consumer_threads) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumer_threads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+};
+
+// A walk around the ring: the stage and the parity of its current round.
+template <int STAGES>
+struct RingPos {
+  int stage = 0;
+  uint32_t phase = 0;
+
+  __device__ void next() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // producer: wait until the consumers freed the stage, then arm its full
+  // barrier with the bytes the TMA loads of this stage will deliver
+  __device__ uint64_t* acquire(Ring<STAGES>& ring, uint32_t bytes) const {
+    mbar_wait(&ring.empty[stage], phase ^ 1);
+    mbar_expect_tx(&ring.full[stage], bytes);
+    return &ring.full[stage];
+  }
+
+  // consumer: wait until the stage's loads have landed (and reconverge the
+  // warp for the .aligned wgmma instructions that follow)
+  __device__ void wait_full(Ring<STAGES>& ring) const {
+    mbar_wait(&ring.full[stage], phase);
+    __syncwarp();
+  }
+};
+
+// ------------------------------------------------------------------- wgmma
+
+enum : uint64_t { kNoSwizzle = 0, kSwizzle128 = 1 };
+
+// Shared-memory matrix descriptor; offsets in bytes (multiples of 16).
+__device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
+}
+
+// A descriptor moved `bytes` further into shared memory (the start address
+// is the descriptor's low field, in 16-byte units).
+__device__ __forceinline__ uint64_t desc_advance(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous wgmmas.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Accumulator layout of a 64 x N f32 result over a warpgroup's 128 threads:
+// d[4j + 2h + e] holds row 16*(warp % 4) + lane/4 + 8h, column 8j + 2*(lane % 4) + e.
+
+// D (64 x 64, f32) += A (64 x 16) * B (16 x 64), both bf16 in shared memory;
+// TA / TB = 1: the operand is MN-major (M or N contiguous).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D (64 x 256, f32) += A (64 x 16) * B (16 x 256), both bf16 in shared memory;
+// TA / TB = 1: the operand is MN-major (M or N contiguous).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+}  // namespace dau_hopper

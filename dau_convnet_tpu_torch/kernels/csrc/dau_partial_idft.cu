@@ -5,128 +5,180 @@
 //
 //   table[p, c] = sum_k C[k,p] * tre[k,c] - S[k,p] * tim[k,c]
 //
-// for the (B, P) iDFT matrices C, S (rounded to the spectra's dtype by the
-// wrapper, passed widened to f32 as cs (2, B, P)) and the (B, C) spectra
-// tre, tim (f32 or bf16), with f32 sums, into a (P, C) table of f32 or bf16.
-// The fused apply-phi (K3) closes with the same kernel on its f32 spectra.
+// as one GEMM on the tensor cores, out = A @ [tre; tim], with A the (P, 2B)
+// matrix [C^T, -S^T] that the wrapper (`spectral.py`) builds once per
+// matrices and caches, bf16 operands, f32 sums, and the (P, C) table written
+// in f32 or bf16. f32 operands arrive split into bf16 hi + lo parts: the
+// K dimension is a list of segments, each one (bins x C) spectra tensor
+// against one (P x B) block of A, e.g. tre_hi.A_hi + tre_lo.A_hi +
+// tre_hi.A_lo + (the same for tim). The fused apply-phi (K3) closes with
+// this kernel on its f32 spectra.
 //
 // Bound: at AlexNet conv4 (B = 153, P = 81, C = M*S*F = 442,368, bf16) the
-// kernel reads 271 MB of spectra and writes a 72 MB table for 21.9 GFLOP, so
-// it is bound by bytes (~0.10 ms at 3.35 TB/s) on the tensor cores, but by
-// operations on FP32 FMAs (~0.33 ms at 67 TFLOP/s), which this version runs:
-//   - one block per 96 p x 128 c output tile (the ragged edges of P and C
-//     masked, no padding of the operands): 256 threads, each keeping 6 p x
-//     8 c f32 sums in registers;
-//   - it walks the bins 16 at a time, staging those rows of C, S (96 p) and
-//     of tre, tim (128 c, read once, coalesced along c) in shared memory;
-//     per staged bin a thread does 96 FMAs for 12 broadcast loads of C, S
-//     and 4 float4 loads of the spectra.
-// What it leaves for later: tensor cores (wgmma/mma.sync in bf16, which would
-// take it to its byte bound), cp.async double buffering of the stages.
+// kernel reads 271 MB of spectra and writes a 72 MB table for 21.9 GFLOP:
+// bound by bytes (~0.10 ms at 3.35 TB/s). Design:
+//   - persistent blocks walk the (P/128 x C/256) output tiles, p fastest, so
+//     neighbouring blocks share a column tile of spectra in L2;
+//   - a producer warp streams, per 64 bins of a segment, the A tile (128 p x
+//     64 bins, K-major) and the spectra tile (64 bins x 256 c, c contiguous:
+//     MN-major) by TMA, 128-byte swizzled, into a ring of STAGES stages; TMA
+//     reads the bins past B (the K tail, 153 -> 192) and columns past C as
+//     zeros;
+//   - two consumer warpgroups (64 p each) issue 4 wgmma m64n256k16 per stage
+//     into 128 f32 sums per thread, and store their tile straight from the
+//     registers (the padded rows p >= P are not stored); the producer is
+//     already loading the next tile's stages meanwhile.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "dau_hopper_gemm.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TP = 6;               // p per thread
-constexpr int TC = 8;               // c per thread
-constexpr int PG = 16;              // p groups per block
-constexpr int CG = THREADS / PG;    // c groups per block
-constexpr int PT = PG * TP;         // p per block
-constexpr int CT = CG * TC;         // c per block
-constexpr int KC = 16;              // bins per stage
+using namespace dau_hopper;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+constexpr int PB = 128;       // positions p per tile: 2 warpgroups x 64
+constexpr int NC = 256;       // columns c per tile: the wgmma N
+constexpr int KT = 64;        // bins per stage: one 128-byte swizzle row
+constexpr int STAGES = 4;
+constexpr int CONSUMERS = 2;  // warpgroups
+constexpr int THREADS = CONSUMERS * 128 + 32;
+constexpr int MAX_SEGS = 6;
+constexpr int MAX_SPECTRA = 4;
 
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(THREADS)
-partial_idft_kernel(const float* __restrict__ cs, const Tin* __restrict__ tre,
-                    const Tin* __restrict__ tim, Tout* __restrict__ out, int B, int P,
-                    long long C) {
-  __shared__ float sa[2][KC][PT];                 // [cos/sin][bin][p]
-  __shared__ __align__(16) float sb[2][KC][CT];   // [re/im][bin][c]
+struct Segments {
+  int count;
+  int spectra[MAX_SEGS];  // which spectra tensor (map) the segment reads
+  int acol[MAX_SEGS];     // the first column of its block of A
+};
 
-  const int tid = threadIdx.x;
-  const int cg = tid % CG;
-  const int pg = tid / CG;
-  const long long c0 = (long long)blockIdx.x * CT;
-  const int p0 = blockIdx.y * PT;
+struct Shared {
+  __nv_bfloat16 a[STAGES][PB][KT];            // K-major, swizzled
+  __nv_bfloat16 b[STAGES][NC / 64][KT][64];   // MN-major, swizzled, 64 c per block
+  Ring<STAGES> ring;
+};
 
-  float acc[TP][TC];
+constexpr uint32_t STAGE_BYTES = (PB * KT + KT * NC) * 2;
+
+struct SpectraMaps {
+  CUtensorMap m[MAX_SPECTRA];
+};
+
+__device__ __forceinline__ void store2(float* o, float x, float y, bool pair, bool second) {
+  if (pair) {
+    *reinterpret_cast<float2*>(o) = make_float2(x, y);
+  } else {
+    o[0] = x;
+    if (second) o[1] = y;
+  }
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* o, float x, float y, bool pair,
+                                       bool second) {
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(x, y);
+  } else {
+    o[0] = __float2bfloat16_rn(x);
+    if (second) o[1] = __float2bfloat16_rn(y);
+  }
+}
+
+template <typename Tout>
+__global__ void __launch_bounds__(THREADS, 1)
+partial_idft_kernel(const __grid_constant__ CUtensorMap a_map,
+                    const __grid_constant__ SpectraMaps spectra, const Segments segs,
+                    Tout* __restrict__ out, int P, int C, int ktiles) {
+  extern __shared__ uint8_t smem_raw[];
+  Shared& sm = *reinterpret_cast<Shared*>(align1024(smem_raw));
+
+  const int ptiles = (P + PB - 1) / PB;
+  const int tiles = ptiles * ((C + NC - 1) / NC);
+  const int steps = segs.count * ktiles;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) sm.ring.init(128 * CONSUMERS);
+  __syncthreads();
+
+  if (warp == 4 * CONSUMERS) {  // the producer warp
+    if (lane == 0) {
+      RingPos<STAGES> pos;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int p0 = (tile % ptiles) * PB;
+        const int c0 = (tile / ptiles) * NC;
+        for (int s = 0; s < steps; ++s) {
+          const int g = s / ktiles;
+          const int k0 = (s % ktiles) * KT;
+          const CUtensorMap* bmap = &spectra.m[segs.spectra[g]];
+          uint64_t* full = pos.acquire(sm.ring, STAGE_BYTES);
+          tma_load_2d(&sm.a[pos.stage], &a_map, full, segs.acol[g] + k0, p0);
 #pragma unroll
-  for (int t = 0; t < TP; ++t)
-#pragma unroll
-    for (int u = 0; u < TC; ++u) acc[t][u] = 0.f;
-
-  for (int k0 = 0; k0 < B; k0 += KC) {
-    __syncthreads();  // the previous stage's reads are done
-    for (int i = tid; i < 2 * KC * PT; i += THREADS) {
-      const int p = i % PT;
-      const int r = (i / PT) % KC;
-      const int h = i / (KC * PT);
-      const int k = k0 + r;
-      sa[h][r][p] = (k < B && p0 + p < P) ? cs[((size_t)h * B + k) * P + p0 + p] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 2 * KC * CT / THREADS; ++q) {
-      const int i = q * THREADS + tid;
-      const int c = i % CT;
-      const int r = (i / CT) % KC;
-      const int h = i / (KC * CT);
-      const int k = k0 + r;
-      const Tin* src = h ? tim : tre;
-      sb[h][r][c] = (k < B && c0 + c < C) ? to_f32(src[(size_t)k * C + c0 + c]) : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < KC; ++r) {
-      float ac[TP], as[TP], br[TC], bi[TC];
-#pragma unroll
-      for (int t = 0; t < TP; ++t) {
-        ac[t] = sa[0][r][pg * TP + t];
-        as[t] = sa[1][r][pg * TP + t];
+          for (int h = 0; h < NC / 64; ++h)
+            tma_load_2d(&sm.b[pos.stage][h], bmap, full, c0 + 64 * h, k0);
+          pos.next();
+        }
       }
-#pragma unroll
-      for (int v = 0; v < TC / 4; ++v) {
-        const float4 qr = *reinterpret_cast<const float4*>(&sb[0][r][cg * TC + 4 * v]);
-        const float4 qi = *reinterpret_cast<const float4*>(&sb[1][r][cg * TC + 4 * v]);
-        br[4 * v] = qr.x; br[4 * v + 1] = qr.y; br[4 * v + 2] = qr.z; br[4 * v + 3] = qr.w;
-        bi[4 * v] = qi.x; bi[4 * v + 1] = qi.y; bi[4 * v + 2] = qi.z; bi[4 * v + 3] = qi.w;
-      }
-#pragma unroll
-      for (int t = 0; t < TP; ++t)
-#pragma unroll
-        for (int u = 0; u < TC; ++u)
-          acc[t][u] = fmaf(ac[t], br[u], fmaf(-as[t], bi[u], acc[t][u]));
     }
+    return;
   }
 
+  const int wg = warp / 4;
+  const bool paired = C % 2 == 0;
+  RingPos<STAGES> pos;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int p0 = (tile % ptiles) * PB;
+    const int c0 = (tile / ptiles) * NC;
+    float acc[NC / 2];
 #pragma unroll
-  for (int t = 0; t < TP; ++t) {
-    const int p = p0 + pg * TP + t;
-    if (p >= P) continue;
+    for (int v = 0; v < NC / 2; ++v) acc[v] = 0.f;
+    int pending = -1;  // the stage whose wgmmas may still be reading it
+    for (int s = 0; s < steps; ++s) {
+      pos.wait_full(sm.ring);
+      // A: 64 rows of 128 bytes from row 64*wg; B: 64-wide column blocks
+      // 64 rows x 128 bytes apart
+      const uint64_t da = make_desc(&sm.a[pos.stage][wg * 64][0], 16, 1024, kSwizzle128);
+      const uint64_t db = make_desc(&sm.b[pos.stage][0][0][0], KT * 128, 1024, kSwizzle128);
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int u = 0; u < TC; ++u) {
-      const long long c = c0 + cg * TC + u;
-      if (c < C) store(out + (size_t)p * C + c, acc[t][u]);
+      for (int kk = 0; kk < KT / 16; ++kk)
+        wgmma_m64n256<0, 1>(acc, desc_advance(da, 32 * kk), desc_advance(db, 2048 * kk));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (pending >= 0) mbar_arrive(&sm.ring.empty[pending]);
+      pending = pos.stage;
+      pos.next();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (pending >= 0) mbar_arrive(&sm.ring.empty[pending]);
+
+    const int prow = p0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = prow + 8 * h;
+      if (p >= P) continue;
+      Tout* o = out + (size_t)p * C;
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int col = c0 + 8 * j + 2 * (lane % 4);
+        if (col < C)
+          store2(o + col, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], paired, col + 1 < C);
+      }
     }
   }
 }
 
-template <typename Tin, typename Tout>
-cudaError_t launch(const float* cs, const void* tre, const void* tim, void* out, int B, int P,
-                   long long C, cudaStream_t stream) {
-  const dim3 grid((unsigned)((C + CT - 1) / CT), (P + PT - 1) / PT);
-  partial_idft_kernel<Tin, Tout><<<grid, THREADS, 0, stream>>>(
-      cs, static_cast<const Tin*>(tre), static_cast<const Tin*>(tim), static_cast<Tout*>(out),
-      B, P, C);
+template <typename Tout>
+cudaError_t launch(const CUtensorMap& a_map, const SpectraMaps& maps, const Segments& segs,
+                   void* out, int P, int C, int ktiles, cudaStream_t stream) {
+  const size_t smem = sizeof(Shared) + 1024;
+  int sms = 0;
+  cudaError_t e = set_smem(partial_idft_kernel<Tout>, smem);
+  if (e == cudaSuccess) e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  const int tiles = ((P + PB - 1) / PB) * ((C + NC - 1) / NC);
+  partial_idft_kernel<Tout><<<tiles < sms ? tiles : sms, THREADS, smem, stream>>>(
+      a_map, maps, segs, static_cast<Tout*>(out), P, C, ktiles);
   return cudaGetLastError();
 }
 
@@ -134,21 +186,49 @@ cudaError_t launch(const float* cs, const void* tre, const void* tim, void* out,
 
 extern "C" {
 
-// cs (2, B, P) f32: [C; S]; tre, tim (B, C) in dtype_in; out (P, C) in
-// dtype_out (0 f32, 1 bf16). Returns a cudaError_t.
-int dau_partial_idft_launch(const void* cs, const void* tre, const void* tim, void* out,
-                            int dtype_in, int dtype_out, int B, int P, long long C,
-                            void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* fcs = static_cast<const float*>(cs);
-  if (C <= 0 || P <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
-  switch (dtype_in * 2 + dtype_out) {
-    case 0: return (int)launch<float, float>(fcs, tre, tim, out, B, P, C, st);
-    case 1: return (int)launch<float, __nv_bfloat16>(fcs, tre, tim, out, B, P, C, st);
-    case 2: return (int)launch<__nv_bfloat16, float>(fcs, tre, tim, out, B, P, C, st);
-    case 3: return (int)launch<__nv_bfloat16, __nv_bfloat16>(fcs, tre, tim, out, B, P, C, st);
-    default: return (int)cudaErrorInvalidValue;
+// a: (a_rows, a_cols) bf16, a_rows a multiple of 128 and a_cols of 64, rows
+// past P zero; its column blocks are `bp` (a multiple of 64) wide, bins past
+// B zero. spectra: n_spectra (B, ldc) bf16 tensors (ldc >= C, a multiple of
+// 8). Segment g multiplies spectra[seg_spectra[g]] by the block of A from
+// column seg_acol[g]. out: (P, C) in dtype_out (0 f32, 1 bf16). Returns a
+// cudaError_t.
+int dau_partial_idft_launch(const void* a, int a_rows, int a_cols, const void* const* spectra,
+                            int n_spectra, long long ldc, const int* seg_spectra,
+                            const int* seg_acol, int n_segs, int bp, void* out, int dtype_out,
+                            int B, int P, long long C, void* stream) {
+  if (n_segs < 1 || n_segs > MAX_SEGS || n_spectra < 1 || n_spectra > MAX_SPECTRA ||
+      bp % KT != 0 || a_rows % PB != 0 || a_rows < P || ldc % 8 != 0 || ldc < C || C <= 0 ||
+      C > 0x7fffffff || P <= 0 || B <= 0 || B > bp)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap a_map;
+  const cuuint64_t a_dims[2] = {(cuuint64_t)a_cols, (cuuint64_t)a_rows};
+  const cuuint64_t a_strides[1] = {(cuuint64_t)a_cols * 2};
+  const cuuint32_t a_box[2] = {KT, PB};
+  cudaError_t e = make_map(&a_map, a, 2, a_dims, a_strides, a_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return (int)e;
+  SpectraMaps maps;
+  const cuuint64_t b_dims[2] = {(cuuint64_t)ldc, (cuuint64_t)B};
+  const cuuint64_t b_strides[1] = {(cuuint64_t)ldc * 2};
+  const cuuint32_t b_box[2] = {64, KT};
+  for (int i = 0; i < n_spectra; ++i) {
+    e = make_map(&maps.m[i], spectra[i], 2, b_dims, b_strides, b_box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e != cudaSuccess) return (int)e;
   }
+  Segments segs;
+  segs.count = n_segs;
+  for (int g = 0; g < n_segs; ++g) {
+    if (seg_spectra[g] < 0 || seg_spectra[g] >= n_spectra || seg_acol[g] % KT != 0 ||
+        seg_acol[g] + bp > a_cols)
+      return (int)cudaErrorInvalidValue;
+    segs.spectra[g] = seg_spectra[g];
+    segs.acol[g] = seg_acol[g];
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype_out == 0)
+    return (int)launch<float>(a_map, maps, segs, out, P, (int)C, bp / KT, st);
+  if (dtype_out == 1)
+    return (int)launch<__nv_bfloat16>(a_map, maps, segs, out, P, (int)C, bp / KT, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

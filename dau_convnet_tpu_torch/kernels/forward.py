@@ -40,6 +40,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_SIZES = (3, 5, 7, 9, 11, 13, 15, 17)
 
 
+def split_bf16(t):
+    """(hi, lo) bf16 with hi + lo = t to about 2**-16 relative: hi is t
+    rounded to bf16, lo the rest rounded to bf16. The bf16 tensor-core
+    kernels (K6, K7) take f32 operands x, y as three products, xh*yh + xl*yh
+    + xh*yl: x's parts stacked [hi, lo, hi] against y's [hi, hi, lo]."""
+    hi = t.to(torch.bfloat16)
+    return hi, (t.float() - hi).to(torch.bfloat16)  # hi widens exactly in the f32 sub
+
+
 def dau_forward_fused_plain(x, w, mu1, mu2, blur_filter, ks: int,
                             use_interpolation: bool = True):
     """Plain PyTorch twin: depthwise blur, then the dense aggregation, in

@@ -126,8 +126,8 @@ def fused_apply_phi(xs, t1, t2, aw, a, dct, dst, *, n_img: int, p1b: int, rbb: i
             y.data_ptr(), _DTYPE_CODE[cdt], b, n_img, ci, co, g, p1b, rbb, nj, stream)
     if err != 0:
         raise RuntimeError(f"fused_apply_phi launch failed: cudaError {err}")
-    out = idft_launch(dct.to(cdt).t(), dst.to(cdt).t(), y[0].reshape(b, -1),
-                      y[1].reshape(b, -1), torch.float32)
+    out = idft_launch(dct.t(), dst.t(), y[0].reshape(b, -1), y[1].reshape(b, -1),
+                      torch.float32, mat_dtype=cdt)
     fused_apply_phi.launches += 1
     return out.reshape(-1, n_img, co)
 

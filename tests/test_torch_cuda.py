@@ -139,6 +139,32 @@ def test_grad_tables_kernel_matches_twin(cuda_device, name, m):
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), dtype
 
 
+# K6 at the edges of the tensor-core kernel's tiles: (N, S, F, H, W, ks) with
+# M*S (M = 3) and F not multiples of 8 or of the 32-plane / 128-channel
+# tile, a 27-wide image (two 16-column stages per row), ks in {3, 9, 17}
+TABLES_TC = {"ks3_ragged": (2, 3, 37, 13, 13, 3), "ks9_27px": (2, 5, 130, 27, 27, 9),
+             "ks17": (1, 11, 20, 9, 12, 17)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(TABLES_TC))
+def test_grad_tables_kernel_edges_match_twin(cuda_device, name, dtype):
+    n, s, f, h, w, ks = TABLES_TC[name]
+    gen = torch.Generator().manual_seed(7)
+    xb = torch.randn((n, s * 3, h, w), generator=gen).reshape(n, s, 3, h, w)
+    err = torch.randn((n, f, h, w), generator=gen)
+    a = xb.permute(2, 0, 1, 3, 4).to(cuda_device, dtype)  # the op's strided view
+    b = err.to(cuda_device, dtype)
+    before = tkb.grad_tables.launches
+    got = tkb.grad_tables(a, b, ks)
+    torch.cuda.synchronize()
+    assert tkb.grad_tables.launches == before + 1
+    want = tkb.grad_tables_plain(a, b, ks)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (3, s, f, ks, ks)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_aggregate_kernel_matches_twin(cuda_device, name):
@@ -353,8 +379,8 @@ def test_kernels_raise_without_a_plan_and_compute_no_twin(cuda_device, monkeypat
         tff.fused_apply_phi(**dict(ops, **wide), **kw)
 
 
-# K7, the partial iDFT: (H, ks, C) with C not a multiple of the 128-column
-# tile and P not of the 96-row tile; the (B, P) matrices of fourier_grad_tables
+# K7, the partial iDFT: (H, ks, C) with C not a multiple of 128 and P
+# (ks*ks) not of 32; the (B, P) matrices of fourier_grad_tables
 IDFT = {"9px": (9, 9, 3 * 37 * 41), "27px": (27, 9, 1000), "ks17": (13, 17, 300)}
 
 
@@ -376,6 +402,38 @@ def test_partial_idft_kernel_matches_twin(cuda_device, name, dtypes):
     want = tsp.partial_idft_plain(cmat, smat, tre, tim, out_dtype=torch.float32)
     bound = 1e-2 if dtypes[1] == torch.bfloat16 else 1e-4
     assert got.dtype == dtypes[1] and got.shape == (ks * ks, c)
+    assert float((got.float() - want).abs().max()) <= bound * float(want.abs().max())
+
+
+# K7 at the edges of the tensor-core kernel's tiles: (kind, H, C) with P =
+# 81 (fourier_grad_tables), 169 and 729 (the fused apply-phi's closing
+# stage); C not a multiple of the 256-column tile (123 not of 8 either); B =
+# 153 bins at H = 13, a K tail of 25 past the 64-bin stages
+IDFT_TC = {"p81": ("tables", 13, 1000), "p169": ("fused", 13, 123), "p729": ("fused", 27, 600)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("name", sorted(IDFT_TC))
+def test_partial_idft_kernel_edges_match_twin(cuda_device, name, dtypes):
+    kind, h, c = IDFT_TC[name]
+    p1, p2, rb = tfe.plan_bins(h, h, KS)
+    if kind == "tables":
+        pos = range(-(KS // 2), KS // 2 + 1)
+        cmat, smat = tfe._idft_mats(p1, p2, rb, pos, pos, torch.float32, cuda_device)
+    else:
+        dct, dst, _ = tfe._fused_idft_mats(p1, p2, rb, h, h, cuda_device)
+        cmat, smat = dct.t(), dst.t()
+    gen = torch.Generator().manual_seed(11)
+    tre, tim = torch.randn((2, p1 * rb, c), generator=gen).to(cuda_device, dtypes[0])
+    before = tsp.partial_idft.launches
+    got = tsp.partial_idft(cmat, smat, tre, tim, out_dtype=dtypes[1])
+    torch.cuda.synchronize()
+    assert tsp.partial_idft.launches == before + 1
+    want = tsp.partial_idft_plain(cmat, smat, tre, tim, out_dtype=torch.float32)
+    bound = 1e-2 if dtypes[1] == torch.bfloat16 else 1e-4
+    assert got.dtype == dtypes[1] and got.shape == (cmat.shape[1], c)
     assert float((got.float() - want).abs().max()) <= bound * float(want.abs().max())
 
 

@@ -1,0 +1,208 @@
+"""Port vs JAX: the operands the tensor-core kernels K6 and K7 are handed, on
+the CPU.
+
+The kernels run only on the card, but what their wrappers prepare is plain
+torch and runs here: the bf16 hi/lo split both share (`kernels/forward.py`),
+K6's chunk-major channels-last copies, its position-major table and the
+view back (`kernels/backward.py`), and K7's cached [C^T, -S^T] matrix, its
+spectra and segments (`kernels/spectral.py`). A product over the prepared operands, in float64
+as the tensor cores sum exact bf16 products, must equal the JAX Pallas
+kernels (interpret mode): within 2e-5 * max|reference| (f32 input: the
+split keeps about 16 bits of each factor and drops lo * lo, ~3 * 2**-16 of
+each product at worst; bf16 input: exact products, f32 sums in another
+order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dau_convnet_tpu.kernels import grad_tables_pallas
+from dau_convnet_tpu.kernels.spectral import partial_idft as jax_partial_idft
+from dau_convnet_tpu.ops import fourier_engine as jfe
+from dau_convnet_tpu_torch.kernels import backward as tkb
+from dau_convnet_tpu_torch.kernels import forward as tkf
+from dau_convnet_tpu_torch.kernels import spectral as tsp
+from dau_convnet_tpu_torch.ops import fourier_engine as tfe
+
+BOUND = 2e-5
+
+
+def _close(got, ref, name):
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, f"{name}: {got.shape} vs {ref.shape}"
+    err = float(np.abs(got - ref).max())
+    assert err <= BOUND * float(np.abs(ref).max()), f"{name}: max|err| {err}"
+
+
+@pytest.mark.parametrize("c", [1, 8, 13, 37])
+def test_chunk_major_layout(c):
+    rng = np.random.default_rng(c)
+    t = torch.tensor(rng.standard_normal((2, 3, 5, c)).astype(np.float32))
+    out = tkb.chunk_major(t)
+    cc = -(-c // 8)
+    assert out.shape == (cc, 2, 3, 5 * 8) and out.is_contiguous() and out.dtype == t.dtype
+    lanes = out.reshape(cc, 2, 3, 5, 8).permute(1, 2, 3, 0, 4).reshape(2, 3, 5, cc * 8)
+    assert torch.equal(lanes[..., :c], t)
+    assert not lanes[..., c:].any()
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 3e4])
+def test_split_bf16_keeps_sixteen_bits(scale):
+    rng = np.random.default_rng(5)
+    t = torch.tensor(rng.standard_normal(4096).astype(np.float32) * scale)
+    hi, lo = tkf.split_bf16(t)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, t.bfloat16())
+    rest = (t.double() - hi.double() - lo.double()).abs()
+    assert bool((rest <= 2.0 ** -16 * t.double().abs()).all())
+
+
+def _operands(shape, dtype, seed=0):
+    m, n, s, f, h, w, _ = shape
+    rng = np.random.default_rng(seed)
+    xb = rng.standard_normal((m, n, s, h, w)).astype(np.float32)
+    err = rng.standard_normal((n, f, h, w)).astype(np.float32)
+    if dtype == "bfloat16":  # the same bf16 values on both sides
+        xb = torch.tensor(xb).bfloat16().float().numpy()
+        err = torch.tensor(err).bfloat16().float().numpy()
+    return xb, err
+
+
+def test_grad_tables_operands_split_along_the_batch():
+    xb, err = _operands((3, 2, 3, 5, 4, 6, 3), "float32")
+    x, e = torch.tensor(xb), torch.tensor(err)
+    err_t, xb_t = tkb.grad_tables_operands(x, e)
+    assert err_t.dtype == xb_t.dtype == torch.bfloat16
+    assert err_t.shape == (1, 6, 4, 6 * 8) and xb_t.shape == (2, 6, 4, 6 * 8)
+    xh, xl = tkf.split_bf16(x.permute(1, 3, 4, 0, 2).reshape(2, 4, 6, 9))
+    eh, el = tkf.split_bf16(e.permute(0, 2, 3, 1))
+    assert torch.equal(xb_t, tkb.chunk_major(torch.cat([xh, xl, xh])))
+    assert torch.equal(err_t, tkb.chunk_major(torch.cat([eh, eh, el])))
+    bf_err, bf_xb = tkb.grad_tables_operands(x.bfloat16(), e.bfloat16())
+    assert bf_err.shape[1] == bf_xb.shape[1] == 2  # no split: N images
+
+
+def test_table_view_is_the_position_major_table():
+    m, s, f, ks = 2, 3, 5, 3
+    table = torch.arange(ks * ks * f * m * s, dtype=torch.float32).reshape(ks * ks, f, m * s)
+    view = tkb.table_view(table, m, s, ks)
+    assert view.shape == (m, s, f, ks, ks) and view.data_ptr() == table.data_ptr()
+    for mi, si, fi, ky, kx in [(0, 0, 0, 0, 0), (1, 2, 4, 2, 1), (1, 0, 3, 0, 2)]:
+        assert view[mi, si, fi, ky, kx] == table[ky * ks + kx, fi, mi * s + si]
+
+
+def _unchunk(t, c):
+    """(CC, N, H, W*8) -> (N, H, W, c) float64."""
+    cc, n, h, w8 = t.shape
+    return (t.double().reshape(cc, n, h, w8 // 8, 8).permute(1, 2, 3, 0, 4)
+            .reshape(n, h, w8 // 8, cc * 8)[..., :c])
+
+
+def _tables_from_operands(err_t, xb_t, f, m, s, ks):
+    """What the kernel sums, per tap, over the prepared operands: (ks*ks, F,
+    M*S) in float64, then its (M, S, F, ks, ks) view."""
+    e = _unchunk(err_t, f)
+    x = _unchunk(xb_t, m * s)
+    h, w = e.shape[1:3]
+    c = ks // 2
+    xp = torch.nn.functional.pad(x, (0, 0, c, c, c, c))
+    table = torch.stack([torch.einsum("nijf,nijq->fq", e, xp[:, ky:ky + h, kx:kx + w])
+                         for ky in range(ks) for kx in range(ks)])
+    return tkb.table_view(table, m, s, ks)
+
+
+# (M, N, S, F, H, W, ks): M*S and F not multiples of 8, an image wider than
+# the 16 columns of a stage (two chunks per row), ks in {3, 9, 17}
+TABLE_SHAPES = {"ks3": (3, 2, 3, 5, 7, 9, 3), "ks9_wide": (3, 2, 4, 37, 6, 19, 9),
+                "ks17": (2, 1, 5, 9, 9, 11, 17)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(TABLE_SHAPES))
+def test_grad_tables_operands_match_jax_kernel(name, dtype):
+    m, n, s, f, h, w, ks = TABLE_SHAPES[name]
+    xb, err = _operands(TABLE_SHAPES[name], dtype)
+    ref = jax.jit(lambda a, b: grad_tables_pallas(a, b, ks))(
+        jnp.asarray(xb, getattr(jnp, dtype)), jnp.asarray(err, getattr(jnp, dtype)))
+    x, e = torch.tensor(xb).to(getattr(torch, dtype)), torch.tensor(err).to(getattr(torch, dtype))
+    err_t, xb_t = tkb.grad_tables_operands(x, e)
+    assert err_t.shape[1] == (3 * n if dtype == "float32" else n)
+    got = _tables_from_operands(err_t, xb_t, f, m, s, ks)
+    _close(got.numpy(), np.asarray(ref, np.float32), f"{name} {dtype}")
+
+
+def _idft_case(kind, h, c, seed):
+    """(cmat, smat, tre, tim) f32 numpy: the (B, P) matrices of
+    fourier_grad_tables (P = 81) or of the fused apply-phi's closing stage
+    (P = H*W, padded to 8), and random spectra."""
+    p1, p2, rb = jfe.plan_bins(h, h, 9)
+    if kind == "tables":
+        pos = np.arange(-4, 5)
+        cmat, smat = (np.asarray(mat) for mat in tfe._idft_mats(p1, p2, rb, pos, pos,
+                                                                 torch.float32))
+    else:
+        dct, dst, _ = tfe._fused_idft_mats(p1, p2, rb, h, h)
+        cmat, smat = dct.t().numpy(), dst.t().numpy()
+    rng = np.random.default_rng(seed)
+    tre, tim = rng.standard_normal((2, p1 * rb, c)).astype(np.float32)
+    return cmat, smat, tre, tim
+
+
+# (kind, H, C): P = 81 (tables), 169 and 729 (the fused apply-phi's 13x13
+# and 27x27 outputs); C not a multiple of 8 and of the 256-column tile; B =
+# 153 and 496 bins, neither a multiple of the 64-bin stage
+IDFT_CASES = {"p81": ("tables", 13, 300), "p169": ("fused", 13, 123), "p729": ("fused", 27, 40)}
+
+
+def _product(a, spectra, segments, b, p, c):
+    a = a.double()
+    return sum(a[:p, col:col + b] @ spectra[i].double()[:, :c] for i, col in segments)
+
+
+# (spectra dtype, what the matrices are rounded to): K7 rounds them to the
+# spectra's dtype; K3 closes with f32 spectra and matrices rounded to its
+# input's dtype
+@pytest.mark.parametrize("dtype,mat_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                             ("float32", "bfloat16")])
+@pytest.mark.parametrize("name", sorted(IDFT_CASES))
+def test_idft_operands_match_jax_kernel(name, dtype, mat_dtype):
+    kind, h, c = IDFT_CASES[name]
+    cmat, smat, tre, tim = _idft_case(kind, h, c, seed=len(name))
+    tdt, mdt = getattr(torch, dtype), getattr(torch, mat_dtype)
+    tre_t, tim_t = torch.tensor(tre).to(tdt), torch.tensor(tim).to(tdt)
+    # JAX rounds the matrices to the spectra's dtype: hand it them rounded
+    # to mat_dtype beforehand, as K3 does with its f32 spectra
+    cm, sm = (torch.tensor(mat).to(mdt).float().numpy() for mat in (cmat, smat))
+    ref = jax.jit(lambda *a: jax_partial_idft(*a, interpret=True))(
+        jnp.asarray(cm), jnp.asarray(sm), jnp.asarray(tre_t.float().numpy(), getattr(jnp, dtype)),
+        jnp.asarray(tim_t.float().numpy(), getattr(jnp, dtype)))
+    a, spectra, segments, bp = tsp.idft_operands(torch.tensor(cmat), torch.tensor(smat), tre_t,
+                                                 tim_t, mat_dtype=mdt)
+    b, p = cmat.shape
+    assert a.dtype == torch.bfloat16 and a.shape[0] % 128 == 0 and bp % 64 == 0
+    assert all(t.dtype == torch.bfloat16 and t.shape[1] % 8 == 0 for t in spectra)
+    n_seg = {("bfloat16", "bfloat16"): 2, ("float32", "bfloat16"): 4,
+             ("float32", "float32"): 6}[dtype, mat_dtype]
+    assert len(segments) == n_seg
+    _close(_product(a, spectra, segments, b, p, c).numpy(), np.asarray(ref), name)
+
+
+def test_a_matrix_is_cached_per_matrices_and_rounding():
+    cmat, smat, _, _ = _idft_case("tables", 13, 8, seed=0)
+    cm, sm = torch.tensor(cmat), torch.tensor(smat)
+    a = tsp._a_matrix(cm, sm, torch.bfloat16)
+    assert tsp._a_matrix(cm, sm, torch.bfloat16) is a
+    b, p = cm.shape
+    bp = -(-b // 64) * 64
+    assert a.shape == (128, 2 * bp)
+    assert torch.equal(a[:p, :b], cm.t().bfloat16())
+    assert torch.equal(a[:p, bp:bp + b], (-sm).t().bfloat16())
+    assert not a[p:].any() and not a[:, b:bp].any() and not a[:, bp + b:].any()
+    a32 = tsp._a_matrix(cm, sm, torch.float32)
+    assert a32 is not a and a32.shape == (128, 4 * bp)  # [Ch, Cl, Sh, Sl]
+    cm.mul_(2.0)  # a new version of the same storage: a new A
+    assert not torch.equal(tsp._a_matrix(cm, sm, torch.bfloat16), a)
