@@ -10,8 +10,9 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    K1/K2 the fused spectral gradients, K8 the factored gather, K7 the
    partial iDFT, K3 the fused apply-phi), and print their registers and
    spills (ks=9; K1 and K8 at M=3, G=2); count the tensor-core
-   instructions (HGMMA, HMMA) in the SASS of the K6 and K7 libraries
-   (`cuobjdump -sass`) and fail if either has none;
+   instructions (HGMMA, HMMA) and TMA loads (UTMALDG) in the SASS of the
+   K4, K6 and K7 libraries (`cuobjdump -sass`) and fail if any has none of
+   either;
 2. kernel vs twin: `dau_forward_fused` against `dau_forward_fused_plain` at
    the four AlexNet-DAU layer shapes (N=4) in f32 (TF32 off, bound
    1e-4*max|y|) and bf16 (twin in f32 on the same bf16 values, bound
@@ -28,9 +29,10 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
 6. backward kernels vs twins at the four layer shapes (N=4), f32 and bf16:
    K6 with M=3 (bound 1e-4*max|table| in both: bf16 products are exact in
    f32, so only the order of the f32 sums differs; f32 input goes through
-   the bf16 hi/lo split, ~3*2^-16 of each product), K4 (bounds as K5's),
-   and K5 at the four transposed dx shapes with the mirrored 'error'
-   filter;
+   the bf16 hi/lo split, ~3*2^-16 of each product), K4 at the four forward
+   and the four transposed dx shapes (f32 1e-4*max|y|: the three-way bf16
+   split and the order of the f32 sums; bf16 1e-2*max|y|: one rounding of the
+   output), and K5 at the four dx shapes with the mirrored 'error' filter;
 7. training: the default-variant AlexNet-DAU in bf16 takes 3 SGD steps
    (lr 1e-4) on batches of 32 images at 3x227x227 through
    `make_train_step`, first with engine 'pallas_fused' (8 K5 + 4 K6
@@ -41,11 +43,13 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
 8. reference: one f32 step from the same weights, through the kernels and
    through the plain twins, per engine: every parameter's gradient must
    agree within 1e-3*max|grad| of that tensor;
-9. timing: per-layer K6, K4 and dx-shape K5 against their twins (and,
-   where one PyTorch call computes the same function, that call) at N=32
-   bf16, K6 also summed over the layers with its wrapper's operand copies
-   timed apart, and a whole bf16 training step
-   through the kernels and through the twins, per engine;
+9. timing: per-layer K6, K4 (forward and dx shapes) and dx-shape K5
+   against their twins (and, where one PyTorch call computes the same
+   function, that call) at N=32 bf16; K6 summed over the layers and K4
+   over the 8 launches of a `pallas` step, each with its wrapper's operand
+   building (K4: synthesis and layout) timed apart, and K4 beside both its
+   bounds: the 4*G-tap work its inputs need and the dense 81-tap GEMM it
+   executes, at the bf16 peak;
 10. K1/K2 vs twin: `fused_spectral_grads` without and with the dx operands
    against `fused_spectral_grads_plain` at the four layer shapes (N=4;
    conv2's 496 bins are forced, the op sends conv2 to the unfused gather)
@@ -68,9 +72,9 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    first at N=32 in bf16, bounds as in phase 10) and the unfused torch
    path (`fourier_unit_grads`), whole bf16 requests (Fourier uncached,
    phi-cached, pallas_fused) and whole bf16 steps (Fourier, Fourier with
-   fused_dx, both Pallas engines), the device time by kernel of the
-   pallas_fused step and both Fourier steps (`torch.profiler`) and the
-   Fourier step's peak memory;
+   fused_dx, both Pallas engines), the device time by kernel of both
+   Pallas steps and both Fourier steps (`torch.profiler`) and the Fourier
+   step's peak memory;
 14. K8 vs twin: `fused_spectral_grads(gather="factored")` without and with
    the dx operands against `fused_factored_grads_plain` at the four layer
    shapes (N=4), bounds as in phase 10;
@@ -298,8 +302,8 @@ def _check_err(name, got, want, bound):
 
 
 def compare_backward(gen, dev, ks):
-    """K6, K4 and dx-shape K5 vs their twins at each layer shape (N=4);
-    returns the largest |error| of each."""
+    """K6, K4 (forward and dx shapes) and dx-shape K5 vs their twins at each
+    layer shape (N=4); returns the largest |error| of each."""
     worst = {"k6": 0.0, "k4": 0.0, "k5dx": 0.0}
     error_filt = gaussian_filters(0.5, size=9, device=dev)["error"]
     for name, s, f, hw in LAYERS:
@@ -317,6 +321,12 @@ def compare_backward(gen, dev, ks):
                 f"K4 {tag}", got, kfwd.aggregate_forward_plain(x.float(), w, mu1, mu2, ks),
                 bound))
             e, wt, m1, m2 = _dx_inputs(gen, 4, s, f, hw, dtype, dev)
+            got = kfwd.aggregate_forward(e, wt, m1, m2, ks)
+            if got.dtype != dtype:
+                raise AssertionError(f"K4 dx {tag}: output is {got.dtype}")
+            worst["k4"] = max(worst["k4"], _check_err(
+                f"K4 dx {tag} {f}->{s}", got,
+                kfwd.aggregate_forward_plain(e.float(), wt, m1, m2, ks), bound))
             got = kfwd.dau_forward_fused(e, wt, m1, m2, error_filt, ks)
             if got.dtype != dtype:
                 raise AssertionError(f"K5 dx {tag}: output is {got.dtype}")
@@ -620,14 +630,18 @@ def _ptxas(lib, markers):
 
 
 def _tensor_core_count(lib):
-    """Print the tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) in
-    the library's SASS; raise if it has none."""
+    """Print the tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) and
+    the TMA loads (UTMALDG) in the library's SASS; raise if it has no
+    tensor-core instruction or no TMA load."""
     sass = disassemble(lib)
     counts = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
+    tma = sass.count("UTMALDG")
     print(f"  {lib} SASS: {counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA, "
-          f"{sass.count('UTMALDG')} UTMALDG (TMA loads)")
+          f"{tma} UTMALDG (TMA loads)")
     if not any(counts.values()):
         raise AssertionError(f"{lib}: no tensor-core instruction in the SASS")
+    if not tma:
+        raise AssertionError(f"{lib}: no TMA load in the SASS")
 
 
 def _dense_work(n, s, f, hw, x_bytes, blur: bool):
@@ -639,7 +653,8 @@ def _dense_work(n, s, f, hw, x_bytes, blur: bool):
 
 
 # kernel-name fragments -> the breakdown's categories, first match wins
-CATEGORIES = (("K5/K4 dau_forward_kernel", ("dau_forward_kernel",)),
+CATEGORIES = (("K5 dau_forward_kernel", ("dau_forward_kernel",)),
+              ("K4 aggregate_kernel", ("aggregate_kernel",)),
               ("K6 grad_tables_kernel", ("grad_tables_kernel",)),
               ("K1/K2 spectral_grads_kernel", ("spectral_grads_kernel",)),
               ("K2/K8 spectral_dx_kernel", ("spectral_dx_kernel",)),
@@ -933,6 +948,9 @@ def main(argv=None) -> int:
     if Path(dau_convnet_tpu_torch.__file__).resolve().parents[1] != ROOT:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
+    # TF32 off for the plain twins' f32 cuDNN/cuBLAS calls made here
+    # directly; the op no longer depends on it: at precision='highest' its
+    # own convolutions turn cuDNN's TF32 off (ops/_precision.py)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -946,15 +964,15 @@ def main(argv=None) -> int:
     build(LIBRARIES)
     print(f"build: {', '.join(LIBRARIES)} (.cu) for sm_90a, one nvcc each, "
           f"{time.perf_counter() - t0:.1f} s; ptxas:")
-    for lib in LIBRARIES[:2]:
-        _ptxas(lib, ["Li9E"])
+    _ptxas("dau_forward_fused", ["Li9E"])
+    _ptxas("dau_aggregate", ["aggregate_kernel"])
     _ptxas("dau_grad_tables", ["grad_tables_kernel"])
     _ptxas("dau_spectral_grads", ["spectral_grads_kernel", "Li3ELi2E"])
     _ptxas("dau_spectral_grads", ["spectral_dx_kernel"])
     _ptxas("dau_factored_grads", ["factored_grads_kernel", "Li3ELi2E"])
     _ptxas("dau_partial_idft", ["partial_idft_kernel"])
     _ptxas("dau_apply_phi", ["apply_phi_kernel"])
-    for lib in ("dau_grad_tables", "dau_partial_idft"):
+    for lib in ("dau_aggregate", "dau_grad_tables", "dau_partial_idft"):
         _tensor_core_count(lib)
 
     # 2. kernel vs twin
@@ -1041,7 +1059,8 @@ def main(argv=None) -> int:
         reference_step(engine, dev, args.seed, batches[0], labels)
 
     # 9. timing of the backward kernels and the training step
-    k6_ms = k6_ops = k6_plain = k6_lib = k4_ms = k4_plain = k4_lib = 0.0
+    k6_ms = k6_ops = k6_plain = k6_lib = k4_ops = k4_plain = k4_lib = k4_peak = 0.0
+    k4_ms = {"forward": 0.0, "dx": 0.0}
     k6_bound, k4_bound = Bounds(), Bounds()
     error_filt = gaussian_filters(0.5, size=9, device=dev)["error"]
     for name, s, f, hw in LAYERS:
@@ -1062,17 +1081,30 @@ def main(argv=None) -> int:
               f"{t_p:.3f} ms, conv2d {t_l:.3f} ms, bound {bd:.4f} ms [{card}]")
         k6_ms, k6_ops, k6_plain, k6_lib = k6_ms + t_k, k6_ops + t_o, k6_plain + t_p, k6_lib + t_l
         x, w, mu1, mu2 = _layer_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
-        t_k = _cuda_ms(lambda: kfwd.aggregate_forward(x, w, mu1, mu2, ks))
-        t_p = _cuda_ms(lambda: kfwd.aggregate_forward_plain(x, w, mu1, mu2, ks))
-        # one library call: the aggregation as one bf16 convolution with
-        # the synthesized kernel (synthesized beforehand)
-        kern = xla_engine.synthesize_kernel(w, mu1, mu2, ks).transpose(0, 1).contiguous()
-        t_l = _cuda_ms(lambda: torch.nn.functional.conv2d(x, kern, padding=ks // 2))
-        bd = k4_bound.add(*_dense_work(BATCH, s, f, hw, _nbytes(x), False))
-        print(f"layer {name} K4 N={BATCH} bf16: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
-              f"conv2d {t_l:.3f} ms, bound {bd:.4f} ms [{card}]")
-        k4_ms, k4_plain, k4_lib = k4_ms + t_k, k4_plain + t_p, k4_lib + t_l
         e, wt, m1, m2 = _dx_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
+        # K4 at the step's two calls per layer: the forward (S -> F) and
+        # the dx pass (F -> S, on the error, transposed params)
+        for way, args4, s_in, f_out in (("forward", (x, w, mu1, mu2), s, f),
+                                        ("dx", (e, wt, m1, m2), f, s)):
+            t_k = _cuda_ms(lambda: kfwd.aggregate_forward(*args4, ks))
+            # the wrapper's share: its operand building (synthesis, layout)
+            t_o = _cuda_ms(lambda: kfwd.aggregate_forward_operands(*args4, ks))
+            t_p = _cuda_ms(lambda: kfwd.aggregate_forward_plain(*args4, ks))
+            # one library call: the aggregation as one bf16 convolution with
+            # the synthesized kernel (synthesized beforehand)
+            kern = xla_engine.synthesize_kernel(*args4[1:], ks).transpose(0, 1).contiguous()
+            t_l = _cuda_ms(lambda: torch.nn.functional.conv2d(args4[0], kern, padding=ks // 2))
+            bd = k4_bound.add(*_dense_work(BATCH, s_in, f_out, hw, _nbytes(args4[0]), False))
+            # the dense ks^2-tap GEMM the kernel executes, at the bf16 peak
+            dense = 2 * ks * ks * s_in * f_out * hw * hw * BATCH
+            peak = dense / PEAK_BF16 * 1e3
+            print(f"layer {name} K4 {way} {s_in}->{f_out} N={BATCH} bf16: kernel {t_k:.3f} ms "
+                  f"({dense / t_k / 1e9:.1f} TFLOP/s dense; operand building {t_o:.3f} ms), "
+                  f"plain {t_p:.3f} ms, conv2d {t_l:.3f} ms, bound {bd:.4f} ms (4*G taps), "
+                  f"dense {ks * ks}-tap GEMM at peak {peak:.4f} ms [{card}]")
+            k4_ms[way] += t_k
+            k4_ops, k4_plain, k4_lib, k4_peak = (k4_ops + t_o, k4_plain + t_p, k4_lib + t_l,
+                                                 k4_peak + peak)
         t_k = _cuda_ms(lambda: kfwd.dau_forward_fused(e, wt, m1, m2, error_filt, ks))
         t_p = _cuda_ms(lambda: kfwd.dau_forward_fused_plain(e, wt, m1, m2, error_filt, ks))
         print(f"layer {name} K5 dx {f}->{s} N={BATCH} bf16: kernel {t_k:.3f} ms, "
@@ -1081,6 +1113,12 @@ def main(argv=None) -> int:
     print(f"K6 over the four layers N={BATCH} M={M} bf16: kernel {k6_ms:.3f} ms (its operand "
           f"copies {k6_ops:.3f} ms), bound {k6_bound.ms:.4f} ms ({k6_bound.bound_by}), conv2d "
           f"{k6_lib:.3f} ms, plain {k6_plain:.3f} ms [{card}]")
+    k4_sum = k4_ms["forward"] + k4_ms["dx"]
+    print(f"K4 over the 8 launches of a pallas step (four forward, four dx shapes) N={BATCH} "
+          f"bf16: kernel {k4_sum:.3f} ms (forward {k4_ms['forward']:.3f}, dx "
+          f"{k4_ms['dx']:.3f}; operand building {k4_ops:.3f}), conv2d {k4_lib:.3f} ms, plain "
+          f"{k4_plain:.3f} ms, bound {k4_bound.ms:.4f} ms ({k4_bound.bound_by}; 4*G taps), "
+          f"dense 81-tap GEMM at the bf16 peak {k4_peak:.4f} ms [{card}]")
 
     # 10. K1/K2 vs twin
     worst_spec = compare_spectral(gen, dev)
@@ -1112,7 +1150,7 @@ def main(argv=None) -> int:
         step_ms[engine] = t_k[0]
         print(f"train step {engine} {BATCH}x3x{IMAGE}x{IMAGE} bf16: kernel path {_fmt(t_k)}, "
               f"plain path {_fmt(t_p)}, over 5 runs of 3 [{card}]")
-    for engine in ("pallas_fused", "fourier", "fourier fused_dx"):
+    for engine in ("pallas_fused", "pallas", "fourier", "fourier fused_dx"):
         profile_step(engine, runs[engine][0], batches[0], labels, step_ms[engine], card)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1192,7 +1230,7 @@ def main(argv=None) -> int:
              ms=k6_ms, plain_ms=k6_plain, bound_ms=k6_bound.ms, bound_by=k6_bound.bound_by,
              library_ms=k6_lib),
         dict(KERNEL_K4, launches=launches_k4, max_abs_err=worst_bwd["k4"],
-             ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_bound.ms, bound_by=k4_bound.bound_by,
+             ms=k4_sum, plain_ms=k4_plain, bound_ms=k4_bound.ms, bound_by=k4_bound.bound_by,
              library_ms=k4_lib),
         dict(KERNEL_K1, launches=launches_k1, max_abs_err=worst_spec["k1"],
              ms=spec["k1"], plain_ms=spec["k1_plain"], bound_ms=k1_bound.ms,

@@ -31,7 +31,7 @@ import torch
 
 from ..ops import xla_engine
 from ._build import load_library
-from .forward import _DTYPE_CODE, _KERNEL_SIZES, split_bf16
+from .forward import _DTYPE_CODE, _KERNEL_SIZES, chunk_major, split_bf16
 
 __all__ = ["grad_tables", "grad_tables_plain", "grad_tables_operands", "chunk_major",
            "table_view"]
@@ -60,20 +60,6 @@ def _check(x_blur_k, err, ks):
         raise ValueError(f"err is on {err.device}, xb on {x_blur_k.device}")
     if ks % 2 != 1:
         raise ValueError(f"ks must be odd, got {ks}")
-
-
-def chunk_major(t):
-    """(N, H, W, C) -> (ceil(C/8), N, H, W*8) contiguous, in t's dtype:
-    channel c at chunk c // 8, lane c % 8, the channels past C zero. One
-    TMA box of it, (columns x 8 lanes) per chunk, is the kernel's
-    no-swizzle MN-major wgmma tile."""
-    n, h, w, c = t.shape
-    cc = -(-c // 8)
-    if c % 8:
-        t = torch.nn.functional.pad(t, (0, cc * 8 - c))
-    out = t.new_empty((cc, n, h, w, 8))
-    out.permute(1, 2, 3, 0, 4).copy_(t.reshape(n, h, w, cc, 8))  # one strided copy
-    return out.reshape(cc, n, h, w * 8)
 
 
 def grad_tables_operands(x_blur_k, err):

@@ -1,27 +1,300 @@
-// DAU aggregation on a pre-blurred input (K4). Replaces
-// dau_convnet_tpu/kernels/forward.py::aggregate_forward_pallas (the Pallas
-// kernel `_agg_kernel`, run by `_run_aggregate`). It is K5's aggregation
-// loop with the blur stage left out: the kernel, its bound and its design
-// are described in dau_forward.cuh (BLUR = false).
+// DAU aggregation on a pre-blurred input for Hopper (sm_90a), K4.
+//
+// Replaces dau_convnet_tpu/kernels/forward.py::aggregate_forward_pallas (the
+// Pallas kernel `_agg_kernel`, run by `_run_aggregate`). It computes the
+// same function, not the same blocks:
+//
+//   y[n,f,i,j] = sum_s sum_{ky,kx} K[p,f,s] * xb[n,s,i+ky-c,j+kx-c]
+//
+// p = ky*ks + kx, c = ks/2, xb zero outside the image, bf16 operands, f32
+// sums, y written in xb's dtype. The wrapper (`forward.py`) synthesizes K
+// and lays both operands out (`aggregate_forward_operands`): K as (ks*ks, F,
+// S8) bf16, s innermost; xb chunk-major, (S8/8, N, H, W*8), eight channels
+// per 16-byte pixel. f32 input reaches the kernel split into three bf16
+// parts stacked along s, xb as [x1, x1, x2, x1, x2, x3] against K as [K1,
+// K2, K1, K3, K2, K1]: six products that keep each f32 product to ~2^-24.
+//
+// Bound: on the row-strided flat plane of the Pallas kernel (row stride Wp
+// = W + ks - 1, output q = i*Wp + j) the aggregation is ks^2 GEMMs,
+// y[f,q] += K_p[f,:] . xb[:, q + ky*Wp + kx]: 2*ks^2*S*F*H*W operations per
+// image (conv4, N = 32: 129 GFLOP) on a few MB, so the tensor cores bound
+// it. Design:
+//   - pixels are wgmma's N, 136 flat positions per warpgroup, two
+//     warpgroups per block (272 positions: one 13x13 image, 265 flat
+//     positions, in one block; 27x27, 937 positions, in four); output
+//     channels are wgmma's M, 64 per block, shared by both warpgroups;
+//   - the producer warp stages, per group of 64 input channels, the padded
+//     rows of xb the block's taps reach: one 5-D TMA box (8 channels x Wp
+//     columns x rows x 8 channel chunks) from column -c, row r0 - c. TMA
+//     reads the halo, the columns between rows and the ragged channels as
+//     zeros, so the wrapper copies no padding. In shared memory a chunk is
+//     the flat padded plane, one pixel per 16 bytes: wgmma's no-swizzle
+//     K-major layout (SBO = 128), in which tap (ky, kx) is the same
+//     descriptor 16*(ky*Wp + kx) bytes on. The window stays for all ks^2
+//     taps (the next one loads meanwhile where the shared memory holds
+//     two);
+//   - K streams through a ring of STAGES stages, one tap's 64 f x 64 s
+//     tile (8 KB, 128-byte swizzled as in K7) per stage; each stage feeds
+//     four m64n136k16 per warpgroup;
+//   - the sums stay in registers (68 per thread, and 68 more into which
+//     they are folded every few taps: the tensor cores' f32 sums round
+//     toward zero, and a run of 5,832 k16 steps, conv4 in f32 unfolded,
+//     drifted by 1.1e-4 of max|y|) and are stored straight to (N, F, H,
+//     W); the flat plane's dead columns (j >= W) and rows past the image
+//     are not stored;
+//   - each output is summed by one block in one fixed order: no atomics.
+// What it costs: the flat layout computes Wp columns per W valid ones (62%
+// useful at 13x13, 77% at 27x27, before the tile's round-up), and every
+// block streams its 64-channel F tile of K once: 81 * S * 128 bytes (conv4:
+// 4 MB per block, from L2).
 
-#include "dau_forward.cuh"
+#include "dau_hopper_gemm.cuh"
+
+namespace {
+
+using namespace dau_hopper;
+
+constexpr int FB = 64;                 // output channels per block: the wgmma M
+constexpr int NP = 136;                // flat positions per warpgroup: the wgmma N
+constexpr int CONSUMERS = 2;           // warpgroups
+constexpr int QB = CONSUMERS * NP;     // flat positions per block
+constexpr int SG = 64;                 // input channels per window: one 128-byte K row
+constexpr int STAGES = 6;
+// taps summed on the tensor cores between folds: the bf16 output rounds
+// away what 27 taps drift; the f32 path, whose output feeds ReLUs and
+// max-pools in an f32 training step, folds every 3
+constexpr int FOLD_BF16 = 27;
+constexpr int FOLD_F32 = 3;
+constexpr int THREADS = CONSUMERS * 128 + 32;
+constexpr uint32_t A_BYTES = FB * SG * 2;
+constexpr size_t MAX_SMEM = 232448;    // 227 KB per block
+
+__host__ __device__ constexpr uint32_t round128(uint32_t v) { return (v + 127) / 128 * 128; }
+
+// The staged window of a launch: padded rows per window, the bytes of one
+// chunk (a flat plane of rows x Wp pixels) and of a window (8 chunks), the
+// windows in flight and the dynamic shared memory. smem = 0: no plan.
+struct Plan {
+  int wp, tiles, rows, nxb;
+  uint32_t plane, window;
+  size_t smem;
+};
+
+inline size_t smem_for(int nxb, uint32_t window) {
+  return 1024 + STAGES * A_BYTES + nxb * round128(window) + sizeof(Ring<STAGES>) + 4 * 8;
+}
+
+inline Plan make_plan(int H, int W, int ks) {
+  Plan p{};
+  p.wp = W + ks - 1;
+  const int flat = (H - 1) * p.wp + W;  // the output positions a block may own
+  p.tiles = (flat + QB - 1) / QB;
+  for (int t = 0; t < p.tiles; ++t) {
+    const int off = (t * QB) % p.wp;  // the tile's first column in its first row
+    const int rows = (off + QB + (ks - 1) * (p.wp + 1) + p.wp - 1) / p.wp;
+    p.rows = rows > p.rows ? rows : p.rows;
+  }
+  p.plane = (uint32_t)p.rows * p.wp * 16;
+  p.window = 8 * p.plane;
+  if (p.wp > 256 || p.rows > 256) return p;  // a TMA box side holds at most 256
+  for (p.nxb = 2; p.nxb >= 1; --p.nxb)
+    if (smem_for(p.nxb, p.window) <= MAX_SMEM) {
+      p.smem = smem_for(p.nxb, p.window);
+      return p;
+    }
+  p.nxb = 0;
+  return p;
+}
+
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename Tout>
+__global__ void __launch_bounds__(THREADS, 1)
+aggregate_kernel(const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap xb_map, Tout* __restrict__ out, int F,
+                 int S8, int H, int W, int ks, int wp, int rows, int nxb) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* a = align1024(smem_raw);  // [STAGES][64 f][64 s], swizzled
+  const uint32_t plane = (uint32_t)rows * wp * 16;
+  const uint32_t window = round128(8 * plane);
+  uint8_t* xb = a + STAGES * A_BYTES;  // [nxb][8 chunks][rows][Wp][8 s]
+  Ring<STAGES>& ring = *reinterpret_cast<Ring<STAGES>*>(xb + nxb * window);
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(&ring + 1);  // [2]
+  uint64_t* xempty = xfull + 2;                               // [2]
+
+  const int c = ks / 2;
+  const int taps = ks * ks;
+  const int groups = (S8 + SG - 1) / SG;
+  const int f0 = blockIdx.x * FB;
+  const int q0 = blockIdx.y * QB;
+  const int n = blockIdx.z;
+  const int r0 = q0 / wp;        // the first padded row the window holds
+  const int off = q0 - r0 * wp;  // q0's pixel in the window
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&xfull[i], 1);
+      mbar_init(&xempty[i], 128 * CONSUMERS);
+    }
+    ring.init(128 * CONSUMERS);  // fences the inits above too
+  }
+  __syncthreads();
+
+  if (warp == 4 * CONSUMERS) {  // the producer warp
+    if (lane == 0) {
+      auto load_window = [&](int g) {
+        const int slot = g % nxb;
+        mbar_wait(&xempty[slot], ((g / nxb) & 1) ^ 1);
+        mbar_expect_tx(&xfull[slot], 8 * plane);
+        tma_load_5d(xb + slot * window, &xb_map, &xfull[slot], 0, -c, r0 - c, n, g * 8);
+      };
+      // with two windows, window g + 1 is loaded during group g, once the
+      // consumers have passed group g's first tap (and so freed window g - 1)
+      const int prefetch_at = min(STAGES, taps - 1);
+      RingPos<STAGES> pos;
+      load_window(0);
+      for (int g = 0; g < groups; ++g) {
+        if (nxb == 1 && g > 0) load_window(g);
+        for (int p = 0; p < taps; ++p) {
+          uint64_t* full = pos.acquire(ring, A_BYTES);
+          tma_load_3d(a + pos.stage * A_BYTES, &k_map, full, g * SG, f0, p);
+          pos.next();
+          if (nxb == 2 && p == prefetch_at && g + 1 < groups) load_window(g + 1);
+        }
+      }
+    }
+    return;
+  }
+
+  constexpr int fold = sizeof(Tout) == 4 ? FOLD_F32 : FOLD_BF16;
+  const int wg = warp / 4;
+  float acc[NP / 2];  // the wgmmas' sums since the last fold
+  float sum[NP / 2];  // the folded sums
+#pragma unroll
+  for (int v = 0; v < NP / 2; ++v) acc[v] = sum[v] = 0.f;
+
+  RingPos<STAGES> pos;
+  int pending = -1;  // the K stage whose wgmmas may still be reading it
+  for (int g = 0; g < groups; ++g) {
+    const int slot = g % nxb;
+    mbar_wait(&xfull[slot], (g / nxb) & 1);
+    __syncwarp();
+    const int ksteps = min(SG, S8 - g * SG + 15) / 16;  // k16 steps with channels left
+    // the warpgroup's first flat position; chunk pairs 2*plane apart
+    const uint64_t db0 =
+        make_desc(xb + slot * window + 16 * (off + wg * NP), plane, 128, kNoSwizzle);
+    for (int p = 0; p < taps; ++p) {
+      const int ky = p / ks;
+      const uint64_t db = desc_advance(db0, 16 * (ky * wp + p - ky * ks));
+      pos.wait_full(ring);
+      const uint64_t da = make_desc(a + pos.stage * A_BYTES, 16, 1024, kSwizzle128);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SG / 16; ++kk)
+        if (kk < ksteps)
+          wgmma_m64n136<0, 0>(acc, desc_advance(da, 32 * kk), desc_advance(db, 2 * plane * kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous group is done
+      fence_regs(acc);
+      if (pending >= 0) mbar_arrive(&ring.empty[pending]);
+      pending = pos.stage;
+      pos.next();
+      if ((p + 1) % fold == 0 || p + 1 == taps) {
+        // the tensor cores round each running f32 sum toward zero, a bias
+        // that grows with the number of k16 steps summed into it: every
+        // `fold` taps the partial sums are added into `sum` on the FMA
+        // units (rounded to nearest) and restarted from zero
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(&ring.empty[pending]);
+        pending = -1;
+#pragma unroll
+        for (int v = 0; v < NP / 2; ++v) {
+          sum[v] += acc[v];
+          acc[v] = 0.f;
+        }
+      }
+    }
+    mbar_arrive(&xempty[slot]);  // the fold at the last tap waited for every wgmma on it
+  }
+
+  // sum[4j + 2h + e]: channel frow + 8h, flat position qb + 8j + 2*(lane%4) + e
+  const int frow = f0 + (warp % 4) * 16 + lane / 4;
+  const int qb = q0 + wg * NP;
+#pragma unroll
+  for (int j = 0; j < NP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = qb + 8 * j + 2 * (lane % 4) + e;
+      const int i = q / wp;
+      const int jj = q - i * wp;
+      if (i >= H || jj >= W) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int f = frow + 8 * h;
+        if (f < F) store_out(out + (((size_t)n * F + f) * H + i) * W + jj, sum[4 * j + 2 * h + e]);
+      }
+    }
+  }
+}
+
+template <typename Tout>
+cudaError_t launch(const CUtensorMap& k_map, const CUtensorMap& xb_map, void* out, int N, int S8,
+                   int F, int H, int W, int ks, const Plan& p, cudaStream_t stream) {
+  cudaError_t e = set_smem(aggregate_kernel<Tout>, p.smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((F + FB - 1) / FB, p.tiles, N);
+  aggregate_kernel<Tout><<<grid, THREADS, p.smem, stream>>>(
+      k_map, xb_map, static_cast<Tout*>(out), F, S8, H, W, ks, p.wp, p.rows, p.nxb);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" {
 
-// Shared-memory bytes the kernel needs for a plan.
-long long dau_aggregate_smem_bytes(int ks, int ft, int rt, int cg) {
-  return dau_fwd::smem_bytes(ks, 1, ft, rt, cg, false);
+// The dynamic shared memory a launch at (H, W, ks) takes, or -1 where its
+// staged window does not fit (the wrapper raises on -1).
+long long dau_aggregate_smem_bytes(int H, int W, int ks) {
+  if (H <= 0 || W <= 0 || ks < 1 || ks % 2 == 0) return -1;
+  const Plan p = make_plan(H, W, ks);
+  return p.smem ? (long long)p.smem : -1;
 }
 
-// xb: (N, S, H, W) f32 (dtype 0) or bf16 (dtype 1), contiguous, already
-// blurred; kern: (S, ks*ks, fk) f32 with fk = F padded with zeros to a
-// multiple of ft; out: (N, F, H, W) in xb's dtype. ft must be a multiple of
-// 8; (ft / 8) * rt * cg <= threads <= 256. Returns a cudaError_t.
-int dau_aggregate_launch(const void* xb, const void* kern, void* out, int dtype, int N, int S,
-                         int F, int fk, int H, int W, int ks, int ft, int rt, int cg,
-                         int threads, long long smem, void* stream) {
-  return dau_fwd::dispatch<false>(xb, nullptr, kern, out, dtype, N, S, F, fk, H, W, 1, ks, ft,
-                                  rt, cg, threads, smem, stream);
+// xb_t: (S8/8, N, H, W*8) bf16, chunk-major (channel s at chunk s/8, lane
+// s%8); kern: (ks*ks, F, S8) bf16, s innermost; S8 a multiple of 8, the
+// stacked channels past S zero in both. out: (N, F, H, W), f32 (dtype 0) or
+// bf16 (dtype 1). Returns a cudaError_t.
+int dau_aggregate_launch(const void* xb_t, const void* kern, void* out, int dtype, int N, int S8,
+                         int F, int H, int W, int ks, void* stream) {
+  if (N <= 0 || S8 <= 0 || S8 % 8 != 0 || F <= 0 || H <= 0 || W <= 0 || ks < 1 || ks % 2 == 0)
+    return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(H, W, ks);
+  if (p.smem == 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap k_map, xb_map;
+  const cuuint64_t k_dims[3] = {(cuuint64_t)S8, (cuuint64_t)F, (cuuint64_t)ks * ks};
+  const cuuint64_t k_strides[2] = {(cuuint64_t)S8 * 2, (cuuint64_t)F * S8 * 2};
+  const cuuint32_t k_box[3] = {SG, FB, 1};
+  cudaError_t e = make_map(&k_map, kern, 3, k_dims, k_strides, k_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return (int)e;
+  const cuuint64_t x_dims[5] = {8, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N,
+                                (cuuint64_t)S8 / 8};
+  const cuuint64_t x_strides[4] = {16, (cuuint64_t)W * 16, (cuuint64_t)H * W * 16,
+                                   (cuuint64_t)N * H * W * 16};
+  const cuuint32_t x_box[5] = {8, (cuuint32_t)p.wp, (cuuint32_t)p.rows, 1, SG / 8};
+  e = make_map(&xb_map, xb_t, 5, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch<float>(k_map, xb_map, out, N, S8, F, H, W, ks, p, st);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(k_map, xb_map, out, N, S8, F, H, W, ks, p, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,14 +1,13 @@
-// DAU forward for Hopper (sm_90a): displaced aggregation, with the Gaussian
-// blur fused in front of it (K5) or on an input blurred beforehand (K4).
+// DAU forward for Hopper (sm_90a): displaced aggregation with the Gaussian
+// blur fused in front of it (K5, built from dau_forward_fused.cu).
 //
 // Replaces dau_convnet_tpu/kernels/forward.py::dau_forward_fused_pallas (the
-// Pallas kernel `_fused_kernel`; BLUR = true, built from dau_forward_fused.cu)
-// and ::aggregate_forward_pallas (`_agg_kernel`; BLUR = false, built from
-// dau_aggregate.cu). It computes the same functions, not the same blocks:
+// Pallas kernel `_fused_kernel`). It computes the same function, not the
+// same blocks:
 //
 //   xb[n,s]   = blur(x[n,s]) with the kb x kb filter under zero padding, and
 //               zero OUTSIDE the image (the aggregation reads zeros there, not
-//               the blur of the padding); with BLUR = false, xb is the input;
+//               the blur of the padding);
 //   y[n,f,i,j] = sum_s sum_{ky,kx} K[s,ky*ks+kx,f] * xb[n,s,i+ky-c,j+kx-c],
 //               c = ks/2, with K the synthesized aggregation kernel that the
 //               wrapper builds outside the kernel.
@@ -26,12 +25,11 @@
 //     that the warp broadcasts: ~14 FMAs per shared load instruction;
 //   - input channels are staged SC = 2 at a time: the next stage's K tile
 //     is copied with cp.async into a second buffer while the current one is
-//     used. With BLUR, raw x with a halo of kb/2 + ks/2 is loaded into shared
-//     memory and blurred there into a second shared tile, each thread
-//     blurring 4 neighbouring columns with a sliding register window (one
-//     shared load per 4 FMAs); the blur is redone per F tile (1/32 of the
-//     aggregation's FMAs) and the blurred plane never goes to device
-//     memory. Without BLUR, xb with a halo of ks/2 is staged directly;
+//     used. Raw x with a halo of kb/2 + ks/2 is loaded into shared memory
+//     and blurred there into a second shared tile, each thread blurring 4
+//     neighbouring columns with a sliding register window (one shared load
+//     per 4 FMAs); the blur is redone per F tile (1/32 of the aggregation's
+//     FMAs) and the blurred plane never goes to device memory;
 //   - accumulation is in f32 for both f32 and bf16 input, and the output is
 //     written in the input's dtype.
 // What it leaves for later: tensor cores (wgmma), TMA staging, and gathering
@@ -65,8 +63,7 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
-// Shared-memory plan, shared by the host launcher and the kernel. Without
-// the blur (blur = false) there is no raw-x tile and no filter.
+// Shared-memory plan, shared by the host launcher and the kernel.
 struct Plan {
   int ft, rt, cg;          // F tile, output rows per block, column groups
   int pad;                 // kb/2 + ks/2
@@ -76,7 +73,7 @@ struct Plan {
   int k_floats, xb_floats, x_floats, f_floats;
 };
 
-__host__ __device__ inline Plan make_plan(int ks, int kb, int ft, int rt, int cg, bool blur) {
+__host__ __device__ inline Plan make_plan(int ks, int kb, int ft, int rt, int cg) {
   Plan p;
   p.ft = ft; p.rt = rt; p.cg = cg;
   p.pad = ks / 2 + kb / 2;
@@ -87,30 +84,30 @@ __host__ __device__ inline Plan make_plan(int ks, int kb, int ft, int rt, int cg
   p.k_chunk = SC * ks * ks * ft;
   p.k_floats = 2 * p.k_chunk;
   p.xb_floats = SC * p.xbh * p.xbw;
-  p.x_floats = blur ? SC * p.xh * p.xw : 0;
-  p.f_floats = blur ? round4(kb * kb) : 0;
+  p.x_floats = SC * p.xh * p.xw;
+  p.f_floats = round4(kb * kb);
   return p;
 }
 
-inline long long smem_bytes(int ks, int kb, int ft, int rt, int cg, bool blur) {
-  const Plan p = make_plan(ks, kb, ft, rt, cg, blur);
+inline long long smem_bytes(int ks, int kb, int ft, int rt, int cg) {
+  const Plan p = make_plan(ks, kb, ft, rt, cg);
   return 4LL * (p.k_floats + p.xb_floats + p.x_floats + p.f_floats);
 }
 
-template <typename T, int KS, bool BLUR>
+template <typename T, int KS>
 __global__ void __launch_bounds__(256)
 dau_forward_kernel(const T* __restrict__ x, const float* __restrict__ filt,
                    const float* __restrict__ kern, T* __restrict__ out,
                    int S, int F, int fk, int H, int W, int kb, int ft, int rt, int cg) {
   constexpr int CA = KS / 2;
   constexpr int NV = round4(TPX + KS - 1) / 4;  // float4 loads per x strip
-  const Plan pl = make_plan(KS, kb, ft, rt, cg, BLUR);
+  const Plan pl = make_plan(KS, kb, ft, rt, cg);
 
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);   // [2][SC][KS*KS][ft]
   float* sXB = sK + pl.k_floats;                  // [SC][xbh][xbw]
-  float* sX = sXB + pl.xb_floats;                 // [SC][xh][xw] (BLUR only)
-  float* sF = sX + pl.x_floats;                   // [kb*kb] (BLUR only)
+  float* sX = sXB + pl.xb_floats;                 // [SC][xh][xw]
+  float* sF = sX + pl.x_floats;                   // [kb*kb]
 
   const int f0 = blockIdx.x * ft;
   const int r0 = blockIdx.y * rt;
@@ -124,8 +121,7 @@ dau_forward_kernel(const T* __restrict__ x, const float* __restrict__ filt,
   const int pr = pg / cg;
   const int pc = pg - pr * cg;
 
-  if constexpr (BLUR)
-    for (int i = tid; i < kb * kb; i += nthr) sF[i] = filt[i];
+  for (int i = tid; i < kb * kb; i += nthr) sF[i] = filt[i];
 
   float acc[TF][TPX];
 #pragma unroll
@@ -185,52 +181,47 @@ dau_forward_kernel(const T* __restrict__ x, const float* __restrict__ filt,
       stage_k(s0 + SC, sK + (buf ^ 1) * pl.k_chunk);
     else
       cp_async_commit();  // an empty group keeps the wait below uniform
-    if constexpr (BLUR) {
-      stage_in(s0, sX, pl.x_floats, pl.xw, xplane, pl.pad);
-      cp_async_wait_one();  // this chunk's K has landed
-      __syncthreads();
+    stage_in(s0, sX, pl.x_floats, pl.xw, xplane, pl.pad);
+    cp_async_wait_one();  // this chunk's K has landed
+    __syncthreads();
 
-      // blur into sXB: rows [r0 - CA, r0 + rt + CA), cols [-CA, xbw - CA),
-      // zero outside the image. A thread blurs 4 neighbouring columns at a
-      // time, sliding a 4-wide window of x along each filter row (one shared
-      // load per 4 FMAs).
-      for (int i = tid; i < pl.xb_floats / 4; i += nthr) {
-        const int q4 = pl.xbw / 4;
-        const int sc = i / (pl.xbh * q4);
-        const int rem = i - sc * pl.xbh * q4;
-        const int yy = rem / q4;
-        const int xx = (rem - yy * q4) * 4;
-        const int gy = r0 - CA + yy;
-        float o[4] = {0.f, 0.f, 0.f, 0.f};
-        if (gy >= 0 && gy < H && xx - CA < W && xx + 3 - CA >= 0) {
-          // x at image (gy - kb/2 + dy, gx - kb/2 + dx) is sX[yy + dy][xx + dx]
-          const float* src = sX + sc * xplane + yy * pl.xw + xx;
-          for (int dy = 0; dy < kb; ++dy) {
-            const float* row = src + dy * pl.xw;
-            const float* frow = sF + dy * kb;
-            float r0v = row[0], r1v = row[1], r2v = row[2];
-            for (int dx = 0; dx < kb; ++dx) {
-              const float r3v = row[dx + 3];
-              const float fv = frow[dx];
-              o[0] = fmaf(fv, r0v, o[0]);
-              o[1] = fmaf(fv, r1v, o[1]);
-              o[2] = fmaf(fv, r2v, o[2]);
-              o[3] = fmaf(fv, r3v, o[3]);
-              r0v = r1v; r1v = r2v; r2v = r3v;
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int gx = xx + j - CA;
-            if (gx < 0 || gx >= W) o[j] = 0.f;
+    // blur into sXB: rows [r0 - CA, r0 + rt + CA), cols [-CA, xbw - CA),
+    // zero outside the image. A thread blurs 4 neighbouring columns at a
+    // time, sliding a 4-wide window of x along each filter row (one shared
+    // load per 4 FMAs).
+    for (int i = tid; i < pl.xb_floats / 4; i += nthr) {
+      const int q4 = pl.xbw / 4;
+      const int sc = i / (pl.xbh * q4);
+      const int rem = i - sc * pl.xbh * q4;
+      const int yy = rem / q4;
+      const int xx = (rem - yy * q4) * 4;
+      const int gy = r0 - CA + yy;
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+      if (gy >= 0 && gy < H && xx - CA < W && xx + 3 - CA >= 0) {
+        // x at image (gy - kb/2 + dy, gx - kb/2 + dx) is sX[yy + dy][xx + dx]
+        const float* src = sX + sc * xplane + yy * pl.xw + xx;
+        for (int dy = 0; dy < kb; ++dy) {
+          const float* row = src + dy * pl.xw;
+          const float* frow = sF + dy * kb;
+          float r0v = row[0], r1v = row[1], r2v = row[2];
+          for (int dx = 0; dx < kb; ++dx) {
+            const float r3v = row[dx + 3];
+            const float fv = frow[dx];
+            o[0] = fmaf(fv, r0v, o[0]);
+            o[1] = fmaf(fv, r1v, o[1]);
+            o[2] = fmaf(fv, r2v, o[2]);
+            o[3] = fmaf(fv, r3v, o[3]);
+            r0v = r1v; r1v = r2v; r2v = r3v;
           }
         }
-        *reinterpret_cast<float4*>(sXB + sc * xbplane + yy * pl.xbw + xx) =
-            make_float4(o[0], o[1], o[2], o[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int gx = xx + j - CA;
+          if (gx < 0 || gx >= W) o[j] = 0.f;
+        }
       }
-    } else {
-      stage_in(s0, sXB, pl.xb_floats, pl.xbw, xbplane, CA);
-      cp_async_wait_one();  // this chunk's K has landed
+      *reinterpret_cast<float4*>(sXB + sc * xbplane + yy * pl.xbw + xx) =
+          make_float4(o[0], o[1], o[2], o[3]);
     }
     __syncthreads();
 
@@ -284,11 +275,11 @@ dau_forward_kernel(const T* __restrict__ x, const float* __restrict__ filt,
   }
 }
 
-template <typename T, int KS, bool BLUR>
+template <typename T, int KS>
 cudaError_t launch(const void* x, const void* filt, const void* kern, void* out,
                    int N, int S, int F, int fk, int H, int W, int kb, int ft, int rt,
                    int cg, int threads, size_t smem, cudaStream_t stream) {
-  auto kernel = dau_forward_kernel<T, KS, BLUR>;
+  auto kernel = dau_forward_kernel<T, KS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -300,13 +291,13 @@ cudaError_t launch(const void* x, const void* filt, const void* kern, void* out,
   return cudaGetLastError();
 }
 
-template <typename T, bool BLUR>
+template <typename T>
 cudaError_t dispatch_ks(int ks, const void* x, const void* filt, const void* kern, void* out,
                         int N, int S, int F, int fk, int H, int W, int kb, int ft, int rt,
                         int cg, int threads, size_t smem, cudaStream_t stream) {
 #define DAU_KS_CASE(K)                                                                    \
   case K:                                                                                 \
-    return launch<T, K, BLUR>(x, filt, kern, out, N, S, F, fk, H, W, kb, ft, rt, cg,      \
+    return launch<T, K>(x, filt, kern, out, N, S, F, fk, H, W, kb, ft, rt, cg,            \
                               threads, smem, stream);
   switch (ks) {
     DAU_KS_CASE(3)
@@ -323,16 +314,15 @@ cudaError_t dispatch_ks(int ks, const void* x, const void* filt, const void* ker
 #undef DAU_KS_CASE
 }
 
-template <bool BLUR>
-int dispatch(const void* x, const void* filt, const void* kern, void* out, int dtype, int N,
+inline int dispatch(const void* x, const void* filt, const void* kern, void* out, int dtype, int N,
              int S, int F, int fk, int H, int W, int kb, int ks, int ft, int rt, int cg,
              int threads, long long smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_ks<float, BLUR>(ks, x, filt, kern, out, N, S, F, fk, H, W, kb, ft,
+    return (int)dispatch_ks<float>(ks, x, filt, kern, out, N, S, F, fk, H, W, kb, ft,
                                          rt, cg, threads, (size_t)smem, st);
   if (dtype == 1)
-    return (int)dispatch_ks<__nv_bfloat16, BLUR>(ks, x, filt, kern, out, N, S, F, fk, H, W,
+    return (int)dispatch_ks<__nv_bfloat16>(ks, x, filt, kern, out, N, S, F, fk, H, W,
                                                  kb, ft, rt, cg, threads, (size_t)smem, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
 // Fused DAU forward (K5): Gaussian blur + displaced aggregation in one pass,
 // with the blurred planes kept in shared memory. Replaces
 // dau_convnet_tpu/kernels/forward.py::dau_forward_fused_pallas; the kernel,
-// its bound and its design are described in dau_forward.cuh (BLUR = true).
+// its bound and its design are described in dau_forward.cuh.
 
 #include "dau_forward.cuh"
 
@@ -10,7 +10,7 @@ extern "C" {
 // Shared-memory bytes the kernel needs for a plan; the wrapper checks it
 // against the card's limit before launching.
 long long dau_forward_fused_smem_bytes(int ks, int kb, int ft, int rt, int cg) {
-  return dau_fwd::smem_bytes(ks, kb, ft, rt, cg, true);
+  return dau_fwd::smem_bytes(ks, kb, ft, rt, cg);
 }
 
 // x: (N, S, H, W) f32 (dtype 0) or bf16 (dtype 1), contiguous; filt: (kb, kb)
@@ -21,7 +21,7 @@ int dau_forward_fused_launch(const void* x, const void* filt, const void* kern, 
                              int dtype, int N, int S, int F, int fk, int H, int W, int kb,
                              int ks, int ft, int rt, int cg, int threads, long long smem,
                              void* stream) {
-  return dau_fwd::dispatch<true>(x, filt, kern, out, dtype, N, S, F, fk, H, W, kb, ks, ft, rt,
+  return dau_fwd::dispatch(x, filt, kern, out, dtype, N, S, F, fk, H, W, kb, ks, ft, rt,
                                  cg, threads, smem, stream);
 }
 

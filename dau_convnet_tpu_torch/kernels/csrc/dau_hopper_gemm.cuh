@@ -1,5 +1,5 @@
-// Hopper (sm_90a) GEMM building blocks shared by the tensor-core kernels K6
-// (dau_grad_tables.cu) and K7 (dau_partial_idft.cu).
+// Hopper (sm_90a) GEMM building blocks shared by the tensor-core kernels K4
+// (dau_aggregate.cu), K6 (dau_grad_tables.cu) and K7 (dau_partial_idft.cu).
 //
 //   - host: bf16 TMA tensor maps through cuTensorMapEncodeTiled, which is
 //     taken from the driver with cudaGetDriverEntryPoint(ByVersion), so the
@@ -22,6 +22,12 @@
 //     groups along MN. With LBO = 128 the K rows are evenly 16 bytes apart,
 //     so a window shifted by r rows along K is the same descriptor 16*r
 //     bytes on (K6's taps);
+//   - no swizzle, K-major: the same 128-byte core matrices, each 8 MN rows
+//     of 8 K-consecutive values; SBO is the step between 8-row groups along
+//     MN, LBO the step between the two 8-wide K halves of a k16 product.
+//     With SBO = 128 the MN rows are evenly 16 bytes apart, so a window
+//     shifted by r rows along MN is the same descriptor 16*r bytes on
+//     (K4's taps);
 //   - 128-byte swizzle (layout 1), as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes
 //     it into 1024-byte aligned buffers: K-major, SBO = 1024 between 8-row
 //     groups; MN-major, LBO between 64-wide MN blocks and SBO = 1024 between
@@ -148,6 +154,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -155,6 +170,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -260,6 +285,31 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D (64 x 136, f32) += A (64 x 16) * B (16 x 136), both bf16 in shared memory;
+// TA / TB = 1: the operand is MN-major (M or N contiguous).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n136(float (&d)[68], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67},"
+      " %68, %69, p, 1, 1, %71, %72;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 

@@ -5,16 +5,19 @@ Counterpart of `dau_convnet_tpu/kernels/forward.py`:
   with the blur valid only inside the image; CUDA source
   `csrc/dau_forward_fused.cu`, twin `dau_forward_fused_plain`;
 - `aggregate_forward` (K4, `aggregate_forward_pallas`): the same aggregation
-  on an input blurred beforehand; CUDA source `csrc/dau_aggregate.cu`, twin
-  `aggregate_forward_plain`.
-Both kernels share `csrc/dau_forward.cuh`. Each wrapper launches its kernel
-on a CUDA tensor and calls its twin on a CPU tensor. There is no fallback:
-on a CUDA tensor the kernel runs or the call raises.
+  on an input blurred beforehand; CUDA source `csrc/dau_aggregate.cu` (+
+  `csrc/dau_hopper_gemm.cuh`), twin `aggregate_forward_plain`.
+Each wrapper launches its kernel on a CUDA tensor and calls its twin on a
+CPU tensor. There is no fallback: on a CUDA tensor the kernel runs or the
+call raises.
 
-Both work in f32 (bf16 input is widened) and return the input's dtype. The
-synthesized aggregation kernel K is built with plain torch ops outside the
-kernel, in w's dtype, and widened to f32 only afterwards, as the JAX
-wrappers do.
+Both return the input's dtype. The synthesized aggregation kernel K is
+built with plain torch ops outside the kernel, in w's dtype, as the JAX
+wrappers do. K5 widens it to f32 and sums f32 products on the FMA units
+(`csrc/dau_forward.cuh`). K4 multiplies bf16 operands on the tensor cores
+with f32 sums: `aggregate_forward_operands` lays K out as (ks*ks, F, S8)
+bf16 and xb chunk-major (`chunk_major`), f32 input split into three bf16
+parts stacked along the channels (`split_bf16_3`).
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ from ..ops import xla_engine
 from ..ops.gaussian import depthwise_blur
 from ._build import load_library
 
-__all__ = ["dau_forward_fused", "dau_forward_fused_plain",
-           "aggregate_forward", "aggregate_forward_plain"]
+__all__ = ["dau_forward_fused", "dau_forward_fused_plain", "aggregate_forward",
+           "aggregate_forward_plain", "aggregate_forward_operands", "chunk_major",
+           "split_bf16", "split_bf16_3"]
 
 _F_TILE = 32        # output channels per block (a multiple of the 8 per thread)
 _COLS_PER_THREAD = 4
@@ -43,10 +47,39 @@ _KERNEL_SIZES = (3, 5, 7, 9, 11, 13, 15, 17)
 def split_bf16(t):
     """(hi, lo) bf16 with hi + lo = t to about 2**-16 relative: hi is t
     rounded to bf16, lo the rest rounded to bf16. The bf16 tensor-core
-    kernels (K6, K7) take f32 operands x, y as three products, xh*yh + xl*yh
-    + xh*yl: x's parts stacked [hi, lo, hi] against y's [hi, hi, lo]."""
+    kernels K6 and K7 take f32 operands x, y as three products, xh*yh +
+    xl*yh + xh*yl: x's parts stacked [hi, lo, hi] against y's [hi, hi, lo]."""
     hi = t.to(torch.bfloat16)
     return hi, (t.float() - hi).to(torch.bfloat16)  # hi widens exactly in the f32 sub
+
+
+def split_bf16_3(t):
+    """(t1, t2, t3) bf16 with t1 + t2 + t3 = t to about 2**-25 relative:
+    each part is the rest so far rounded to bf16. K4 takes f32 operands x,
+    y as the six products of parts whose orders sum to at most 3 (x1*y1,
+    x1*y2, x2*y1, x1*y3, x2*y2, x3*y1), which keep each f32 product to
+    about 2**-24: its f32 path feeds ReLUs and max-pools, where the three
+    products of `split_bf16` (~2**-17) already move the gradients of a
+    training step beyond 1e-3 of the f32 twins'."""
+    t = t.float()
+    t1 = t.to(torch.bfloat16)
+    r = t - t1  # exact in f32, as is r - t2 below
+    t2 = r.to(torch.bfloat16)
+    return t1, t2, (r - t2).to(torch.bfloat16)
+
+
+def chunk_major(t):
+    """(N, H, W, C) -> (ceil(C/8), N, H, W*8) contiguous, in t's dtype:
+    channel c at chunk c // 8, lane c % 8, the channels past C zero. A TMA
+    box of it lands in shared memory as 16-byte pixels of 8 channels, the
+    core-matrix rows of wgmma's no-swizzle layouts (K4, K6)."""
+    n, h, w, c = t.shape
+    cc = -(-c // 8)
+    if c % 8:
+        t = F.pad(t, (0, cc * 8 - c))
+    out = t.new_empty((cc, n, h, w, 8))
+    out.permute(1, 2, 3, 0, 4).copy_(t.reshape(n, h, w, cc, 8))  # one strided copy
+    return out.reshape(cc, n, h, w * 8)
 
 
 def dau_forward_fused_plain(x, w, mu1, mu2, blur_filter, ks: int,
@@ -116,13 +149,84 @@ def _check_cuda(name: str, x, ks: int):
 
 def _padded_kernel(w, mu1, mu2, ks: int, use_interpolation: bool):
     """K from `synthesize_kernel` in w's dtype, widened to f32 and laid out
-    (S, ks*ks, fk) for the kernels, with F padded by zeros to fk, a whole
-    number of F tiles."""
+    (S, ks*ks, fk) for K5, with F padded by zeros to fk, a whole number of
+    F tiles."""
     s, _, f = w.shape
     kern = xla_engine.synthesize_kernel(w, mu1, mu2, ks, use_interpolation)
     fk = -(-f // _F_TILE) * _F_TILE
     kern = F.pad(kern.float().reshape(s, f, ks * ks).transpose(1, 2), (0, fk - f))
     return kern.contiguous(), fk
+
+
+def synthesize_kernel_pfs(w, mu1, mu2, ks: int, use_interpolation: bool = True,
+                          s_out: int | None = None):
+    """`xla_engine.synthesize_kernel` built straight into K4's GEMM layout:
+    (ks*ks, F, s_out) in w's dtype, s innermost, the channels past S zero
+    (s_out defaults to S). Equal to synthesize_kernel(...).permute(2, 3, 1,
+    0) bit for bit. Each (s, f) has at most 4*G nonzero positions, the
+    bilinear taps of its units, so the same sums (per tap, over g in f32,
+    rounded to w's dtype; then tap by tap in w's dtype) are formed there
+    alone, for all taps at once, and scattered into a zeroed buffer: a few
+    dozen small ops in place of a one-hot over all ks*ks positions per unit
+    and tap. Where mu's dtype cannot hold every position exactly (bf16 past
+    256: ks >= 17), the one-hot's rounded matches are kept by building it
+    densely."""
+    s, g, f = w.shape
+    p2 = ks * ks
+    s_out = s if s_out is None else s_out
+    if p2 - 1 > 2.0 / torch.finfo(mu1.dtype).eps:  # the largest exact integer
+        kern = xla_engine.synthesize_kernel(w, mu1, mu2, ks, use_interpolation)
+        return F.pad(kern.permute(2, 3, 1, 0).reshape(p2, f, s), (0, s_out - s)).contiguous()
+    # xla_engine._flat_taps for all taps at once: (D, S, G, F), tap d = 2*dy + dx
+    c = ks // 2
+    f1, f2 = torch.floor(mu1), torch.floor(mu2)
+    base = (c + f2) * ks + (c + f1)
+    if use_interpolation:
+        a1, a2 = mu1 - f1, mu2 - f2
+        iw = (torch.stack([1.0 - a2, a2])[:, None] * torch.stack([1.0 - a1, a1])[None])
+        iw = iw.reshape(4, s, g, f)
+        steps = torch.tensor([0, 1, ks, ks + 1], dtype=mu1.dtype, device=mu1.device)
+        tgt = base[None] + steps[:, None, None, None]
+    else:
+        iw, tgt = torch.ones_like(mu1)[None], base[None]
+    val = (w[None] * iw).to(w.dtype).float()
+    pos = tgt.permute(0, 2, 1, 3).reshape(-1, s, f)  # (D*G, S, F): every target
+    # part[d, q] = the tap-d sum over g at position pos[q]
+    hit = tgt[:, None] == pos[None, :, :, None, :]  # (D, D*G, S, G, F)
+    part = torch.sum(val[:, None] * hit, dim=3).to(w.dtype)
+    kval = part[0]
+    for d in range(1, part.shape[0]):
+        kval = kval + part[d]
+    # positions outside the kernel (offsets past its reach) take no tap, as
+    # in the one-hot; they land in a scratch row
+    idx = torch.where((pos >= 0) & (pos < p2), pos, p2).long()
+    out = torch.zeros((p2 + 1, f, s_out), dtype=w.dtype, device=w.device)
+    out.scatter_(0, idx.transpose(1, 2), kval.transpose(1, 2))  # equal targets, equal values
+    return out[:p2]
+
+
+def aggregate_forward_operands(x_blur, w, mu1, mu2, ks: int,
+                               use_interpolation: bool = True):
+    """K4's operands: (xb_t, kern_t), bf16.
+
+    kern_t: K from `synthesize_kernel_pfs` (in w's dtype) as (ks*ks, F,
+    S8), position-major, s innermost; xb_t: x_blur chunk-major, (S8/8, N, H,
+    W*8) (`chunk_major`). bf16 x_blur takes K rounded to bf16 (exact where
+    w is bf16). f32 x_blur and K are split in three (`split_bf16_3`) and
+    stacked along the channels, xb as [x1, x1, x2, x1, x2, x3] against K as
+    [K1, K2, K1, K3, K2, K1]; S8 is the stacked channel count (S or 6S)
+    rounded up to 8, the channels past it zero in both."""
+    s = w.shape[0]
+    x = x_blur.permute(0, 2, 3, 1)
+    if x_blur.dtype != torch.float32:
+        kern_t = synthesize_kernel_pfs(w, mu1, mu2, ks, use_interpolation, s_out=-(-s // 8) * 8)
+        return chunk_major(x.to(torch.bfloat16)), kern_t.to(torch.bfloat16)
+    kern = synthesize_kernel_pfs(w, mu1, mu2, ks, use_interpolation)
+    x1, x2, x3 = split_bf16_3(x)
+    k1, k2, k3 = split_bf16_3(kern)
+    x = torch.cat([x1, x1, x2, x1, x2, x3], dim=-1)
+    kern_t = F.pad(torch.cat([k1, k2, k1, k3, k2, k1], dim=-1), (0, -6 * s % 8))
+    return chunk_major(x), kern_t
 
 
 def dau_forward_fused(x, w, mu1, mu2, blur_filter, ks: int,
@@ -169,33 +273,32 @@ dau_forward_fused.launches = 0
 def aggregate_forward(x_blur, w, mu1, mu2, ks: int,
                       use_interpolation: bool = True):
     """DAU aggregation of a pre-blurred input (zero outside the image).
-    x_blur: (N, S, H, W) -> (N, F, H, W).
+    x_blur: (N, S, H, W) -> (N, F, H, W) in x_blur's dtype.
 
-    On a CUDA tensor this launches the sm_90a kernel (one launch per call,
-    counted in `aggregate_forward.launches`); on a CPU tensor it computes the
-    plain twin. Other devices raise.
+    On a CUDA tensor this launches the sm_90a tensor-core kernel (one
+    launch per call, counted in `aggregate_forward.launches`; any odd ks
+    whose staged window fits the shared memory); on a CPU tensor it
+    computes the plain twin. Other devices raise.
     """
     _check(x_blur, w, mu1, mu2, None, ks)
     if x_blur.device.type == "cpu":
         return aggregate_forward_plain(x_blur, w, mu1, mu2, ks, use_interpolation)
-    _check_cuda("aggregate_forward", x_blur, ks)
+    if x_blur.device.type != "cuda":
+        raise RuntimeError(f"aggregate_forward has no kernel for device {x_blur.device}")
 
-    n, s, h, wd = x_blur.shape
+    n, _, h, wd = x_blur.shape
     f = w.shape[-1]
-    kern, fk = _padded_kernel(w, mu1, mu2, ks, use_interpolation)
-    out = torch.empty((n, f, h, wd), dtype=x_blur.dtype, device=x_blur.device)
-
     lib = _library("dau_aggregate")
-    rt, cg, threads = _launch_plan(h, wd)
-    smem = lib.dau_aggregate_smem_bytes(ks, _F_TILE, rt, cg)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"plan needs {smem} bytes of shared memory (> {_MAX_SMEM})")
+    if lib.dau_aggregate_smem_bytes(h, wd, ks) < 0:
+        raise ValueError(f"the staged window of a {h}x{wd} plane at ks={ks} does not fit "
+                         f"the shared memory ({_MAX_SMEM} bytes) or a TMA box")
+    xb_t, kern_t = aggregate_forward_operands(x_blur, w, mu1, mu2, ks, use_interpolation)
+    out = torch.empty((n, f, h, wd), dtype=x_blur.dtype, device=x_blur.device)
     with torch.cuda.device(x_blur.device):
         stream = torch.cuda.current_stream(x_blur.device).cuda_stream
         err = lib.dau_aggregate_launch(
-            x_blur.data_ptr(), kern.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[x_blur.dtype], n, s, f, fk, h, wd, ks, _F_TILE, rt, cg,
-            threads, smem, stream)
+            xb_t.data_ptr(), kern_t.data_ptr(), out.data_ptr(), _DTYPE_CODE[x_blur.dtype], n,
+            kern_t.shape[-1], f, h, wd, ks, stream)
     if err != 0:
         raise RuntimeError(f"aggregate_forward launch failed: cudaError {err}")
     aggregate_forward.launches += 1
@@ -217,9 +320,8 @@ def _library(name: str) -> ctypes.CDLL:
             [c_ptr] * 4 + [c_int] * 13 + [c_ll, c_ptr])
         lib.dau_forward_fused_launch.restype = c_int
     else:
-        lib.dau_aggregate_smem_bytes.argtypes = [c_int] * 4
+        lib.dau_aggregate_smem_bytes.argtypes = [c_int] * 3
         lib.dau_aggregate_smem_bytes.restype = c_ll
-        lib.dau_aggregate_launch.argtypes = (
-            [c_ptr] * 3 + [c_int] * 12 + [c_ll, c_ptr])
+        lib.dau_aggregate_launch.argtypes = [c_ptr] * 3 + [c_int] * 7 + [c_ptr]
         lib.dau_aggregate_launch.restype = c_int
     return lib

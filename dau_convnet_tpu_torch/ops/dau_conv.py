@@ -194,7 +194,7 @@ def _blur(cfg: DAUConvSettings, x, sigma_value, name: str):
     if cfg.engine == "fourier":
         vecs, terms = _factor_filters(cfg, sigma_value)
         return rank1_blur(x, vecs, terms[name])
-    return depthwise_blur(x, _filters(cfg, sigma_value)[name])
+    return depthwise_blur(x, _filters(cfg, sigma_value)[name], precision=cfg.precision)
 
 
 def _aggregate(cfg: DAUConvSettings, x_blur, w, mu1, mu2, phi=None):
@@ -204,7 +204,8 @@ def _aggregate(cfg: DAUConvSettings, x_blur, w, mu1, mu2, phi=None):
         return aggregate_forward(x_blur.contiguous(), w, mu1, mu2, ks, interp)
     if cfg.engine == "fourier":
         return fourier_engine.fourier_forward(x_blur, w, mu1, mu2, ks, interp, phi=phi)
-    return xla_engine.aggregate_forward(x_blur, w, mu1, mu2, ks, interp)
+    return xla_engine.aggregate_forward(x_blur, w, mu1, mu2, ks, interp,
+                                        precision=cfg.precision)
 
 
 def _blur_and_aggregate(cfg: DAUConvSettings, x, sigma_value, w, mu1, mu2,
@@ -331,13 +332,13 @@ def _param_grads(cfg: DAUConvSettings, x, gy, sigma_value, w3m, mu13, mu23, dx_f
             w_units=w3m.to(xb.dtype), gather=gather)
         return grads, dx.to(x.dtype)
     fstack = torch.stack([_filters(cfg, sigma_value)[k] for k in names])  # (M, kb, kb)
-    xb = depthwise_blur(x, fstack)  # (N, S*M, H, W)
+    xb = depthwise_blur(x, fstack, precision=cfg.precision)  # (N, S*M, H, W)
     xb = xb.reshape(n, s_ch, len(names), h, w_sp).permute(2, 0, 1, 3, 4)  # (M, N, S, H, W)
     if cfg.engine in ("pallas", "pallas_fused"):
         from ..kernels.backward import grad_tables
         table = grad_tables(xb, gy_p, ks).to(xb.dtype)
     else:
-        table = xla_engine.grad_tables(xb, gy_p, ks)
+        table = xla_engine.grad_tables(xb, gy_p, ks, precision=cfg.precision)
     return xla_engine.tap_gather(table, mu13, mu23, ks, cfg.use_interpolation), None
 
 

@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ._precision import conv_precision
+
 __all__ = ["blur_kernel_size", "gaussian_filters", "gaussian_factor_filters",
            "rank1_blur", "rank1_blur_stack", "depthwise_blur"]
 
@@ -223,15 +225,18 @@ def rank1_blur_stack(x: torch.Tensor, vecs, terms, names) -> torch.Tensor:
     return torch.stack(outs)
 
 
-def depthwise_blur(x: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+def depthwise_blur(x: torch.Tensor, filt: torch.Tensor,
+                   precision: str = "highest") -> torch.Tensor:
     """Correlate every (n, channel) plane of NCHW ``x`` with ``filt`` under
     zero padding kh//2, kw//2. ``filt`` is (kh, kw) for one shared filter,
     -> (N, C, H, W); or (m, kh, kw) for m filters per channel, -> (N, C*m,
     H, W) with the m results of channel c at [c*m, (c+1)*m). The filter is
-    cast to x's dtype."""
+    cast to x's dtype; precision='highest' runs the convolution with cuDNN's
+    TF32 off (`_precision.conv_precision`)."""
     chan = x.shape[1]
     if filt.dim() == 2:
         filt = filt[None]
     m, kh, kw = filt.shape
     rhs = filt.to(x.dtype)[None].expand(chan, m, kh, kw).reshape(chan * m, 1, kh, kw)
-    return F.conv2d(x, rhs, padding=(kh // 2, kw // 2), groups=chan)
+    with conv_precision(precision):
+        return F.conv2d(x, rhs, padding=(kh // 2, kw // 2), groups=chan)

@@ -11,13 +11,17 @@ is a dense cross-correlation with a synthesized kernel
 where ty/tx are the one-hot bilinear tap vectors (mu1 is x / columns, mu2 is
 y / rows). `synthesize_kernel` accumulates in w's dtype with positions in
 mu1's dtype, exactly as the JAX engine does, so a bf16 model rounds where
-the JAX one rounds.
+the JAX one rounds. The two convolutions take JAX's `precision`:
+'highest' (the default, JAX's `Precision.HIGHEST`) runs them with cuDNN's
+TF32 off.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ._precision import conv_precision
 
 __all__ = ["tap_vectors", "synthesize_kernel", "aggregate_forward",
            "grad_tables", "tap_gather"]
@@ -87,7 +91,7 @@ def synthesize_kernel(w, mu1, mu2, ks: int, use_interpolation: bool = True):
 
 
 def aggregate_forward(x_blur, w, mu1, mu2, ks: int,
-                      use_interpolation: bool = True):
+                      use_interpolation: bool = True, precision: str = "highest"):
     """Offset-and-sum over the (s, g) units as one dense correlation.
 
     x_blur: (N, S, H, W) pre-blurred input; w, mu1, mu2: (S, G, F) with w
@@ -95,10 +99,11 @@ def aggregate_forward(x_blur, w, mu1, mu2, ks: int,
     """
     kern = synthesize_kernel(w, mu1, mu2, ks, use_interpolation)
     rhs = kern.transpose(0, 1)  # OIHW = (F, S, ks, ks)
-    return F.conv2d(x_blur, rhs.to(x_blur.dtype), padding=ks // 2)
+    with conv_precision(precision):
+        return F.conv2d(x_blur, rhs.to(x_blur.dtype), padding=ks // 2)
 
 
-def grad_tables(x_blur_k, err, ks: int):
+def grad_tables(x_blur_k, err, ks: int, precision: str = "highest"):
     """Full position table of the parameter gradients (conv-backward-filter):
 
         table[m,s,f,ky,kx] = sum_{n,i,j} x_blur_k[m,n,s,i+ky-c,j+kx-c] * err[n,f,i,j]
@@ -111,7 +116,8 @@ def grad_tables(x_blur_k, err, ks: int):
     f = err.shape[1]
     lhs = x_blur_k.transpose(1, 2).reshape(m * s, n, h, w_sp)  # m-major, then s
     rhs = err.transpose(0, 1)  # (F, N, H, W)
-    table = F.conv2d(lhs, rhs.to(lhs.dtype), padding=ks // 2)  # (M*S, F, ks, ks)
+    with conv_precision(precision):
+        table = F.conv2d(lhs, rhs.to(lhs.dtype), padding=ks // 2)  # (M*S, F, ks, ks)
     return table.reshape(m, s, f, ks, ks)
 
 

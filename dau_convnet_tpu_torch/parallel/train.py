@@ -2,7 +2,7 @@
 
 Counterpart of the single-device part of `dau_convnet_tpu/parallel/train.py`:
 the loss and `make_train_step`. The mesh, the sharded parameters and
-`init_sharded` are not ported yet (ROADMAP.md 'Still to port', step 6).
+`init_sharded` are not ported yet (ROADMAP.md §1).
 """
 
 from __future__ import annotations

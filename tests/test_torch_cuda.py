@@ -506,3 +506,121 @@ def test_apply_phi_fused_matches_the_unfused_chain(cuda_device, contract_f):
     else:
         want = tfe.fourier_forward(x, w, mu1, mu2, KS)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# K4 on the tensor cores. Bounds: f32 1e-4 * max|y| (the three-way bf16
+# split, ~2**-24 of each product, and f32 sums in another order); bf16 1e-2 *
+# max|y| (exact products, the output rounded once to bf16). (N, S, G, F,
+# H=W, ks, use_interpolation): ragged S and F, F past the 64-channel tile,
+# 6x6 and 13x13 planes, ks 3 and 9.
+AGG_TC = {
+    "s5_f7_6px_ks3": (2, 5, 2, 7, 6, 3, True),
+    "s16_f96_13px_ks9": (2, 16, 2, 96, 13, 9, True),
+    "s5_f7_13px_ks9_nointerp": (2, 5, 2, 7, 13, 9, False),
+    "s16_f96_6px_ks3_nointerp": (1, 16, 1, 96, 6, 3, False),
+}
+# the four AlexNet-DAU layers (S, F, H=W) at N = 4, forward and dx (S<->F)
+AGG_LAYERS = {"conv2": (96, 256, 27), "conv3": (256, 384, 13), "conv4": (384, 384, 13),
+              "conv5": (384, 256, 13)}
+
+
+def _agg_inputs(n, s, g, f, h, ks, device, seed=0, w_cols=None):
+    gen = torch.Generator().manual_seed(seed)
+    bound = ks // 2 - 0.01
+    x = torch.rand((n, s, h, w_cols or h), generator=gen)
+    w = torch.randn((s, g, f), generator=gen) * 0.1
+    mu1, mu2 = torch.rand((2, s, g, f), generator=gen) * 2 * bound - bound
+    return [t.to(device) for t in (x, w, mu1, mu2)]
+
+
+def _check_aggregate(args, ks, interp=True):
+    for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        a = [t.to(dtype) for t in args]
+        before = tk.aggregate_forward.launches
+        y = tk.aggregate_forward(*a, ks, interp)
+        torch.cuda.synchronize()
+        assert tk.aggregate_forward.launches == before + 1
+        want = tk.aggregate_forward_plain(a[0].float(), *a[1:], ks, interp)
+        assert y.dtype == dtype and y.shape == want.shape
+        err = float((y.float() - want).abs().max())
+        assert err <= bound * float(want.abs().max()), (dtype, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(AGG_TC))
+def test_aggregate_kernel_edges_match_twin(cuda_device, name):
+    n, s, g, f, h, ks, interp = AGG_TC[name]
+    _check_aggregate(_agg_inputs(n, s, g, f, h, ks, cuda_device), ks, interp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dx", [False, True])
+@pytest.mark.parametrize("name", sorted(AGG_LAYERS))
+def test_aggregate_kernel_at_layer_shapes_matches_twin(cuda_device, name, dx):
+    s, f, h = AGG_LAYERS[name]
+    if dx:  # the dx pass: the error's F channels in, S out
+        s, f = f, s
+    _check_aggregate(_agg_inputs(4, s, 2, f, h, KS, cuda_device, seed=len(name)), KS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ks,h,w", [(1, 7, 9), (19, 8, 8), (5, 5, 67)])
+def test_aggregate_kernel_runtime_ks_matches_twin(cuda_device, ks, h, w):
+    # ks outside the K5 instances (1, 19; 19 stages one window at a time) and
+    # a plane wider than 64 columns
+    _check_aggregate(_agg_inputs(2, 70, 2, 9, h, ks, cuda_device, w_cols=w), ks)
+
+
+@pytest.mark.cuda
+def test_aggregate_kernel_rejects_a_window_too_large(cuda_device):
+    args = _agg_inputs(1, 3, 2, 4, 4, 3, cuda_device, w_cols=300)
+    with pytest.raises(ValueError, match="window"):
+        tk.aggregate_forward(*args, 3)
+
+
+def _assert_matrix(mat, gt, name, rel_tolerance=0.01):
+    """The reference tolerance policy of `tests/helpers.py::assert_matrix`
+    (copied: that module imports the JAX package, which the card's machine
+    does not have): a value is invalid only if rel-diff > 1e-4 AND abs-diff
+    > 1e-7; fail only if the mean rel-diff over the invalid values >
+    rel_tolerance AND > 1% of the values are invalid."""
+    mat, gt = np.asarray(mat, np.float64), np.asarray(gt, np.float64)
+    assert mat.shape == gt.shape, f"{name}: shape {mat.shape} vs {gt.shape}"
+    diff_abs = np.abs(mat - gt)
+    diff_rel = np.nan_to_num(diff_abs / np.abs(gt + 1e-9))
+    invalid = np.logical_and(diff_rel > 1e-4, diff_abs > 1e-7)
+    rate = invalid.mean()
+    avg = diff_rel[invalid].mean() if invalid.any() else 0.0
+    assert avg <= rel_tolerance or rate <= 1e-2, (
+        f"{name}: avg rel-diff {avg:.6f} over {rate * 100:.2f}% invalid values")
+
+
+@pytest.mark.cuda
+def test_f32_xla_layer_on_the_card_matches_the_cpu_under_torch_defaults():
+    # torch's own TF32 defaults (cuDNN convs may use TF32, matmuls not): the
+    # layer's precision='highest' must keep its convs in f32 by itself. The
+    # CPU has no TF32, so the same layer there is the f32 reference.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            layer = DAUConv2d(16, 40, (2, 1), 9, engine="xla", dau_sigma_trainable=True,
+                              device=dev, generator=torch.Generator().manual_seed(0))
+            assert layer.cfg.precision == "highest"
+            gen = torch.Generator().manual_seed(1)
+            x = torch.rand((2, 16, 15, 17), generator=gen).to(dev).requires_grad_()
+            err = torch.randn((2, 40, 15, 17), generator=gen).to(dev)
+            y = layer(x)
+            (y * err).sum().backward()
+            out[dev] = {"y": y.detach(), "x": x.grad,
+                        **{k: p.grad for k, p in layer.named_parameters()}}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    for name, want in out["cpu"].items():
+        got = out["cuda"][name].cpu()
+        _assert_matrix(got.numpy(), want.numpy(), name)
+        # and the file's f32 bound, which TF32 (a 10-bit mantissa) breaks
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
