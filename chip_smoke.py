@@ -11,8 +11,8 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    partial iDFT, K3 the fused apply-phi), and print their registers and
    spills (ks=9; K1 and K8 at M=3, G=2); count the tensor-core
    instructions (HGMMA, HMMA) and TMA loads (UTMALDG) in the SASS of the
-   K4, K6 and K7 libraries (`cuobjdump -sass`) and fail if any has none of
-   either;
+   K5, K4, K6 and K7 libraries (`cuobjdump -sass`) and fail if any has none
+   of either;
 2. kernel vs twin: `dau_forward_fused` against `dau_forward_fused_plain` at
    the four AlexNet-DAU layer shapes (N=4) in f32 (TF32 off, bound
    1e-4*max|y|) and bf16 (twin in f32 on the same bf16 values, bound
@@ -24,8 +24,12 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    DAU layer) per request and the logits must be finite;
 4. reference: the same weights in f32, through the kernel and through the
    plain twins, must agree within 1e-3*max|logits|;
-5. timing: CUDA-event times of each layer's kernel and twin at N=32, and of
-   a whole request through either, beside the card's name and power limit;
+5. timing: CUDA-event times of each layer's kernel (its operand building
+   timed apart) and twin at N=32, beside the two-call library chain (a bf16
+   depthwise `conv2d` blur with groups=S, then a bf16 `conv2d` with the
+   synthesized K, synthesized beforehand), the 4*G-tap bound and the dense
+   ks^2-tap GEMM at the bf16 peak; and of a whole request through either,
+   beside the card's name and power limit;
 6. backward kernels vs twins at the four layer shapes (N=4), f32 and bf16:
    K6 with M=3 (bound 1e-4*max|table| in both: bf16 products are exact in
    f32, so only the order of the f32 sums differs; f32 input goes through
@@ -45,7 +49,7 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    agree within 1e-3*max|grad| of that tensor;
 9. timing: per-layer K6, K4 (forward and dx shapes) and dx-shape K5
    against their twins (and, where one PyTorch call computes the same
-   function, that call) at N=32 bf16; K6 summed over the layers and K4
+   function, that call; for K5 the two-call chain of phase 5) at N=32 bf16; K6 summed over the layers and K4
    over the 8 launches of a `pallas` step, each with its wrapper's operand
    building (K4: synthesis and layout) timed apart, and K4 beside both its
    bounds: the 4*G-tap work its inputs need and the dense 81-tap GEMM it
@@ -142,7 +146,7 @@ from dau_convnet_tpu_torch.ops import fourier_engine as fe  # noqa: E402
 from dau_convnet_tpu_torch.ops import xla_engine  # noqa: E402
 from dau_convnet_tpu_torch.parallel import make_train_step  # noqa: E402
 
-KERNEL = dict(name="dau_forward_fused", route="cuda",
+KERNEL = dict(name="dau_forward_fused (K5: blur warps + TMA + wgmma)", route="cuda",
               source="dau_convnet_tpu_torch/kernels/csrc/dau_forward_fused.cu",
               replaces="dau_convnet_tpu/kernels/forward.py:266")
 KERNEL_K6 = dict(name="grad_tables", route="cuda",
@@ -644,16 +648,44 @@ def _tensor_core_count(lib):
         raise AssertionError(f"{lib}: no TMA load in the SASS")
 
 
-def _dense_work(n, s, f, hw, x_bytes, blur: bool):
-    """(operations, bytes) of K5 (blur=True) or K4 at a layer shape: the 4*G
-    bilinear taps per (s, f, pixel), plus the 9x9 blur per (s, pixel) for
-    K5; x, the three (S, G, F) parameter tensors and the output in bf16."""
-    ops = 2 * 4 * G * s * f * hw * hw * n + (2 * 81 * s * hw * hw * n if blur else 0)
+def _dense_work(n, s, f, hw, x_bytes, kb: int = 0):
+    """(operations, bytes) of K5 (blur filter kb x kb) or K4 (kb=0) at a
+    layer shape: the 4*G bilinear taps per (s, f, pixel), plus the kb x kb
+    blur per (s, pixel) for K5; x, the three (S, G, F) parameter tensors and
+    the output in bf16."""
+    ops = 2 * 4 * G * s * f * hw * hw * n + 2 * kb * kb * s * hw * hw * n
     return ops, x_bytes + 3 * s * G * f * 2 + n * f * hw * hw * 2
 
 
+def time_k5(x, w, mu1, mu2, filt, ks, bound):
+    """K5 at one shape (bf16): (wrapper ms, its operand building ms, twin
+    ms, two-call library chain ms, bound ms added to `bound`, dense
+    ks^2-tap GEMM at the bf16 peak ms). The chain is a bf16 depthwise
+    `conv2d` blur (groups=S) and a bf16 `conv2d` with the synthesized K,
+    synthesized beforehand."""
+    n, s, hw, _ = x.shape
+    f, kb = w.shape[-1], filt.shape[-1]
+    t_k = _cuda_ms(lambda: kfwd.dau_forward_fused(x, w, mu1, mu2, filt, ks))
+    t_o = _cuda_ms(lambda: kfwd.fused_forward_operands(x, w, mu1, mu2, filt, ks))
+    t_p = _cuda_ms(lambda: kfwd.dau_forward_fused_plain(x, w, mu1, mu2, filt, ks))
+    blur = filt.to(x.dtype).expand(s, 1, kb, kb).contiguous()
+    kern = xla_engine.synthesize_kernel(w, mu1, mu2, ks).transpose(0, 1).contiguous()
+    conv = torch.nn.functional.conv2d
+    t_l = _cuda_ms(lambda: conv(conv(x, blur, padding=kb // 2, groups=s), kern, padding=ks // 2))
+    bd = bound.add(*_dense_work(n, s, f, hw, _nbytes(x), kb))
+    peak = 2 * ks * ks * s * f * hw * hw * n / PEAK_BF16 * 1e3
+    return t_k, t_o, t_p, t_l, bd, peak
+
+
+def _k5_line(t):
+    t_k, t_o, t_p, t_l, bd, peak = t
+    return (f"kernel {t_k:.3f} ms (operand building {t_o:.3f} ms), plain {t_p:.3f} ms, "
+            f"library chain {t_l:.3f} ms, bound {bd:.4f} ms (4*G taps), dense GEMM at peak "
+            f"{peak:.4f} ms")
+
+
 # kernel-name fragments -> the breakdown's categories, first match wins
-CATEGORIES = (("K5 dau_forward_kernel", ("dau_forward_kernel",)),
+CATEGORIES = (("K5 fused_forward_kernel", ("fused_forward_kernel",)),
               ("K4 aggregate_kernel", ("aggregate_kernel",)),
               ("K6 grad_tables_kernel", ("grad_tables_kernel",)),
               ("K1/K2 spectral_grads_kernel", ("spectral_grads_kernel",)),
@@ -964,7 +996,7 @@ def main(argv=None) -> int:
     build(LIBRARIES)
     print(f"build: {', '.join(LIBRARIES)} (.cu) for sm_90a, one nvcc each, "
           f"{time.perf_counter() - t0:.1f} s; ptxas:")
-    _ptxas("dau_forward_fused", ["Li9E"])
+    _ptxas("dau_forward_fused", ["fused_forward_kernel"])
     _ptxas("dau_aggregate", ["aggregate_kernel"])
     _ptxas("dau_grad_tables", ["grad_tables_kernel"])
     _ptxas("dau_spectral_grads", ["spectral_grads_kernel", "Li3ELi2E"])
@@ -972,7 +1004,7 @@ def main(argv=None) -> int:
     _ptxas("dau_factored_grads", ["factored_grads_kernel", "Li3ELi2E"])
     _ptxas("dau_partial_idft", ["partial_idft_kernel"])
     _ptxas("dau_apply_phi", ["apply_phi_kernel"])
-    for lib in ("dau_aggregate", "dau_grad_tables", "dau_partial_idft"):
+    for lib in ("dau_forward_fused", "dau_aggregate", "dau_grad_tables", "dau_partial_idft"):
         _tensor_core_count(lib)
 
     # 2. kernel vs twin
@@ -1019,22 +1051,25 @@ def main(argv=None) -> int:
         raise AssertionError("f32 kernel path disagrees with the plain path")
 
     # 5. timing
-    kernel_ms = plain_ms = 0.0
+    k5 = [0.0] * 6  # bf16 forward sums: wrapper, operands, twin, chain, bound, dense peak
     k5_bound = Bounds()
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
             for name, s, f, hw in LAYERS:
                 x, w, mu1, mu2 = _layer_inputs(gen, BATCH, s, f, hw, dtype, dev)
+                gflops = 2 * ks * ks * s * f * hw * hw * BATCH / 1e9
+                if dtype == torch.bfloat16:
+                    t = time_k5(x, w, mu1, mu2, filt, ks, k5_bound)
+                    k5 = [a + b for a, b in zip(k5, t)]
+                    print(f"layer {name} K5 {s}->{f} N={BATCH} bf16: {_k5_line(t)}, "
+                          f"{gflops / t[0]:.1f} TFLOP/s dense [{card}]")
+                    continue
                 t_k = _cuda_ms(lambda: kfwd.dau_forward_fused(x, w, mu1, mu2, filt, ks))
                 t_p = _cuda_ms(lambda: kfwd.dau_forward_fused_plain(x, w, mu1, mu2, filt, ks))
-                gflops = 2 * ks * ks * s * f * hw * hw * BATCH / 1e9
-                extra = ""
-                if dtype == torch.bfloat16:
-                    kernel_ms += t_k
-                    plain_ms += t_p
-                    extra = f", bound {k5_bound.add(*_dense_work(BATCH, s, f, hw, _nbytes(x), True)):.4f} ms"
-                print(f"layer {name} N={BATCH} {str(dtype)[6:]}: kernel {t_k:.3f} ms "
-                      f"({gflops / t_k:.1f} TFLOP/s dense), plain {t_p:.3f} ms{extra} [{card}]")
+                print(f"layer {name} K5 {s}->{f} N={BATCH} f32: kernel {t_k:.3f} ms "
+                      f"({gflops / t_k:.1f} TFLOP/s dense), plain {t_p:.3f} ms [{card}]")
+        print(f"K5 over the 4 launches of a pallas_fused request N={BATCH} bf16: "
+              f"{_k5_line(k5)} [{card}]")
         for m, tag in ((model, "bf16"), (ref_model, "f32")):
             t_k = _cuda_ms(lambda: m(requests[0]), iters=5)
             with plain_twin():
@@ -1061,7 +1096,8 @@ def main(argv=None) -> int:
     # 9. timing of the backward kernels and the training step
     k6_ms = k6_ops = k6_plain = k6_lib = k4_ops = k4_plain = k4_lib = k4_peak = 0.0
     k4_ms = {"forward": 0.0, "dx": 0.0}
-    k6_bound, k4_bound = Bounds(), Bounds()
+    k6_bound, k4_bound, k5dx_bound = Bounds(), Bounds(), Bounds()
+    k5dx = [0.0] * 6
     error_filt = gaussian_filters(0.5, size=9, device=dev)["error"]
     for name, s, f, hw in LAYERS:
         xb, err = _tables_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
@@ -1094,7 +1130,7 @@ def main(argv=None) -> int:
             # the synthesized kernel (synthesized beforehand)
             kern = xla_engine.synthesize_kernel(*args4[1:], ks).transpose(0, 1).contiguous()
             t_l = _cuda_ms(lambda: torch.nn.functional.conv2d(args4[0], kern, padding=ks // 2))
-            bd = k4_bound.add(*_dense_work(BATCH, s_in, f_out, hw, _nbytes(args4[0]), False))
+            bd = k4_bound.add(*_dense_work(BATCH, s_in, f_out, hw, _nbytes(args4[0])))
             # the dense ks^2-tap GEMM the kernel executes, at the bf16 peak
             dense = 2 * ks * ks * s_in * f_out * hw * hw * BATCH
             peak = dense / PEAK_BF16 * 1e3
@@ -1105,10 +1141,9 @@ def main(argv=None) -> int:
             k4_ms[way] += t_k
             k4_ops, k4_plain, k4_lib, k4_peak = (k4_ops + t_o, k4_plain + t_p, k4_lib + t_l,
                                                  k4_peak + peak)
-        t_k = _cuda_ms(lambda: kfwd.dau_forward_fused(e, wt, m1, m2, error_filt, ks))
-        t_p = _cuda_ms(lambda: kfwd.dau_forward_fused_plain(e, wt, m1, m2, error_filt, ks))
-        print(f"layer {name} K5 dx {f}->{s} N={BATCH} bf16: kernel {t_k:.3f} ms, "
-              f"plain {t_p:.3f} ms [{card}]")
+        t = time_k5(e, wt, m1, m2, error_filt, ks, k5dx_bound)
+        k5dx = [a + b for a, b in zip(k5dx, t)]
+        print(f"layer {name} K5 dx {f}->{s} N={BATCH} bf16: {_k5_line(t)} [{card}]")
     del xb, err, lhs, rhs, x, e, kern
     print(f"K6 over the four layers N={BATCH} M={M} bf16: kernel {k6_ms:.3f} ms (its operand "
           f"copies {k6_ops:.3f} ms), bound {k6_bound.ms:.4f} ms ({k6_bound.bound_by}), conv2d "
@@ -1119,6 +1154,9 @@ def main(argv=None) -> int:
           f"{k4_ms['dx']:.3f}; operand building {k4_ops:.3f}), conv2d {k4_lib:.3f} ms, plain "
           f"{k4_plain:.3f} ms, bound {k4_bound.ms:.4f} ms ({k4_bound.bound_by}; 4*G taps), "
           f"dense 81-tap GEMM at the bf16 peak {k4_peak:.4f} ms [{card}]")
+    print(f"K5 over the 4 dx launches of a pallas_fused step N={BATCH} bf16: "
+          f"{_k5_line(k5dx)}; with the forward four, 8 launches: kernel "
+          f"{k5[0] + k5dx[0]:.3f} ms, library chain {k5[3] + k5dx[3]:.3f} ms [{card}]")
 
     # 10. K1/K2 vs twin
     worst_spec = compare_spectral(gen, dev)
@@ -1224,8 +1262,8 @@ def main(argv=None) -> int:
     launches_k8dx = runs["fourier factored fused_dx"][1][6]
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=launches_k5, max_abs_err=max(worst, worst_bwd["k5dx"]),
-             ms=kernel_ms, plain_ms=plain_ms, bound_ms=k5_bound.ms,
-             bound_by=k5_bound.bound_by, library_ms=None),
+             ms=k5[0], plain_ms=k5[2], bound_ms=k5_bound.ms,
+             bound_by=k5_bound.bound_by, library_ms=k5[3]),
         dict(KERNEL_K6, launches=launches_k6, max_abs_err=worst_bwd["k6"],
              ms=k6_ms, plain_ms=k6_plain, bound_ms=k6_bound.ms, bound_by=k6_bound.bound_by,
              library_ms=k6_lib),

@@ -31,10 +31,12 @@ import torch
 
 from ..ops import xla_engine
 from ._build import load_library
-from .forward import _DTYPE_CODE, _KERNEL_SIZES, chunk_major, split_bf16
+from .forward import _DTYPE_CODE, chunk_major, split_bf16
 
 __all__ = ["grad_tables", "grad_tables_plain", "grad_tables_operands", "chunk_major",
            "table_view"]
+
+_KERNEL_SIZES = (3, 5, 7, 9, 11, 13, 15, 17)  # the ks the wrapper accepts
 
 
 def grad_tables_plain(x_blur_k, err, ks: int):

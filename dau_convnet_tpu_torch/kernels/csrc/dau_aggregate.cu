@@ -47,69 +47,17 @@
 // useful at 13x13, 77% at 27x27, before the tile's round-up), and every
 // block streams its 64-channel F tile of K once: 81 * S * 128 bytes (conv4:
 // 4 MB per block, from L2).
+// The consumer side, the K producer and the plan live in dau_aggregate.cuh,
+// which K5 (dau_forward_fused.cu) shares; what is K4's own is the window's
+// TMA load.
 
-#include "dau_hopper_gemm.cuh"
+#include "dau_aggregate.cuh"
 
 namespace {
 
-using namespace dau_hopper;
+using namespace dau_agg;
 
-constexpr int FB = 64;                 // output channels per block: the wgmma M
-constexpr int NP = 136;                // flat positions per warpgroup: the wgmma N
-constexpr int CONSUMERS = 2;           // warpgroups
-constexpr int QB = CONSUMERS * NP;     // flat positions per block
-constexpr int SG = 64;                 // input channels per window: one 128-byte K row
-constexpr int STAGES = 6;
-// taps summed on the tensor cores between folds: the bf16 output rounds
-// away what 27 taps drift; the f32 path, whose output feeds ReLUs and
-// max-pools in an f32 training step, folds every 3
-constexpr int FOLD_BF16 = 27;
-constexpr int FOLD_F32 = 3;
 constexpr int THREADS = CONSUMERS * 128 + 32;
-constexpr uint32_t A_BYTES = FB * SG * 2;
-constexpr size_t MAX_SMEM = 232448;    // 227 KB per block
-
-__host__ __device__ constexpr uint32_t round128(uint32_t v) { return (v + 127) / 128 * 128; }
-
-// The staged window of a launch: padded rows per window, the bytes of one
-// chunk (a flat plane of rows x Wp pixels) and of a window (8 chunks), the
-// windows in flight and the dynamic shared memory. smem = 0: no plan.
-struct Plan {
-  int wp, tiles, rows, nxb;
-  uint32_t plane, window;
-  size_t smem;
-};
-
-inline size_t smem_for(int nxb, uint32_t window) {
-  return 1024 + STAGES * A_BYTES + nxb * round128(window) + sizeof(Ring<STAGES>) + 4 * 8;
-}
-
-inline Plan make_plan(int H, int W, int ks) {
-  Plan p{};
-  p.wp = W + ks - 1;
-  const int flat = (H - 1) * p.wp + W;  // the output positions a block may own
-  p.tiles = (flat + QB - 1) / QB;
-  for (int t = 0; t < p.tiles; ++t) {
-    const int off = (t * QB) % p.wp;  // the tile's first column in its first row
-    const int rows = (off + QB + (ks - 1) * (p.wp + 1) + p.wp - 1) / p.wp;
-    p.rows = rows > p.rows ? rows : p.rows;
-  }
-  p.plane = (uint32_t)p.rows * p.wp * 16;
-  p.window = 8 * p.plane;
-  if (p.wp > 256 || p.rows > 256) return p;  // a TMA box side holds at most 256
-  for (p.nxb = 2; p.nxb >= 1; --p.nxb)
-    if (smem_for(p.nxb, p.window) <= MAX_SMEM) {
-      p.smem = smem_for(p.nxb, p.window);
-      return p;
-    }
-  p.nxb = 0;
-  return p;
-}
-
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 template <typename Tout>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -133,8 +81,6 @@ aggregate_kernel(const __grid_constant__ CUtensorMap k_map,
   const int n = blockIdx.z;
   const int r0 = q0 / wp;        // the first padded row the window holds
   const int off = q0 - r0 * wp;  // q0's pixel in the window
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
@@ -145,8 +91,8 @@ aggregate_kernel(const __grid_constant__ CUtensorMap k_map,
   }
   __syncthreads();
 
-  if (warp == 4 * CONSUMERS) {  // the producer warp
-    if (lane == 0) {
+  if (threadIdx.x / 32 == 4 * CONSUMERS) {  // the producer warp
+    if (threadIdx.x % 32 == 0) {
       auto load_window = [&](int g) {
         const int slot = g % nxb;
         mbar_wait(&xempty[slot], ((g / nxb) & 1) ^ 1);
@@ -154,94 +100,18 @@ aggregate_kernel(const __grid_constant__ CUtensorMap k_map,
         tma_load_5d(xb + slot * window, &xb_map, &xfull[slot], 0, -c, r0 - c, n, g * 8);
       };
       // with two windows, window g + 1 is loaded during group g, once the
-      // consumers have passed group g's first tap (and so freed window g - 1)
-      const int prefetch_at = min(STAGES, taps - 1);
-      RingPos<STAGES> pos;
+      // consumers have passed group g's first tap (and so freed window g - 1);
+      // with one, after group g's last K tile is issued
+      const int prefetch_at = nxb == 2 ? min(STAGES, taps - 1) : taps - 1;
       load_window(0);
-      for (int g = 0; g < groups; ++g) {
-        if (nxb == 1 && g > 0) load_window(g);
-        for (int p = 0; p < taps; ++p) {
-          uint64_t* full = pos.acquire(ring, A_BYTES);
-          tma_load_3d(a + pos.stage * A_BYTES, &k_map, full, g * SG, f0, p);
-          pos.next();
-          if (nxb == 2 && p == prefetch_at && g + 1 < groups) load_window(g + 1);
-        }
-      }
+      produce_k(a, ring, &k_map, groups, taps, f0, [&](int g, int p) {
+        if (p == prefetch_at && g + 1 < groups) load_window(g + 1);
+      });
     }
     return;
   }
-
-  constexpr int fold = sizeof(Tout) == 4 ? FOLD_F32 : FOLD_BF16;
-  const int wg = warp / 4;
-  float acc[NP / 2];  // the wgmmas' sums since the last fold
-  float sum[NP / 2];  // the folded sums
-#pragma unroll
-  for (int v = 0; v < NP / 2; ++v) acc[v] = sum[v] = 0.f;
-
-  RingPos<STAGES> pos;
-  int pending = -1;  // the K stage whose wgmmas may still be reading it
-  for (int g = 0; g < groups; ++g) {
-    const int slot = g % nxb;
-    mbar_wait(&xfull[slot], (g / nxb) & 1);
-    __syncwarp();
-    const int ksteps = min(SG, S8 - g * SG + 15) / 16;  // k16 steps with channels left
-    // the warpgroup's first flat position; chunk pairs 2*plane apart
-    const uint64_t db0 =
-        make_desc(xb + slot * window + 16 * (off + wg * NP), plane, 128, kNoSwizzle);
-    for (int p = 0; p < taps; ++p) {
-      const int ky = p / ks;
-      const uint64_t db = desc_advance(db0, 16 * (ky * wp + p - ky * ks));
-      pos.wait_full(ring);
-      const uint64_t da = make_desc(a + pos.stage * A_BYTES, 16, 1024, kSwizzle128);
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < SG / 16; ++kk)
-        if (kk < ksteps)
-          wgmma_m64n136<0, 0>(acc, desc_advance(da, 32 * kk), desc_advance(db, 2 * plane * kk));
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous group is done
-      fence_regs(acc);
-      if (pending >= 0) mbar_arrive(&ring.empty[pending]);
-      pending = pos.stage;
-      pos.next();
-      if ((p + 1) % fold == 0 || p + 1 == taps) {
-        // the tensor cores round each running f32 sum toward zero, a bias
-        // that grows with the number of k16 steps summed into it: every
-        // `fold` taps the partial sums are added into `sum` on the FMA
-        // units (rounded to nearest) and restarted from zero
-        wgmma_wait<0>();
-        fence_regs(acc);
-        mbar_arrive(&ring.empty[pending]);
-        pending = -1;
-#pragma unroll
-        for (int v = 0; v < NP / 2; ++v) {
-          sum[v] += acc[v];
-          acc[v] = 0.f;
-        }
-      }
-    }
-    mbar_arrive(&xempty[slot]);  // the fold at the last tap waited for every wgmma on it
-  }
-
-  // sum[4j + 2h + e]: channel frow + 8h, flat position qb + 8j + 2*(lane%4) + e
-  const int frow = f0 + (warp % 4) * 16 + lane / 4;
-  const int qb = q0 + wg * NP;
-#pragma unroll
-  for (int j = 0; j < NP / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int q = qb + 8 * j + 2 * (lane % 4) + e;
-      const int i = q / wp;
-      const int jj = q - i * wp;
-      if (i >= H || jj >= W) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int f = frow + 8 * h;
-        if (f < F) store_out(out + (((size_t)n * F + f) * H + i) * W + jj, sum[4 * j + 2 * h + e]);
-      }
-    }
-  }
+  consume<Tout>(a, xb, window, plane, ring, xfull, xempty, out, F, S8, H, W, ks, wp, nxb, f0,
+                q0, n, off);
 }
 
 template <typename Tout>
@@ -278,10 +148,7 @@ int dau_aggregate_launch(const void* xb_t, const void* kern, void* out, int dtyp
   const Plan p = make_plan(H, W, ks);
   if (p.smem == 0) return (int)cudaErrorInvalidValue;
   CUtensorMap k_map, xb_map;
-  const cuuint64_t k_dims[3] = {(cuuint64_t)S8, (cuuint64_t)F, (cuuint64_t)ks * ks};
-  const cuuint64_t k_strides[2] = {(cuuint64_t)S8 * 2, (cuuint64_t)F * S8 * 2};
-  const cuuint32_t k_box[3] = {SG, FB, 1};
-  cudaError_t e = make_map(&k_map, kern, 3, k_dims, k_strides, k_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  cudaError_t e = make_k_map(&k_map, kern, S8, F, ks);
   if (e != cudaSuccess) return (int)e;
   const cuuint64_t x_dims[5] = {8, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N,
                                 (cuuint64_t)S8 / 8};

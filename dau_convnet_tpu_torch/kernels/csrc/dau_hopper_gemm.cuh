@@ -1,14 +1,17 @@
 // Hopper (sm_90a) GEMM building blocks shared by the tensor-core kernels K4
-// (dau_aggregate.cu), K6 (dau_grad_tables.cu) and K7 (dau_partial_idft.cu).
+// (dau_aggregate.cu), K5 (dau_forward_fused.cu), K6 (dau_grad_tables.cu) and
+// K7 (dau_partial_idft.cu).
 //
-//   - host: bf16 TMA tensor maps through cuTensorMapEncodeTiled, which is
-//     taken from the driver with cudaGetDriverEntryPoint(ByVersion), so the
-//     libraries need no -lcuda;
+//   - host: TMA tensor maps (bf16; f32 for K5's raw input) through
+//     cuTensorMapEncodeTiled, which is taken from the driver with
+//     cudaGetDriverEntryPoint(ByVersion), so the libraries need no -lcuda;
 //   - device: mbarrier init / arrive / expect-tx / wait (the wait traps after
 //     ~2^32 cycles instead of hanging the card), TMA tile loads into shared
 //     memory, wgmma shared-memory descriptors, the wgmma fence / commit /
-//     wait, and m64nNk16 bf16 products with f32 sums;
-//   - the pipeline skeleton both kernels use: a `Ring` of STAGES shared-memory
+//     wait, and m64nNk16 bf16 products with f32 sums; for a cluster of blocks
+//     (K5), the block's rank, shared::cluster addresses, stores and barrier
+//     arrives in the peer block, and the cluster barrier;
+//   - the pipeline skeleton the kernels use: a `Ring` of STAGES shared-memory
 //     stages, each with a "full" barrier (armed by the producer with the
 //     stage's byte count, completed by TMA) and an "empty" barrier (one
 //     arrive per consumer thread once its wgmmas on the stage are done).
@@ -67,16 +70,18 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions, innermost first: dims, the byte
-// strides of dims 1 .. rank-1, the box copied per load. Coordinates outside
-// the tensor (negative ones included) read as zeros.
+// A tensor map (bf16 unless `type` says otherwise) of `rank` dimensions,
+// innermost first: dims, the byte strides of dims 1 .. rank-1, the box
+// copied per load. Coordinates outside the tensor (negative ones included)
+// read as zeros.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                             const cuuint64_t* strides, const cuuint32_t* box,
-                            CUtensorMapSwizzle swizzle) {
+                            CUtensorMapSwizzle swizzle,
+                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
+  CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base),
                   dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -123,19 +128,31 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
 }
 
-// Waits until the barrier's phase of the given parity has completed.
+// Waits until the barrier's phase of the given parity has completed;
+// kCluster: with acquire at cluster scope, for data another block of the
+// cluster wrote before arriving.
+template <bool kCluster = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   long long start = 0;
   while (true) {
     uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
+    if constexpr (kCluster)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
     if (done) return;
     if (start == 0) {
       start = clock64();
@@ -143,6 +160,42 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       __trap();  // a lost phase: fail the launch instead of hanging the card
     }
   }
+}
+
+// ------------------------------------------------------------- clusters
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// block of rank `rank`.
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Arrives on a barrier in another block of the cluster, releasing this
+// thread's earlier writes at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(addr)
+               : "memory");
+}
+
+// Every thread of every block of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;" ::
+                   : "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,

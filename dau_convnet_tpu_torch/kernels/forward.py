@@ -5,19 +5,24 @@ Counterpart of `dau_convnet_tpu/kernels/forward.py`:
   with the blur valid only inside the image; CUDA source
   `csrc/dau_forward_fused.cu`, twin `dau_forward_fused_plain`;
 - `aggregate_forward` (K4, `aggregate_forward_pallas`): the same aggregation
-  on an input blurred beforehand; CUDA source `csrc/dau_aggregate.cu` (+
-  `csrc/dau_hopper_gemm.cuh`), twin `aggregate_forward_plain`.
+  on an input blurred beforehand; CUDA source `csrc/dau_aggregate.cu`, twin
+  `aggregate_forward_plain`.
 Each wrapper launches its kernel on a CUDA tensor and calls its twin on a
 CPU tensor. There is no fallback: on a CUDA tensor the kernel runs or the
 call raises.
 
-Both return the input's dtype. The synthesized aggregation kernel K is
-built with plain torch ops outside the kernel, in w's dtype, as the JAX
-wrappers do. K5 widens it to f32 and sums f32 products on the FMA units
-(`csrc/dau_forward.cuh`). K4 multiplies bf16 operands on the tensor cores
-with f32 sums: `aggregate_forward_operands` lays K out as (ks*ks, F, S8)
-bf16 and xb chunk-major (`chunk_major`), f32 input split into three bf16
-parts stacked along the channels (`split_bf16_3`).
+Both kernels run one mainloop (`csrc/dau_aggregate.cuh`): the ks*ks taps as
+shifted windows of a flat padded plane staged in shared memory, bf16
+products on the tensor cores with f32 sums, and return the input's dtype.
+Their wrappers build the same K operand (`aggregate_kernel_operand`): the
+synthesized aggregation kernel (`synthesize_kernel_pfs`, in w's dtype, as
+the JAX wrappers build it) as (ks*ks, F, S8) bf16, split in three
+(`split_bf16_3`) and stacked six ways along the channels for f32 input. K4
+stages a pre-blurred plane laid out chunk-major by its wrapper
+(`aggregate_forward_operands`); K5 takes a chunk-major copy of raw x
+(`fused_forward_operands`) and blurs it in f32 into the staged plane
+itself, rounding the blurred values once to bf16 (bf16 x) or splitting them
+in three (f32 x) as K4's wrapper does.
 """
 
 from __future__ import annotations
@@ -33,15 +38,11 @@ from ..ops.gaussian import depthwise_blur
 from ._build import load_library
 
 __all__ = ["dau_forward_fused", "dau_forward_fused_plain", "aggregate_forward",
-           "aggregate_forward_plain", "aggregate_forward_operands", "chunk_major",
-           "split_bf16", "split_bf16_3"]
+           "aggregate_forward_plain", "aggregate_forward_operands", "aggregate_kernel_operand",
+           "fused_forward_operands", "chunk_major", "split_bf16", "split_bf16_3"]
 
-_F_TILE = 32        # output channels per block (a multiple of the 8 per thread)
-_COLS_PER_THREAD = 4
-_MAX_PIXEL_GROUPS = 64  # rows * column groups per block: 4 * 64 = 256 threads
 _MAX_SMEM = 227 * 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_SIZES = (3, 5, 7, 9, 11, 13, 15, 17)
 
 
 def split_bf16(t):
@@ -101,18 +102,6 @@ def aggregate_forward_plain(x_blur, w, mu1, mu2, ks: int,
     return y.to(x_blur.dtype)
 
 
-def _launch_plan(h: int, w: int):
-    """(rows per block, column groups, threads) for an H x W output plane:
-    each thread covers 8 channels x 4 consecutive columns of one row."""
-    cg = -(-w // _COLS_PER_THREAD)
-    if cg > _MAX_PIXEL_GROUPS:
-        raise ValueError(f"width {w} exceeds the kernel's "
-                         f"{_MAX_PIXEL_GROUPS * _COLS_PER_THREAD} columns")
-    rt = min(h, _MAX_PIXEL_GROUPS // cg)
-    threads = (_F_TILE // 8) * rt * cg
-    return rt, cg, -(-threads // 32) * 32
-
-
 def _check(x, w, mu1, mu2, blur_filter, ks):
     """Validate the arguments of either kernel (blur_filter None for K4)."""
     if x.dim() != 4:
@@ -135,27 +124,6 @@ def _check(x, w, mu1, mu2, blur_filter, ks):
     for name, t in tensors:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-
-
-def _check_cuda(name: str, x, ks: int):
-    """Raise unless x is a contiguous CUDA tensor and ks has an instance."""
-    if x.device.type != "cuda":
-        raise RuntimeError(f"{name} has no kernel for device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    if ks not in _KERNEL_SIZES:
-        raise ValueError(f"ks={ks} has no kernel instance (built: {_KERNEL_SIZES})")
-
-
-def _padded_kernel(w, mu1, mu2, ks: int, use_interpolation: bool):
-    """K from `synthesize_kernel` in w's dtype, widened to f32 and laid out
-    (S, ks*ks, fk) for K5, with F padded by zeros to fk, a whole number of
-    F tiles."""
-    s, _, f = w.shape
-    kern = xla_engine.synthesize_kernel(w, mu1, mu2, ks, use_interpolation)
-    fk = -(-f // _F_TILE) * _F_TILE
-    kern = F.pad(kern.float().reshape(s, f, ks * ks).transpose(1, 2), (0, fk - f))
-    return kern.contiguous(), fk
 
 
 def synthesize_kernel_pfs(w, mu1, mu2, ks: int, use_interpolation: bool = True,
@@ -205,62 +173,90 @@ def synthesize_kernel_pfs(w, mu1, mu2, ks: int, use_interpolation: bool = True,
     return out[:p2]
 
 
+def aggregate_kernel_operand(w, mu1, mu2, ks: int, use_interpolation: bool = True,
+                             dtype=torch.bfloat16):
+    """The K operand of K4 and K5 for input of `dtype`: K from
+    `synthesize_kernel_pfs` (in w's dtype) as (ks*ks, F, S8) bf16,
+    position-major, s innermost. bf16 input takes K rounded to bf16 (exact
+    where w is bf16), S8 = S rounded up to 8. f32 input takes K split in
+    three (`split_bf16_3`) and stacked along the channels as [K1, K2, K1, K3,
+    K2, K1] against the input's [x1, x1, x2, x1, x2, x3]; S8 is 6S rounded
+    up to 8. The channels past the stack are zero."""
+    s = w.shape[0]
+    if dtype != torch.float32:
+        kern = synthesize_kernel_pfs(w, mu1, mu2, ks, use_interpolation, s_out=-(-s // 8) * 8)
+        return kern.to(torch.bfloat16)
+    k1, k2, k3 = split_bf16_3(synthesize_kernel_pfs(w, mu1, mu2, ks, use_interpolation))
+    return F.pad(torch.cat([k1, k2, k1, k3, k2, k1], dim=-1), (0, -6 * s % 8))
+
+
 def aggregate_forward_operands(x_blur, w, mu1, mu2, ks: int,
                                use_interpolation: bool = True):
     """K4's operands: (xb_t, kern_t), bf16.
 
-    kern_t: K from `synthesize_kernel_pfs` (in w's dtype) as (ks*ks, F,
-    S8), position-major, s innermost; xb_t: x_blur chunk-major, (S8/8, N, H,
-    W*8) (`chunk_major`). bf16 x_blur takes K rounded to bf16 (exact where
-    w is bf16). f32 x_blur and K are split in three (`split_bf16_3`) and
-    stacked along the channels, xb as [x1, x1, x2, x1, x2, x3] against K as
-    [K1, K2, K1, K3, K2, K1]; S8 is the stacked channel count (S or 6S)
-    rounded up to 8, the channels past it zero in both."""
-    s = w.shape[0]
+    kern_t: `aggregate_kernel_operand` for x_blur's dtype; xb_t: x_blur
+    chunk-major, (S8/8, N, H, W*8) (`chunk_major`), f32 x_blur split in
+    three (`split_bf16_3`) and stacked as [x1, x1, x2, x1, x2, x3] along the
+    channels, the channels past the stack zero."""
     x = x_blur.permute(0, 2, 3, 1)
+    kern_t = aggregate_kernel_operand(w, mu1, mu2, ks, use_interpolation, x_blur.dtype)
     if x_blur.dtype != torch.float32:
-        kern_t = synthesize_kernel_pfs(w, mu1, mu2, ks, use_interpolation, s_out=-(-s // 8) * 8)
-        return chunk_major(x.to(torch.bfloat16)), kern_t.to(torch.bfloat16)
-    kern = synthesize_kernel_pfs(w, mu1, mu2, ks, use_interpolation)
+        return chunk_major(x.to(torch.bfloat16)), kern_t
     x1, x2, x3 = split_bf16_3(x)
-    k1, k2, k3 = split_bf16_3(kern)
-    x = torch.cat([x1, x1, x2, x1, x2, x3], dim=-1)
-    kern_t = F.pad(torch.cat([k1, k2, k1, k3, k2, k1], dim=-1), (0, -6 * s % 8))
-    return chunk_major(x), kern_t
+    return chunk_major(torch.cat([x1, x1, x2, x1, x2, x3], dim=-1)), kern_t
+
+
+def fused_forward_operands(x, w, mu1, mu2, blur_filter, ks: int,
+                           use_interpolation: bool = True):
+    """K5's operands: (x_t, kern_t, filt). kern_t is K4's K operand
+    (`aggregate_kernel_operand`) for x's dtype; filt the (kb, kb) blur
+    filter in f32; x_t raw x chunk-major in its own dtype, (S8/8, N, H, W*8)
+    (`chunk_major`), its channels stacked as kern_t's: S for bf16 x, six
+    copies of x for f32 x, the channels past the stack zero. The kernel
+    blurs x_t in f32 and stages the blurred plane as K4's wrapper stages
+    x_blur: rounded to bf16, or split in three and stacked as [x1, x1, x2,
+    x1, x2, x3] against kern_t's [K1, K2, K1, K3, K2, K1]."""
+    kern_t = aggregate_kernel_operand(w, mu1, mu2, ks, use_interpolation, x.dtype)
+    xh = x.permute(0, 2, 3, 1)
+    if x.dtype == torch.float32:
+        xh = torch.cat([xh] * 6, dim=-1)
+    return chunk_major(xh), kern_t, blur_filter.float().contiguous()
 
 
 def dau_forward_fused(x, w, mu1, mu2, blur_filter, ks: int,
                       use_interpolation: bool = True):
     """Fully fused blur + aggregation. x: (N, S, H, W) -> (N, F, H, W).
 
-    On a CUDA tensor this launches the sm_90a kernel (one launch per call,
-    counted in `dau_forward_fused.launches`); on a CPU tensor it computes the
-    plain twin. Other devices raise.
+    On a CUDA tensor this launches the sm_90a tensor-core kernel (one launch
+    per call, counted in `dau_forward_fused.launches`; any odd ks and kb
+    whose staged window fits the shared memory); on a CPU tensor it computes
+    the plain twin. Other devices raise.
     """
     _check(x, w, mu1, mu2, blur_filter, ks)
     if x.device.type == "cpu":
         return dau_forward_fused_plain(x, w, mu1, mu2, blur_filter, ks,
                                        use_interpolation)
-    _check_cuda("dau_forward_fused", x, ks)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"dau_forward_fused has no kernel for device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
 
     n, s, h, wd = x.shape
     f = w.shape[-1]
-    kern, fk = _padded_kernel(w, mu1, mu2, ks, use_interpolation)
-    filt = blur_filter.float().contiguous()
-    kb = filt.shape[-1]
-    out = torch.empty((n, f, h, wd), dtype=x.dtype, device=x.device)
-
+    kb = blur_filter.shape[-1]
+    code = _DTYPE_CODE[x.dtype]
     lib = _library("dau_forward_fused")
-    rt, cg, threads = _launch_plan(h, wd)
-    smem = lib.dau_forward_fused_smem_bytes(ks, kb, _F_TILE, rt, cg)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"plan needs {smem} bytes of shared memory (> {_MAX_SMEM})")
+    if lib.dau_forward_fused_smem_bytes(h, wd, ks, kb, code) < 0:
+        raise ValueError(f"the staged window of a {h}x{wd} plane at ks={ks}, kb={kb} does not "
+                         f"fit the shared memory ({_MAX_SMEM} bytes)")
+    x_t, kern_t, filt = fused_forward_operands(x, w, mu1, mu2, blur_filter, ks,
+                                               use_interpolation)
+    out = torch.empty((n, f, h, wd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dau_forward_fused_launch(
-            x.data_ptr(), filt.data_ptr(), kern.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[x.dtype], n, s, f, fk, h, wd, kb, ks, _F_TILE, rt, cg,
-            threads, smem, stream)
+            x_t.data_ptr(), filt.data_ptr(), kern_t.data_ptr(), out.data_ptr(), code, n, s, f,
+            h, wd, ks, kb, kern_t.shape[-1], stream)
     if err != 0:
         raise RuntimeError(f"dau_forward_fused launch failed: cudaError {err}")
     dau_forward_fused.launches += 1
@@ -316,8 +312,7 @@ def _library(name: str) -> ctypes.CDLL:
     if name == "dau_forward_fused":
         lib.dau_forward_fused_smem_bytes.argtypes = [c_int] * 5
         lib.dau_forward_fused_smem_bytes.restype = c_ll
-        lib.dau_forward_fused_launch.argtypes = (
-            [c_ptr] * 4 + [c_int] * 13 + [c_ll, c_ptr])
+        lib.dau_forward_fused_launch.argtypes = [c_ptr] * 4 + [c_int] * 9 + [c_ptr]
         lib.dau_forward_fused_launch.restype = c_int
     else:
         lib.dau_aggregate_smem_bytes.argtypes = [c_int] * 3

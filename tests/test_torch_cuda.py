@@ -21,15 +21,15 @@ from dau_convnet_tpu_torch.kernels import spectral as tsp
 from dau_convnet_tpu_torch.nn import DAUConv2d
 from dau_convnet_tpu_torch.ops import fourier_engine as tfe
 from dau_convnet_tpu_torch.ops import xla_engine as tke
-from dau_convnet_tpu_torch.ops.gaussian import gaussian_filters
+from dau_convnet_tpu_torch.ops.gaussian import depthwise_blur, gaussian_filters
 
 KS = 9
 EDGE_MU = np.array([-3.99, 3.99, -3.0, 0.0, 2.0, 3.0, -0.5, -2.25, -1.75, 1.5],
                    np.float32)
 
-# (N, S, G, F, H, W, edge mu, use_interpolation): odd sizes, F not a multiple
-# of the 32-channel tile, S not a multiple of the 4-channel stage, and an
-# image taller than one row tile
+# (N, S, G, F, H, W, edge mu, use_interpolation): odd sizes, S and F not
+# multiples of the 8-channel chunk or of the 64-channel tile, and an image
+# spread over several tiles of the flat plane
 SHAPES = {
     "small": (2, 3, 2, 4, 10, 12, False, True),
     "edges": (1, 5, 2, 37, 9, 8, True, True),
@@ -576,6 +576,69 @@ def test_aggregate_kernel_rejects_a_window_too_large(cuda_device):
     args = _agg_inputs(1, 3, 2, 4, 4, 3, cuda_device, w_cols=300)
     with pytest.raises(ValueError, match="window"):
         tk.aggregate_forward(*args, 3)
+
+
+# K5 on the tensor cores: the raw input blurred in f32 into K4's staged
+# window, bounds as for K4. (N, S, F, H, W, ks, kb): S and F not multiples
+# of 64 (S also ragged against the 8-channel chunks), a 27x27 plane spread
+# over four tiles, a 13x20 plane, and ks/kb outside the old instance set
+FUSED_TC = {
+    "s70_f90_27px": (2, 70, 90, 27, 27, 9, 9),
+    "s13_f65_13x20": (1, 13, 65, 13, 20, 9, 9),
+    "ks19_kb5": (2, 11, 9, 8, 8, 19, 5),
+    "ks5_kb9_wide": (1, 70, 9, 5, 67, 5, 9),
+    "ks3_kb11": (2, 9, 70, 10, 11, 3, 11),
+}
+
+
+def _blur_filter(kb, device, seed=1):
+    """A kb x kb filter that is not separable."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand((kb, kb), generator=gen) / (kb * kb)).to(device)
+
+
+def _check_fused(args, filt, ks, interp=True):
+    for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        a = [t.to(dtype) for t in args]
+        before = tk.dau_forward_fused.launches
+        y = tk.dau_forward_fused(*a, filt, ks, interp)
+        torch.cuda.synchronize()
+        assert tk.dau_forward_fused.launches == before + 1
+        want = tk.dau_forward_fused_plain(a[0].float(), *a[1:], filt, ks, interp)
+        assert y.dtype == dtype and y.shape == want.shape
+        err = float((y.float() - want).abs().max())
+        assert err <= bound * float(want.abs().max()), (dtype, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FUSED_TC))
+def test_fused_kernel_ragged_and_runtime_sizes_match_twin(cuda_device, name):
+    n, s, f, h, w, ks, kb = FUSED_TC[name]
+    args = _agg_inputs(n, s, 2, f, h, ks, cuda_device, seed=len(name), w_cols=w)
+    _check_fused(args, _blur_filter(kb, cuda_device), ks)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_rejects_a_window_too_large(cuda_device):
+    args = _agg_inputs(1, 3, 2, 4, 4, 3, cuda_device, w_cols=300)
+    filt = gaussian_filters(0.5, size=9, device=cuda_device)["w"]
+    with pytest.raises(ValueError, match="does not fit"):
+        tk.dau_forward_fused(*args, filt, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["conv2", "conv4"])
+def test_fused_kernel_bf16_matches_the_pallas_engine_chain(cuda_device, name):
+    # both round the blurred plane to bf16 once before the tensor cores
+    s, f, h = AGG_LAYERS[name]
+    args = [t.bfloat16() for t in _agg_inputs(2, s, 2, f, h, KS, cuda_device, seed=5)]
+    filt = gaussian_filters(0.5, size=9, device=cuda_device)["w"]
+    y = tk.dau_forward_fused(*args, filt, KS)
+    xb = depthwise_blur(args[0], filt)
+    assert xb.dtype == torch.bfloat16
+    want = tk.aggregate_forward(xb, *args[1:], KS)
+    err = float((y.float() - want.float()).abs().max())
+    assert err <= 1e-2 * float(want.float().abs().max()), err
 
 
 def _assert_matrix(mat, gt, name, rel_tolerance=0.01):
