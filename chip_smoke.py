@@ -9,10 +9,11 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    at once (K5 the fused forward, K4 the aggregation, K6 the grad tables,
    K1/K2 the fused spectral gradients, K8 the factored gather, K7 the
    partial iDFT, K3 the fused apply-phi), and print their registers and
-   spills (ks=9; K1 and K8 at M=3, G=2); count the tensor-core
-   instructions (HGMMA, HMMA) and TMA loads (UTMALDG) in the SASS of the
-   K5, K4, K6 and K7 libraries (`cuobjdump -sass`) and fail if any has none
-   of either;
+   spills (ks=9; K1 at every (dtype, M, G) instance, failing if one at
+   M=3, G=2 spills; K8 at M=3, G=2); count the tensor-core instructions
+   (HGMMA, HMMA) and TMA loads (UTMALDG) in the SASS of the K5, K4, K6, K7
+   and K1/K2 libraries (`cuobjdump -sass`) and fail if any has none of
+   either;
 2. kernel vs twin: `dau_forward_fused` against `dau_forward_fused_plain` at
    the four AlexNet-DAU layer shapes (N=4) in f32 (TF32 off, bound
    1e-4*max|y|) and bf16 (twin in f32 on the same bf16 values, bound
@@ -73,8 +74,10 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    (K1 at all four layers), and again with fused_dx='on', through the
    kernels and through the twins: every gradient within 1e-3*max|grad|;
 13. timing: per layer K1 and K2 against their twins (checked against them
-   first at N=32 in bf16, bounds as in phase 10) and the unfused torch
-   path (`fourier_unit_grads`), whole bf16 requests (Fourier uncached,
+   first at N=32 in bf16, bounds as in phase 10; K1 also as device time,
+   the kernel alone and with its wrapper's torch ops, `torch.profiler`;
+   conv2's 496 bins forced) and the unfused torch path
+   (`fourier_unit_grads`), whole bf16 requests (Fourier uncached,
    phi-cached, pallas_fused) and whole bf16 steps (Fourier, Fourier with
    fused_dx, both Pallas engines), the device time by kernel of both
    Pallas steps and both Fourier steps (`torch.profiler`) and the Fourier
@@ -199,6 +202,21 @@ def _cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, fragment: str, iters: int = 5):
+    """(device ms of the kernels whose name holds `fragment`, device ms of
+    all kernels) per call of fn, from torch.profiler, after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / iters) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(ms for k, ms in rows if fragment in k), sum(ms for _, ms in rows)
 
 
 def _spread(fn, repeats: int = 5, iters: int = 5):
@@ -585,7 +603,7 @@ def time_spectral(gen, dev, card, worst):
     (bounds as in `compare_spectral`; `worst` takes the errors); returns
     the sums over conv3-conv5 (where the op runs the kernel) with their
     bounds."""
-    out = {k: 0.0 for k in ("k1", "k1_plain", "k2", "k2_plain")}
+    out = {k: 0.0 for k in ("k1", "k1_plain", "k2", "k2_plain", "k1_kernel", "k1_device")}
     b1, b2 = Bounds(), Bounds()
     for name, s, f, hw in LAYERS:
         args, kw, dx, (xb, err, mu1, mu2) = _spectral_inputs(
@@ -600,6 +618,8 @@ def time_spectral(gen, dev, card, worst):
                           _check_err(f"K2 dx spectra {tag}", got[1], want[1], 1e-2))
         del got, want
         t_k1 = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw))
+        d_k1, d_all = _device_ms(lambda: kfb.fused_spectral_grads(*args, **kw),
+                                 "spectral_grads_kernel")
         t_p1 = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw), iters=3, warmup=1)
         t_k2 = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw, **dx))
         t_p2 = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw, **dx), iters=3,
@@ -611,26 +631,49 @@ def time_spectral(gen, dev, card, worst):
         bd2 = (b2 if main else Bounds()).add(*_spectral_work(args, kw, dx))
         ops1 = _spectral_work(args, kw)[0]
         print(f"layer {name} K1 N={BATCH} B={kw['p1b'] * kw['rbb']} bf16: kernel {t_k1:.3f} ms "
-              f"({ops1 / t_k1 / 1e9:.1f} TFLOP/s, bound {bd1:.4f}), twin {t_p1:.3f} ms; K2 "
+              f"({ops1 / t_k1 / 1e9:.1f} TFLOP/s, bound {bd1:.4f}; device time: the kernel "
+              f"{d_k1:.4f} ms, with the wrapper's torch ops {d_all:.4f} ms), twin {t_p1:.3f} ms; K2 "
               f"kernel {t_k2:.3f} ms (bound {bd2:.4f}), twin {t_p2:.3f} ms; from the blurred "
               f"planes: unfused torch path {t_unf:.3f} ms, DFTs + K1 {t_f2:.3f} ms"
               f"{'' if main else ' (the op takes the unfused path here)'} [{card}]")
         if main:
-            for k, v in zip(out, (t_k1, t_p1, t_k2, t_p2)):
+            for k, v in zip(out, (t_k1, t_p1, t_k2, t_p2, d_k1, d_all)):
                 out[k] += v
+    print(f"K1 over conv3-conv5 N={BATCH} bf16: {_k1_line(out, b1)} [{card}]")
     return out, b1, b2
 
 
+def _k1_line(out, bound):
+    return (f"kernel with its wrapper {out['k1']:.3f} ms (device time: the kernel "
+            f"{out['k1_kernel']:.4f} ms, with the wrapper's torch ops {out['k1_device']:.4f} ms), "
+            f"bound {bound.ms:.4f} ms ({bound.bound_by}), twin {out['k1_plain']:.3f} ms")
+
+
 def _ptxas(lib, markers):
-    """The compiler's registers/spills lines for the entries whose mangled
-    name holds every marker."""
+    """Print the compiler's registers/spills lines for the entries whose
+    mangled name holds every marker; returns {entry: those lines}."""
     lines = build_log(lib).splitlines()
+    found = {}
     for i, line in enumerate(lines):
         if "Compiling entry" in line and all(mk in line for mk in markers):
             entry = line.split("'")[1] if "'" in line else line
             kind = "bf16" if "bfloat16" in line else "f32" if re.search(r"If[LE]", line) else "-"
-            print(f"  {lib} {kind} {entry[:60]}: " + " | ".join(
-                l.split("info    : ")[-1].strip() for l in lines[i + 2:i + 4]))
+            found[entry] = " | ".join(l.split("info    : ")[-1].strip() for l in lines[i + 2:i + 4])
+            print(f"  {lib} {kind} {entry[:60]}: {found[entry]}")
+    return found
+
+
+def _k1_instances():
+    """Print registers and spills of every (dtype, M, G) instance of K1's
+    kernel; raise if one is missing or the M=3, G=2 instances spill."""
+    found = _ptxas("dau_spectral_grads", ["spectral_grads_kernel"])
+    if len(found) != 16:
+        raise AssertionError(f"dau_spectral_grads: {len(found)} K1 instances in the build log, "
+                             "expected 16 (f32/bf16 x M 3, 4 x G 1-4)")
+    for entry, info in found.items():
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+        if "Li3ELi2E" in entry and (spill is None or spill.groups() != ("0", "0")):
+            raise AssertionError(f"K1 instance {entry} (M=3, G=2) spills: {info}")
 
 
 def _tensor_core_count(lib):
@@ -999,12 +1042,13 @@ def main(argv=None) -> int:
     _ptxas("dau_forward_fused", ["fused_forward_kernel"])
     _ptxas("dau_aggregate", ["aggregate_kernel"])
     _ptxas("dau_grad_tables", ["grad_tables_kernel"])
-    _ptxas("dau_spectral_grads", ["spectral_grads_kernel", "Li3ELi2E"])
+    _k1_instances()
     _ptxas("dau_spectral_grads", ["spectral_dx_kernel"])
     _ptxas("dau_factored_grads", ["factored_grads_kernel", "Li3ELi2E"])
     _ptxas("dau_partial_idft", ["partial_idft_kernel"])
     _ptxas("dau_apply_phi", ["apply_phi_kernel"])
-    for lib in ("dau_forward_fused", "dau_aggregate", "dau_grad_tables", "dau_partial_idft"):
+    for lib in ("dau_forward_fused", "dau_aggregate", "dau_grad_tables", "dau_partial_idft",
+                "dau_spectral_grads"):
         _tensor_core_count(lib)
 
     # 2. kernel vs twin

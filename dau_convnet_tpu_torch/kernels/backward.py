@@ -34,9 +34,39 @@ from ._build import load_library
 from .forward import _DTYPE_CODE, chunk_major, split_bf16
 
 __all__ = ["grad_tables", "grad_tables_plain", "grad_tables_operands", "chunk_major",
-           "table_view"]
+           "table_view", "check_kernel_limits"]
 
-_KERNEL_SIZES = (3, 5, 7, 9, 11, 13, 15, 17)  # the ks the wrapper accepts
+# the kernel's own limits (csrc/dau_grad_tables.cu): a block takes TAPS
+# kernel columns of one kernel row, so the grid is ks * ceil(ks / TAPS) deep;
+# its TMA boxes (chunk_map) are (KC + TAPS - 1) * 8 bf16 columns wide
+_TAPS = 3
+_KC = 16
+_GRID_Z_MAX = 65535
+_TMA_BOX_MAX = 256
+_TMA_COORD_MAX = 2 ** 31
+_TMA_DIM_MAX = 2 ** 32
+_TMA_STRIDE_MAX = 2 ** 40
+
+
+def check_kernel_limits(ks: int, n: int, h: int, w: int) -> None:
+    """Raise ValueError, naming the limit, where the K6 kernel cannot take
+    kernel size ks on N images of H x W: ks odd and >= 1, the grid's depth
+    ks * ceil(ks / 3) <= 65535, and every TMA coordinate, dimension, stride
+    and box of its chunk-major maps within the hardware's ranges."""
+    if ks < 1 or ks % 2 != 1:
+        raise ValueError(f"ks must be odd and >= 1, got {ks}")
+    depth = ks * -(-ks // _TAPS)
+    if depth > _GRID_Z_MAX:
+        raise ValueError(f"ks={ks}: the grid's z extent ks*ceil(ks/{_TAPS}) = {depth} exceeds "
+                         f"{_GRID_Z_MAX}")
+    box = (_KC + _TAPS - 1) * 8
+    if box > _TMA_BOX_MAX:
+        raise ValueError(f"the TMA box of {box} columns exceeds {_TMA_BOX_MAX}")
+    # the column coordinate runs from -(ks // 2) * 8 to (W + TAPS) * 8
+    if 8 * (w + ks + _KC) >= _TMA_COORD_MAX:
+        raise ValueError(f"ks={ks}, W={w}: a TMA column coordinate exceeds the int32 range")
+    if 8 * w >= _TMA_DIM_MAX or 16 * n * h * w >= _TMA_STRIDE_MAX:
+        raise ValueError(f"N={n}, H={h}, W={w}: a TMA dimension or stride exceeds its range")
 
 
 def grad_tables_plain(x_blur_k, err, ks: int):
@@ -99,9 +129,8 @@ def grad_tables(x_blur_k, err, ks: int):
         return grad_tables_plain(x_blur_k, err, ks)
     if x_blur_k.device.type != "cuda":
         raise RuntimeError(f"grad_tables has no kernel for device {x_blur_k.device}")
-    if ks not in _KERNEL_SIZES:
-        raise ValueError(f"ks={ks} has no kernel instance (built: {_KERNEL_SIZES})")
     m, n, s, h, w = x_blur_k.shape
+    check_kernel_limits(ks, 3 * n if x_blur_k.dtype == torch.float32 else n, h, w)
     f = err.shape[1]
     err_t, xb_t = grad_tables_operands(x_blur_k, err)
     table = torch.empty((ks * ks, f, m * s), dtype=torch.float32, device=err.device)

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) GEMM building blocks shared by the tensor-core kernels K4
-// (dau_aggregate.cu), K5 (dau_forward_fused.cu), K6 (dau_grad_tables.cu) and
-// K7 (dau_partial_idft.cu).
+// (dau_aggregate.cu), K5 (dau_forward_fused.cu), K6 (dau_grad_tables.cu), K7
+// (dau_partial_idft.cu) and K1 (dau_spectral_grads.cu).
 //
 //   - host: TMA tensor maps (bf16; f32 for K5's raw input) through
 //     cuTensorMapEncodeTiled, which is taken from the driver with
@@ -323,6 +323,33 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 // Accumulator layout of a 64 x N f32 result over a warpgroup's 128 threads:
 // d[4j + 2h + e] holds row 16*(warp % 4) + lane/4 + 8h, column 8j + 2*(lane % 4) + e.
+
+// D (64 x 16, f32) += A (64 x 16) * B (16 x 16), both bf16 in shared memory;
+// TA / TB = 1: the operand is MN-major (M or N contiguous).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16(float (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7},"
+      " %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D (64 x 32, f32) += A (64 x 16) * B (16 x 32), both bf16 in shared memory;
+// TA / TB = 1: the operand is MN-major (M or N contiguous).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
 
 // D (64 x 64, f32) += A (64 x 16) * B (16 x 64), both bf16 in shared memory;
 // TA / TB = 1: the operand is MN-major (M or N contiguous).

@@ -1,9 +1,12 @@
-// Shared pieces of the fused spectral-gradient kernels for Hopper (sm_90a):
-// K1/K2 (dau_spectral_grads.cu, the phi gather) and K8
-// (dau_factored_grads.cu, the factored gather). A block owns ST s x FT f of
-// the unit gradients and walks a range of bins itself. It stages both phase
-// tables and its units' bilinear taps in shared memory (`stage_block`) and,
-// per bin, forms the cross-spectra of its (s, f) in registers (`cross_bin`):
+// Shared pieces of the FP32-FMA spectral-gradient kernels for Hopper
+// (sm_90a): K8 (dau_factored_grads.cu, the factored gather) and, for
+// `THREADS`, `to_f32` and `round_as`, K2's dx kernel and K1
+// (dau_spectral_grads.cu; K1's cross-spectra run on the tensor cores and
+// use none of the block layout below). A block owns ST s x FT f of the
+// unit gradients and walks a range of bins itself. It stages both phase
+// tables and its units' bilinear taps in shared memory (`stage_block`)
+// and, per bin, forms the cross-spectra of its (s, f) in registers
+// (`cross_bin`):
 //
 //   Tre[k,m,s,f] = sum_n Xre*Ere + Xim*Eim     Tim = sum_n Xim*Ere - Xre*Eim
 //

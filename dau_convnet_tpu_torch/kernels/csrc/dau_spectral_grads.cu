@@ -18,132 +18,561 @@
 // kernel's tre/tim scratch is; the tables and tap weights arrive already
 // rounded to it (the wrapper does that).
 //
-// Bound: the per-bin cross products, 4 FMAs per (k, m, n, s, f) at N = 32,
-// are 40.4 GFLOP per AlexNet-DAU step over conv3-conv5 on ~30 MB of bf16
-// spectra per layer, so the kernel is bound by operations, not bytes:
-// ~0.04 ms on the tensor cores, ~0.6 ms on FP32 FMAs. This version runs
-// FP32 FMAs:
-//   - K1: one block per (32 f, 32 or 16 s, a range of bins); it walks its
-//     bins itself and keeps the M*G sums of each of its (s, f) in registers,
-//     so the sum over bins is deterministic and needs no atomics. Ranges are
-//     chosen so the grid fills the card once; the wrapper sums the
-//     per-range partials. Per bin it stages 16 images of xs (its s tile)
-//     and es (its f tile) in shared memory, forms T in registers (each
-//     thread 2 or 1 s x 4 f x M, 4 FMAs per image for 6 or 3 shared loads
-//     per m, x loads broadcast across the warp), rounds T, and gathers:
-//     the tap indices and weights of its units sit in shared memory, the
-//     phase factor is two table reads per axis.
-//   - K2's dx contracts over F, which the F-tiled K1 block does not own: a
-//     second kernel, one block per (bin, 32 s), loops over F in chunks of
-//     32, builds sum_g w*phiU for the chunk in shared memory and
-//     accumulates a (32 n x 32 s) complex tile, 4 FMAs per (n, s, f).
-// What it leaves for later: tensor cores (wgmma) for the cross products,
-// cp.async/TMA double buffering of the stages. The block layout, the staging
-// and the cross products are shared with K8 (dau_spectral.cuh).
+// Bound: the per-bin cross products, 8N operations per (k, m, s, f), are
+// 40.4 GFLOP per AlexNet-DAU step over conv3-conv5 on ~30 MB of bf16 spectra
+// per layer: ~0.04 ms on the tensor cores. The gather adds 4G operations per
+// (k, m, s, f) and the phase factor ~12 per (k, g, s, f), on the FP32 units.
+// K1's design (`spectral_grads_kernel`):
+//   - the cross-spectra of a bin are one GEMM per m on the tensor cores,
+//     T (64 s x 2*FT) = X^T (64 s x 2N) . ES (2N x 2*FT), bf16 operands and
+//     f32 sums. ES is an interleaved copy of es: column 2f is [Ere; Eim],
+//     column 2f+1 is [-Eim; Ere], so Tre and Tim of one (s, f) land in
+//     adjacent accumulator registers of one thread. f32 spectra reach the
+//     kernel split in three bf16 parts stacked along K (x as [x1, x1, x2,
+//     x1, x2, x3] against ES as [E1, E2, E1, E3, E2, E1]: the six products
+//     of K4), so K is 2N (bf16) or 12N (f32). One launch of
+//     `operands_kernel` builds ES, the split X where one is needed, the
+//     units' taps and the table quads (below), so the wrapper issues two
+//     launches and a sum, not the ~30 small torch ops it would take;
+//   - one block per (64 s, 2 warpgroups x FT f, a range of bins) walks its
+//     bins itself; its thread 0 streams, one step ahead, per bin and 64-row
+//     K chunk the X tile of all M planes (one 4-D TMA box, MN-major,
+//     128-byte swizzled, straight from xs), the ES tile (chunk-major, no
+//     swizzle) and the bin's two phase-table rows into a ring of STAGES
+//     stages; TMA reads zeros past S, K and 2F, so the ragged edges need no
+//     mask. There is no producer warp: the block's registers are the limit,
+//     and a warp more would lower every thread's share;
+//   - each warpgroup issues M chains of wgmma m64n(2*FT)k16 per chunk into
+//     M*FT f32 sums per thread (restarted every bin: no fold is needed) on
+//     its own FT f of the shared X tile. While they run it builds its units'
+//     phase factors from the staged table rows and the units' taps (staged
+//     once per block in shared memory, laid out by thread so every read is
+//     conflict-free); then it rounds T to the operand dtype and adds the
+//     gather into M*G*FT/2 registers. FT = 16 while M*G <= 8, else 8;
+//   - the ranges are chosen so the grid fills the card in whole waves; the
+//     wrapper sums the per-range partials (R, M, S, G, F): deterministic,
+//     no atomics.
+// What paces it: `tools/k1_variants.py` times variants of this source on
+// the card (PERF.md, section 7).
+// K2's dx contracts over F, which the F-tiled K1 block does not own: a second
+// kernel (`spectral_dx_kernel`, FP32 FMAs), one block per (bin, 32 s), loops
+// over F in chunks of 32, builds sum_g w*phiU for the chunk in shared memory
+// and accumulates a (32 n x 32 s) complex tile, 4 FMAs per (n, s, f).
 
+#include "dau_hopper_gemm.cuh"
 #include "dau_spectral.cuh"
 
 namespace {
 
-using namespace dau_spectral;
+// ------------------------------------------------------------------ K1
 
-constexpr int DX_T = 32;              // s, f and n tile of the dx kernel
-constexpr int NJ_MAX = 64;            // largest exponent table width (dx kernel)
+namespace tc {
 
-// s per thread: 2 while the M*G sums of 8 (s, f) fit the registers, else 1
-__host__ __device__ constexpr int s_per_thread(int m, int g) { return m * g <= 8 ? 2 : 1; }
+using namespace dau_hopper;
+
+constexpr int ST = 64;         // s per block: the wgmma M
+constexpr int KC = 64;         // K rows per stage
+constexpr int STAGES = 2;
+constexpr int MAX_RANGES = 8;
+
+constexpr int WGS = 2;         // warpgroups, each on its own FT f of the block
+constexpr int THREADS = 128 * WGS;  // thread 0 also issues the loads
+
+// f per warpgroup (the wgmma's N is 2*FT): the M*FT cross-spectra, the
+// M*G*FT/2 gather sums and the G*FT/2 phase factors per thread fit the
+// registers at FT = 16 up to M*G = 8, else at FT = 8
+__host__ __device__ constexpr int tile_f(int m, int g) { return m * g <= 8 ? 16 : 8; }
+
+// floats of one staged phase-table row: NJ-1 quads (c[j], c[j+1], s[j],
+// s[j+1]), padded to 128 bytes
+__host__ __device__ constexpr int table_row(int nj) {
+  return (4 * (nj > 1 ? nj - 1 : 1) + 31) / 32 * 32;
+}
+
+// (Tre, Tim) of one (s, f) rounded to T, in one conversion for bf16
+__device__ __forceinline__ void round_pair(float&, float&, float) {}
+__device__ __forceinline__ void round_pair(float& re, float& im, __nv_bfloat16) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(re, im);
+  re = __low2float(h);
+  im = __high2float(h);
+}
+
+// Shared memory of a block, laid out from a 1024-byte aligned base:
+// X stages, ES stages, table rows, the units' weights and taps, the ring.
+struct Layout {
+  int a, b, tab, w4, jj, ring, bytes;
+};
+
+__host__ __device__ inline Layout layout(int M, int G, int NJ) {
+  const int ft = tile_f(M, G);
+  Layout l;
+  l.a = 0;                                          // [STAGES][M][KC][64 s] bf16
+  l.b = l.a + STAGES * M * KC * ST * 2;             // [STAGES][2*WGS*FT/8][KC][8] bf16
+  l.tab = l.b + STAGES * 2 * WGS * ft / 8 * KC * 16;  // [STAGES][2][table_row] f32
+  l.w4 = l.tab + STAGES * 2 * table_row(NJ) * 4;    // [G][FT/2][THREADS] float4
+  l.jj = l.w4 + G * ft / 2 * THREADS * 16;          // [G][FT/2][THREADS] int
+  l.ring = l.jj + G * ft / 2 * THREADS * 4;
+  l.bytes = 1024 + l.ring + (int)sizeof(Ring<STAGES>);
+  return l;
+}
 
 // idx (2, G, S, F) int: tap index j of mu1 (into t2) and of mu2 (into t1);
-// wts (4, G, S, F) f32: the weights at j and j+1, mu1 then mu2.
+// wts (4, G, S, F) f32: the weights at j and j+1, mu1 then mu2; out (R, M,
+// S, G, F) f32.
 template <typename T, int M, int G>
-__global__ void __launch_bounds__(THREADS)
-spectral_grads_kernel(const T* __restrict__ xs, const T* __restrict__ es,
-                      const float* __restrict__ t1, const float* __restrict__ t2,
-                      const int* __restrict__ idx, const float* __restrict__ wts,
-                      float* __restrict__ out, int B, int N, int S, int F, int P1, int RB,
-                      int NJ, int bins_per_block) {
-  constexpr int TS = s_per_thread(M, G);
-  constexpr int ST = SGROUPS * TS;
-  const Plan pl = make_plan(M, G, P1, RB, NJ, TS);
+__global__ void __launch_bounds__(THREADS, 1)
+spectral_grads_kernel(const __grid_constant__ CUtensorMap x_map,
+                      const __grid_constant__ CUtensorMap e_map,
+                      const __grid_constant__ CUtensorMap t1_map,
+                      const __grid_constant__ CUtensorMap t2_map, const int* __restrict__ idx,
+                      const float* __restrict__ wts, float* __restrict__ out, int B, int K,
+                      int S, int F, int RB, int NJ, int bins_per_block) {
+  constexpr int FT = tile_f(M, G);
+  constexpr int NP = FT / 2;            // (s, f) pairs per thread
+  constexpr int A_M = KC * ST * 2;      // bytes of one m's X tile
+  constexpr int B_WG = 2 * FT / 8 * KC * 16;  // bytes of one warpgroup's ES tile
+  constexpr int B_STAGE = WGS * B_WG;
+  const Layout lay = layout(M, G, NJ);
+  const int tabw = table_row(NJ);
+  const int q = 4 * (NJ - 1);
+  const uint32_t stage_bytes = M * A_M + B_STAGE + 2 * q * 4;
 
-  extern __shared__ float4 smem4[];
-  const int tid = threadIdx.x;
-  const int fg = tid % FGROUPS;
-  const int sg = tid / FGROUPS;
-  const int f0 = blockIdx.x * FT;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // rounded up to 1024 bytes by pointer arithmetic on the shared array, so
+  // that the compiler knows every derived pointer is shared (32-bit shared
+  // loads, not 64-bit generic ones)
+  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float4* w4 = reinterpret_cast<float4*>(base + lay.w4);
+  int* jj = reinterpret_cast<int*>(base + lay.jj);
+  Ring<STAGES>& ring = *reinterpret_cast<Ring<STAGES>*>(base + lay.ring);
+
+  const int f0 = blockIdx.x * WGS * FT;
   const int s0 = blockIdx.y * ST;
   const int kbeg = blockIdx.z * bins_per_block;
   const int kend = min(B, kbeg + bins_per_block);
-  const Smem sm = stage_block(reinterpret_cast<float*>(smem4), pl, t1, t2, idx, wts, G, S, F,
-                              P1, RB, NJ, s0, f0);
+  const int chunks = (K + KC - 1) / KC;
+  const int steps = (kend - kbeg) * chunks;  // (bin, K chunk) stages, in order
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wg = warp / 4;
 
-  float acc[M][G][TS][TF];
+  // thread 0 loads step i into the ring once the block has freed its stage
+  // (STAGES steps back): the bin's X tile of all M planes, its ES tile and
+  // its two table rows
+  RingPos<STAGES> ahead;
+  auto issue = [&](int i) {
+    const int k = kbeg + i / chunks;
+    const int c = i % chunks;
+    const int k1 = k / RB;
+    uint64_t* full = ahead.acquire(ring, stage_bytes);
+    float* tab = reinterpret_cast<float*>(base + lay.tab) + ahead.stage * 2 * tabw;
+    tma_load_4d(base + lay.a + ahead.stage * M * A_M, &x_map, full, s0, c * KC, 0, k);
+    tma_load_4d(base + lay.b + ahead.stage * B_STAGE, &e_map, full, 0, c * KC, f0 / 4, k);
+    tma_load_2d(tab, &t1_map, full, 0, k1);
+    tma_load_2d(tab + tabw, &t2_map, full, 0, k - k1 * RB);
+    ahead.next();
+  };
+
+  if (tid == 0) {
+    ring.init(THREADS);
+    issue(0);
+  }
+  __syncthreads();
+
+  // this thread's units: accumulator pair p = h*FT/4 + j holds row
+  // s0 + 16*(warp%4) + lane/4 + 8h, columns 2f and 2f+1 of its warpgroup's
+  // tile, f = f0 + wg*FT + 4j + lane%4
+  const int srow = s0 + 16 * (warp % 4) + lane / 4;
+  const int fcol = f0 + wg * FT + lane % 4;
+  {
+    const size_t SF = (size_t)S * F;
+    const size_t GSF = (size_t)G * SF;
+#pragma unroll
+    for (int u = 0; u < G * NP; ++u) {
+      const int g = u / NP;
+      const int p = u % NP;
+      const int s = srow + 8 * (p / (FT / 4));
+      const int f = fcol + 4 * (p % (FT / 4));
+      const bool ok = s < S && f < F;
+      const size_t gi = g * SF + (size_t)s * F + f;
+      w4[u * THREADS + tid] =
+          ok ? make_float4(wts[gi], wts[GSF + gi], wts[2 * GSF + gi], wts[3 * GSF + gi])
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+      jj[u * THREADS + tid] = ok ? (idx[gi] | (idx[GSF + gi] << 16)) : 0;
+    }
+  }
+
+  float gacc[M][G][NP];
 #pragma unroll
   for (int m = 0; m < M; ++m)
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int t = 0; t < TS; ++t)
-#pragma unroll
-        for (int u = 0; u < TF; ++u) acc[m][g][t][u] = 0.f;
+      for (int p = 0; p < NP; ++p) gacc[m][g][p] = 0.f;
 
+  RingPos<STAGES> pos;
   for (int k = kbeg; k < kend; ++k) {
-    float tre[M][TS][TF], tim[M][TS][TF];
-    cross_bin<T, M, TS>(xs, es, sm, k, N, S, F, s0, f0, tre, tim);
-
-    // the gather: grad += Re(phiU) * T_re - Im(phiU) * T_im, T rounded to T
-    const int k1 = k / RB;
-    const int k2 = k - k1 * RB;
-    const float* t1c = sm.t1 + k1 * NJ;
-    const float* t1s = sm.t1 + (P1 + k1) * NJ;
-    const float* t2c = sm.t2 + k2 * NJ;
-    const float* t2s = sm.t2 + (RB + k2) * NJ;
+    float tacc[M][FT];
 #pragma unroll
-    for (int t = 0; t < TS; ++t)
+    for (int m = 0; m < M; ++m)
 #pragma unroll
-      for (int u = 0; u < TF; ++u) {
+      for (int v = 0; v < FT; ++v) tacc[m][v] = 0.f;
+    float phr[G][NP], phm[G][NP];  // the units' phase factors at bin k
+    for (int c = 0; c < chunks; ++c) {
+      const int i = (k - kbeg) * chunks + c;
+      if (tid == 0 && i + 1 < steps) issue(i + 1);  // waits for step i-1's release
+      pos.wait_full(ring);
+      // X: 64 K rows of 128 swizzled bytes per m (a k16 step is 2048 bytes);
+      // ES: 8-column chunks of KC 16-byte rows (a k16 step is 256 bytes)
+      const uint64_t db = make_desc(base + lay.b + pos.stage * B_STAGE + wg * B_WG, 128,
+                                    KC * 16, kNoSwizzle);
 #pragma unroll
-        for (int m = 0; m < M; ++m) {
-          tre[m][t][u] = round_as(tre[m][t][u], T());
-          tim[m][t][u] = round_as(tim[m][t][u], T());
-        }
+      for (int m = 0; m < M; ++m) fence_regs(tacc[m]);
+      wgmma_fence();
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const int ui = (g * ST + sg * TS + t) * FT + fg * TF + u;
-          const int j1 = sm.j[ui];
-          const int j2 = sm.j[pl.units + ui];
-          const float a0 = sm.w[ui], a1 = sm.w[pl.units + ui];
-          const float b0 = sm.w[2 * pl.units + ui], b1 = sm.w[3 * pl.units + ui];
-          const float pyre = fmaf(t1c[j2 + 1], b1, t1c[j2] * b0);
-          const float pyim = fmaf(t1s[j2 + 1], b1, t1s[j2] * b0);
-          const float pxre = fmaf(t2c[j1 + 1], a1, t2c[j1] * a0);
-          const float pxim = fmaf(t2s[j1 + 1], a1, t2s[j1] * a0);
-          const float phre = pyre * pxre - pyim * pxim;
-          const float phim = pyre * pxim + pyim * pxre;
+      for (int m = 0; m < M; ++m) {
+        const uint64_t da = make_desc(base + lay.a + (pos.stage * M + m) * A_M, KC * 128,
+                                      1024, kSwizzle128);
 #pragma unroll
-          for (int m = 0; m < M; ++m)
-            acc[m][g][t][u] = fmaf(phre, tre[m][t][u], fmaf(-phim, tim[m][t][u], acc[m][g][t][u]));
+        for (int kk = 0; kk < KC / 16; ++kk) {
+          if constexpr (FT == 16)
+            wgmma_m64n32<1, 1>(tacc[m], desc_advance(da, 2048 * kk), desc_advance(db, 256 * kk));
+          else
+            wgmma_m64n16<1, 1>(tacc[m], desc_advance(da, 2048 * kk), desc_advance(db, 256 * kk));
         }
       }
+      wgmma_commit();
+      if (c + 1 == chunks) {
+        // while the wgmmas run: each unit's phase factor phiU = py[k1] *
+        // px[k2] from the bin's table quads (c[j], c[j+1], s[j], s[j+1]) in
+        // this stage and the unit's taps
+        const float4* ty =
+            reinterpret_cast<const float4*>(base + lay.tab) + pos.stage * tabw / 2;
+        const float4* tx = ty + tabw / 4;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const int u = (g * NP + p) * THREADS + tid;
+            const float4 w = w4[u];  // a0, a1 (mu1), b0, b1 (mu2)
+            const int j = jj[u];
+            const float4 y = ty[j >> 16];
+            const float4 x = tx[j & 0xffff];
+            const float pyre = fmaf(y.y, w.w, y.x * w.z);
+            const float pyim = fmaf(y.w, w.w, y.z * w.z);
+            const float pxre = fmaf(x.y, w.y, x.x * w.x);
+            const float pxim = fmaf(x.w, w.y, x.z * w.x);
+            phr[g][p] = pyre * pxre - pyim * pxim;
+            phm[g][p] = pyre * pxim + pyim * pxre;
+          }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < M; ++m) fence_regs(tacc[m]);
+      if (c + 1 < chunks) {  // the last chunk's stage keeps the table rows
+        mbar_arrive(&ring.empty[pos.stage]);
+        pos.next();
+      }
+    }
+    mbar_arrive(&ring.empty[pos.stage]);
+    pos.next();
+
+    // the gather on the accumulators: grad += Re(phiU) * Tre - Im(phiU) * Tim,
+    // T rounded to T
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int v = 4 * (p % (FT / 4)) + 2 * (p / (FT / 4));
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        float tr = tacc[m][v], ti = tacc[m][v + 1];
+        round_pair(tr, ti, T());
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          gacc[m][g][p] = fmaf(phr[g][p], tr, fmaf(-phm[g][p], ti, gacc[m][g][p]));
+      }
+    }
   }
 
   // partial sums of this bin range: out (R, M, S, G, F)
 #pragma unroll
-  for (int t = 0; t < TS; ++t) {
-    const int s = s0 + sg * TS + t;
-    if (s >= S) continue;
+  for (int p = 0; p < NP; ++p) {
+    const int s = srow + 8 * (p / (FT / 4));
+    const int f = fcol + 4 * (p % (FT / 4));
+    if (s >= S || f >= F) continue;
 #pragma unroll
-    for (int u = 0; u < TF; ++u) {
-      const int f = f0 + fg * TF + u;
-      if (f >= F) continue;
+    for (int m = 0; m < M; ++m)
 #pragma unroll
-      for (int m = 0; m < M; ++m)
+      for (int g = 0; g < G; ++g)
+        out[((((size_t)blockIdx.z * M + m) * S + s) * G + g) * F + f] = gacc[m][g][p];
+  }
+}
+
+// The TMA maps of one launch: xs_t (B, M, K, S8) bf16, es_t (B, C8, K, 8)
+// bf16, t1q (P1, 4*(NJ-1)) and t2q (RB, 4*(NJ-1)) f32.
+struct Maps {
+  CUtensorMap x, e, t1, t2;
+};
+
+inline cudaError_t make_maps(Maps* mp, const void* xs, const void* es, const void* t1q,
+                             const void* t2q, int M, int B, int K, int S, int F, int P1, int RB,
+                             int NJ, int ft) {
+  const cuuint64_t s8 = (cuuint64_t)(S + 7) / 8 * 8;
+  const cuuint64_t c8 = (cuuint64_t)(2 * F + 7) / 8;
+  const cuuint64_t x_dims[4] = {s8, (cuuint64_t)K, (cuuint64_t)M, (cuuint64_t)B};
+  const cuuint64_t x_strides[3] = {s8 * 2, s8 * 2 * K, s8 * 2 * K * M};
+  const cuuint32_t x_box[4] = {ST, KC, (cuuint32_t)M, 1};
+  cudaError_t e = make_map(&mp->x, xs, 4, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t e_dims[4] = {8, (cuuint64_t)K, c8, (cuuint64_t)B};
+  const cuuint64_t e_strides[3] = {16, 16 * (cuuint64_t)K, 16 * (cuuint64_t)K * c8};
+  const cuuint32_t e_box[4] = {8, KC, (cuuint32_t)(2 * WGS * ft / 8), 1};
+  e = make_map(&mp->e, es, 4, e_dims, e_strides, e_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t q = 4 * (cuuint64_t)(NJ - 1);
+  const cuuint32_t t_box[2] = {(cuuint32_t)q, 1};
+  const cuuint64_t t_strides[1] = {q * 4};
+  const cuuint64_t t1_dims[2] = {q, (cuuint64_t)P1};
+  e = make_map(&mp->t1, t1q, 2, t1_dims, t_strides, t_box, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t t2_dims[2] = {q, (cuuint64_t)RB};
+  return make_map(&mp->t2, t2q, 2, t2_dims, t_strides, t_box, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
+template <typename T, int M, int G>
+cudaError_t launch(const Maps& mp, const int* idx, const float* wts, float* out, int B, int K,
+                   int S, int F, int RB, int NJ, int R, size_t smem, cudaStream_t stream) {
+  cudaError_t e = dau_hopper::set_smem(spectral_grads_kernel<T, M, G>, smem);
+  if (e != cudaSuccess) return e;
+  constexpr int FB = WGS * tile_f(M, G);  // f per block
+  const int per = (B + R - 1) / R;
+  const dim3 grid((F + FB - 1) / FB, (S + ST - 1) / ST, R);
+  spectral_grads_kernel<T, M, G><<<grid, THREADS, smem, stream>>>(
+      mp.x, mp.e, mp.t1, mp.t2, idx, wts, out, B, K, S, F, RB, NJ, per);
+  return cudaGetLastError();
+}
+
+// Bin ranges R (<= MAX_RANGES, none empty) that fill the card in whole
+// waves: the fewest bins per block times waves, one bin's worth added per
+// wave for the block's staging. Returns R, or -cudaError.
+template <typename T, int M, int G>
+int ranges(int B, int S, int F, size_t smem) {
+  int per_sm = 0, sms = 0;
+  cudaError_t e = dau_hopper::set_smem(spectral_grads_kernel<T, M, G>, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, spectral_grads_kernel<T, M, G>,
+                                                      THREADS, smem);
+  if (e == cudaSuccess) e = sm_count(&sms);
+  if (e != cudaSuccess) return -(int)e;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  constexpr int FB = WGS * tile_f(M, G);
+  const long long tiles = (long long)((F + FB - 1) / FB) * ((S + ST - 1) / ST);
+  const long long slots = (long long)per_sm * sms;
+  int best = 1;
+  long long best_cost = -1;
+  for (int r = 1; r <= MAX_RANGES && r <= B; ++r) {
+    const int per = (B + r - 1) / r;
+    const int rr = (B + per - 1) / per;
+    const long long cost = (tiles * rr + slots - 1) / slots * (per + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = rr;
+    }
+  }
+  return best;
+}
+
+}  // namespace tc
+
+// ------------------------------------------------------------ K1's operands
+
+// K1's operands, built by one launch of `operands_kernel` from what the
+// wrapper is handed, exactly as `fused_bwd.spectral_operands`,
+// `spectral_table_quads` and `_taps` build them in torch (the card tests
+// hold them equal bit for bit):
+//   - units: per (g, s, f), the first non-zero entry j of each one-hot
+//     column (0 if none), clamped to NJ-2, and the one-hot's entries j and
+//     j+1 rounded to T: idx (2, G, S, F) int32 (mu1, mu2), wts (4, G, S, F)
+//     f32 (mu1 at j, j+1; mu2 at j, j+1); a1, a2 f32 with any strides;
+//   - ES: es (B, 2N, F) in T interleaved (column 2f = [Ere; Eim], 2f+1 =
+//     [-Eim; Ere]) and laid out chunk-major, (B, C8, K, 8) bf16; for T =
+//     float the three bf16 parts of each value stacked along K as [e1, e2,
+//     e1, e3, e2, e1];
+//   - X (only where xs cannot be read as it is: T = float, or S not a
+//     multiple of 8): (B, M, K, S8) bf16, for T = float the parts stacked as
+//     [x1, x1, x2, x1, x2, x3], zero past S;
+//   - the table quads (c[j], c[j+1], s[j], s[j+1]) of t1 then t2, rounded to
+//     T: (P1 + RB, NJ-1, 4) f32.
+namespace prep {
+
+constexpr int THREADS = 256;
+
+// part q (1, 2, 3) of v's three-way bf16 split (`forward.split_bf16_3`)
+__device__ __forceinline__ __nv_bfloat16 split_part(float v, int q) {
+  const __nv_bfloat16 p1 = __float2bfloat16_rn(v);
+  if (q == 1) return p1;
+  const float r = v - __bfloat162float(p1);
+  const __nv_bfloat16 p2 = __float2bfloat16_rn(r);
+  if (q == 2) return p2;
+  return __float2bfloat16_rn(r - __bfloat162float(p2));
+}
+
+__device__ __forceinline__ __nv_bfloat16 to_bf16(float v, int q) { return split_part(v, q); }
+__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v, int) { return v; }
+
+// which part segment q of the K stack holds: X [1, 1, 2, 1, 2, 3], ES [1,
+// 2, 1, 3, 2, 1]; bf16 spectra have one segment
+__device__ __forceinline__ int x_part(int q) { return q < 2 ? 1 : (q == 2 || q == 4 ? 2 : (q == 3 ? 1 : 3)); }
+__device__ __forceinline__ int e_part(int q) { return q == 0 || q == 2 || q == 5 ? 1 : (q == 3 ? 3 : 2); }
+
+struct Args {
+  const void* xs;
+  const void* es;
+  const float* a1;
+  const float* a2;
+  long long a1_st[4], a2_st[4];  // element strides of (nj, G, S, F)
+  const float* t1;
+  const float* t2;
+  int* idx;
+  float* wts;
+  __nv_bfloat16* xs_t;  // null: xs is read as it is
+  __nv_bfloat16* es_t;
+  float* tq;
+  int M, G, B, N, S, F, P1, RB, NJ;
+};
+
+__device__ __forceinline__ void taps(const float* a, const long long* st, int g, int s, int f,
+                                     int NJ, int& j, float& w0, float& w1, bool bf16) {
+  const float* col = a + g * st[1] + s * st[2] + f * st[3];
+  // every entry read (no early exit), so the loads are all in flight
+  j = NJ;
+#pragma unroll 4
+  for (int i = NJ - 1; i >= 0; --i)
+    if (col[i * st[0]] != 0.f) j = i;
+  j = min(j == NJ ? 0 : j, NJ - 2);
+  w0 = col[j * st[0]];
+  w1 = col[(j + 1) * st[0]];
+  if (bf16) {
+    w0 = __bfloat162float(__float2bfloat16_rn(w0));
+    w1 = __bfloat162float(__float2bfloat16_rn(w1));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+operands_kernel(const __grid_constant__ Args a) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  const int segs = kF32 ? 6 : 1;
+  const int N2 = 2 * a.N;
+  const int K = segs * N2;
+  const int S8 = (a.S + 7) / 8 * 8;
+  const int C8 = (2 * a.F + 7) / 8;
+  const int Q = a.NJ - 1;
+  const long long n_units = (long long)a.G * a.S * a.F;
+  const long long n_es = (long long)a.B * C8 * K;
+  const long long n_xs = a.xs_t ? (long long)a.B * a.M * K * (S8 / 8) : 0;
+  const long long n_tq = (long long)(a.P1 + a.RB) * Q;
+  const long long total = n_units + n_es + n_xs + n_tq;
+  const T* xs = static_cast<const T*>(a.xs);
+  const T* es = static_cast<const T*>(a.es);
+  const size_t GSF = (size_t)n_units;
+
+  for (long long i = blockIdx.x * (long long)THREADS + threadIdx.x; i < total;
+       i += (long long)gridDim.x * THREADS) {
+    if (i < n_units) {
+      const int f = (int)(i % a.F);
+      const int s = (int)((i / a.F) % a.S);
+      const int g = (int)(i / ((long long)a.F * a.S));
+      int j1, j2;
+      float w[4];
+      taps(a.a1, a.a1_st, g, s, f, a.NJ, j1, w[0], w[1], !kF32);
+      taps(a.a2, a.a2_st, g, s, f, a.NJ, j2, w[2], w[3], !kF32);
+      a.idx[i] = j1;
+      a.idx[GSF + i] = j2;
 #pragma unroll
-        for (int g = 0; g < G; ++g)
-          out[((((size_t)blockIdx.z * M + m) * S + s) * G + g) * F + f] = acc[m][g][t][u];
+      for (int q = 0; q < 4; ++q) a.wts[q * GSF + i] = w[q];
+      continue;
+    }
+    long long r = i - n_units;
+    if (r < n_es) {  // one 8-column chunk of one K row: (b, k, c), c fastest so that
+                     // neighbouring threads read neighbouring columns of es
+      const int c = (int)(r % C8);
+      const int k = (int)((r / C8) % K);
+      const int b = (int)(r / ((long long)K * C8));
+      const int q = k / N2;
+      const int kk = k % N2;
+      const bool im = kk >= a.N;
+      const int n = im ? kk - a.N : kk;
+      const T* row = es + (size_t)b * N2 * a.F;
+      __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        const int col = 8 * c + l;
+        const int f = col / 2;
+        if (f >= a.F) {
+          v[l] = __float2bfloat16_rn(0.f);
+          continue;
+        }
+        // column 2f: row kk as it is; 2f+1: [-Eim; Ere]
+        const T x = (col % 2 == 0) ? row[(size_t)kk * a.F + f]
+                                   : row[(size_t)(im ? n : a.N + n) * a.F + f];
+        const bool neg = col % 2 == 1 && !im;
+        const __nv_bfloat16 p = to_bf16(x, kF32 ? e_part(q) : 1);
+        v[l] = neg ? __hneg(p) : p;
+      }
+      *reinterpret_cast<uint4*>(a.es_t + (((size_t)b * C8 + c) * K + k) * 8) =
+          *reinterpret_cast<const uint4*>(v);
+      continue;
+    }
+    r -= n_es;
+    if (r < n_xs) {  // 8 s of one (b, m, k) row
+      const int s8 = (int)(r % (S8 / 8));
+      const long long bmk = r / (S8 / 8);
+      const int k = (int)(bmk % K);
+      const long long bm = bmk / K;
+      const int q = k / N2;
+      const T* src = xs + ((size_t)bm * N2 + k % N2) * a.S;
+      __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        const int s = 8 * s8 + l;
+        v[l] = s < a.S ? to_bf16(src[s], kF32 ? x_part(q) : 1) : __float2bfloat16_rn(0.f);
+      }
+      *reinterpret_cast<uint4*>(a.xs_t + (size_t)r * 8) = *reinterpret_cast<const uint4*>(v);
+      continue;
+    }
+    r -= n_xs;
+    {  // one table quad: row k of t1 (k < P1) or of t2
+      const int j = (int)(r % Q);
+      const int k = (int)(r / Q);
+      const bool first = k < a.P1;
+      const float* t = first ? a.t1 : a.t2;
+      const int rows = first ? a.P1 : a.RB;
+      const int kr = first ? k : k - a.P1;
+      const float* c = t + (size_t)kr * a.NJ;
+      const float* sn = t + (size_t)(rows + kr) * a.NJ;
+      float4 o = make_float4(c[j], c[j + 1], sn[j], sn[j + 1]);
+      if (!kF32) {
+        o.x = dau_spectral::round_as(o.x, __nv_bfloat16());
+        o.y = dau_spectral::round_as(o.y, __nv_bfloat16());
+        o.z = dau_spectral::round_as(o.z, __nv_bfloat16());
+        o.w = dau_spectral::round_as(o.w, __nv_bfloat16());
+      }
+      reinterpret_cast<float4*>(a.tq)[r] = o;
     }
   }
 }
+
+}  // namespace prep
+
+// ------------------------------------------------------------------ K2's dx
+
+using namespace dau_spectral;
+
+constexpr int DX_T = 32;              // s, f and n tile of the dx kernel
+constexpr int NJ_MAX = 64;            // largest exponent table width (dx kernel)
 
 // K2's input-gradient spectra: dxs (B, 2N, S) f32, [dXre; dXim] rows.
 // One block per (32 s, bin); thread (sg, ng) owns s = sg*4 + [0, 4) and
@@ -260,22 +689,6 @@ spectral_dx_kernel(const T* __restrict__ esb, const float* __restrict__ t1,
   }
 }
 
-template <typename T, int M, int G>
-cudaError_t launch_grads(const void* xs, const void* es, const float* t1, const float* t2,
-                         const int* idx, const float* wts, float* out, int B, int N, int S,
-                         int F, int P1, int RB, int NJ, int R, size_t smem,
-                         cudaStream_t stream) {
-  cudaError_t e = set_smem(spectral_grads_kernel<T, M, G>, smem);
-  if (e != cudaSuccess) return e;
-  constexpr int ST = SGROUPS * s_per_thread(M, G);
-  const int per = (B + R - 1) / R;
-  dim3 grid((F + FT - 1) / FT, (S + ST - 1) / ST, R);
-  spectral_grads_kernel<T, M, G><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(xs), static_cast<const T*>(es), t1, t2, idx, wts, out, B, N, S, F,
-      P1, RB, NJ, per);
-  return cudaGetLastError();
-}
-
 // f(T, M, G) instantiated for T in {float, bf16}, M in {3, 4}, G in {1..4}
 #define DAU_MG_DISPATCH(CALL)                                           \
   switch (M * 8 + G) {                                                  \
@@ -291,21 +704,18 @@ cudaError_t launch_grads(const void* xs, const void* es, const float* t1, const 
   }
 
 template <typename T>
-int ranges(int M, int G, int B, int S, int F, size_t smem) {
-  const int blocks = ((F + FT - 1) / FT) * ((S + SGROUPS * s_per_thread(M, G) - 1) /
-                                            (SGROUPS * s_per_thread(M, G)));
-#define DAU_RANGES(MM, GG) fill_ranges(spectral_grads_kernel<T, MM, GG>, smem, blocks, B)
+int k1_ranges(int M, int G, int B, int S, int F, size_t smem) {
+#define DAU_RANGES(MM, GG) tc::ranges<T, MM, GG>(B, S, F, smem)
   DAU_MG_DISPATCH(DAU_RANGES)
 #undef DAU_RANGES
 }
 
 template <typename T>
-int dispatch_grads(int M, int G, const void* xs, const void* es, const float* t1,
-                   const float* t2, const int* idx, const float* wts, float* out, int B, int N,
-                   int S, int F, int P1, int RB, int NJ, int R, size_t smem,
-                   cudaStream_t stream) {
+int k1_launch(int M, int G, const tc::Maps& mp, const int* idx, const float* wts, float* out,
+              int B, int K, int S, int F, int RB, int NJ, int R, size_t smem,
+              cudaStream_t stream) {
 #define DAU_LAUNCH(MM, GG) \
-  (int)launch_grads<T, MM, GG>(xs, es, t1, t2, idx, wts, out, B, N, S, F, P1, RB, NJ, R, smem, stream)
+  -(int)tc::launch<T, MM, GG>(mp, idx, wts, out, B, K, S, F, RB, NJ, R, smem, stream)
   DAU_MG_DISPATCH(DAU_LAUNCH)
 #undef DAU_LAUNCH
 }
@@ -314,45 +724,108 @@ int dispatch_grads(int M, int G, const void* xs, const void* es, const float* t1
 
 extern "C" {
 
-// Shared-memory bytes of K1 for M filters, G units and the table sizes.
+// Shared-memory bytes of K1 for M filters, G units and NJ exponents (the
+// bins' table rows are streamed: P1 and RB do not enter), or -1 where M, G
+// or NJ has no instance.
 long long dau_spectral_grads_smem_bytes(int M, int G, int P1, int RB, int NJ) {
-  return plan_bytes(make_plan(M, G, P1, RB, NJ, s_per_thread(M, G)));
+  (void)P1;
+  (void)RB;
+  if (M < 3 || M > 4 || G < 1 || G > 4 || NJ < 2 || NJ > NJ_MAX) return -1;
+  return tc::layout(M, G, NJ).bytes;
 }
 
-// Bin ranges for K1 so its grid fills the card about once: the blocks of
-// one range times the ranges stay within the card's resident blocks.
-// Returns the count (>= 1, <= B), or -cudaError on failure.
+// Bin ranges for K1 so its grid fills the card in whole waves. Returns the
+// count (>= 1, <= B), or -cudaError on failure.
 int dau_spectral_grads_ranges(int dtype, int M, int G, int B, int S, int F, int P1, int RB,
                               int NJ) {
-  const size_t smem = (size_t)dau_spectral_grads_smem_bytes(M, G, P1, RB, NJ);
-  return dtype == 0 ? ranges<float>(M, G, B, S, F, smem)
-                    : ranges<__nv_bfloat16>(M, G, B, S, F, smem);
+  const long long smem = dau_spectral_grads_smem_bytes(M, G, P1, RB, NJ);
+  if (smem < 0) return -(int)cudaErrorInvalidValue;
+  return dtype == 0 ? k1_ranges<float>(M, G, B, S, F, (size_t)smem)
+                    : k1_ranges<__nv_bfloat16>(M, G, B, S, F, (size_t)smem);
 }
 
-// K1: xs (B, M, 2N, S), es (B, 2N, F) in dtype (0 f32, 1 bf16); t1 (2*P1,
-// NJ), t2 (2*RB, NJ) f32; idx (2, G, S, F) int32, wts (4, G, S, F) f32;
-// out (R, M, S, G, F) f32 partial sums over R bin ranges. Returns a
-// cudaError_t.
-int dau_spectral_grads_launch(const void* xs, const void* es, const void* t1, const void* t2,
-                              const void* idx, const void* wts, void* out, int dtype, int M,
-                              int G, int B, int N, int S, int F, int P1, int RB, int NJ, int R,
-                              long long smem, void* stream) {
+// K1: xs_t (B, M, K, S8) bf16 and es_t (B, C8, K, 8) bf16 from
+// `fused_bwd.spectral_operands` (K = 2N for dtype 1, bf16 spectra; 12N for
+// dtype 0, f32 spectra split in three; S8 = S rounded up to 8, C8 = 2F / 8
+// rounded up); t1q (P1, 4*(NJ-1)), t2q (RB, 4*(NJ-1)) f32 table quads;
+// idx (2, G, S, F) int32, wts (4, G, S, F) f32; out (R, M, S, G, F) f32
+// partial sums over R bin ranges. dtype picks the rounding of T (0: none,
+// 1: bf16). Returns a cudaError_t.
+int dau_spectral_grads_launch(const void* xs_t, const void* es_t, const void* t1q,
+                              const void* t2q, const void* idx, const void* wts, void* out,
+                              int dtype, int M, int G, int B, int K, int S, int F, int P1, int RB,
+                              int NJ, int R, long long smem, void* stream) {
+  if (B <= 0 || K <= 0 || S <= 0 || F <= 0 || P1 <= 0 || RB <= 0 || R < 1 || R > B ||
+      smem != dau_spectral_grads_smem_bytes(M, G, P1, RB, NJ))
+    return (int)cudaErrorInvalidValue;
+  tc::Maps mp;
+  cudaError_t e = tc::make_maps(&mp, xs_t, es_t, t1q, t2q, M, B, K, S, F, P1, RB, NJ,
+                                tc::tile_f(M, G));
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* ft1 = static_cast<const float*>(t1);
-  const float* ft2 = static_cast<const float*>(t2);
   const int* ii = static_cast<const int*>(idx);
   const float* fw = static_cast<const float*>(wts);
   float* fo = static_cast<float*>(out);
-  int e;
+  int r;
   if (dtype == 0)
-    e = dispatch_grads<float>(M, G, xs, es, ft1, ft2, ii, fw, fo, B, N, S, F, P1, RB, NJ, R,
-                              (size_t)smem, st);
+    r = k1_launch<float>(M, G, mp, ii, fw, fo, B, K, S, F, RB, NJ, R, (size_t)smem, st);
   else if (dtype == 1)
-    e = dispatch_grads<__nv_bfloat16>(M, G, xs, es, ft1, ft2, ii, fw, fo, B, N, S, F, P1, RB,
-                                      NJ, R, (size_t)smem, st);
+    r = k1_launch<__nv_bfloat16>(M, G, mp, ii, fw, fo, B, K, S, F, RB, NJ, R, (size_t)smem, st);
   else
     return (int)cudaErrorInvalidValue;
-  return e < 0 ? -e : e;
+  return -r;
+}
+
+
+// K1's operands (see `prep::operands_kernel`): xs (B, M, 2N, S) and es (B,
+// 2N, F) in dtype (0 f32, 1 bf16), contiguous; a1, a2 (NJ, G, S, F) f32 with
+// element strides a_strides[0..3] and [4..7]; t1 (2*P1, NJ), t2 (2*RB, NJ)
+// f32. Writes idx (2, G, S, F) int32, wts (4, G, S, F) f32, es_t (B, C8, K,
+// 8) bf16, tq (P1 + RB, NJ-1, 4) f32 and, where xs_t is not null, xs_t (B,
+// M, K, S8) bf16. Returns a cudaError_t.
+int dau_spectral_operands_launch(const void* xs, const void* es, const void* a1, const void* a2,
+                                 const long long* a_strides, const void* t1, const void* t2,
+                                 void* idx, void* wts, void* xs_t, void* es_t, void* tq,
+                                 int dtype, int M, int G, int B, int N, int S, int F, int P1,
+                                 int RB, int NJ, void* stream) {
+  if (NJ < 2 || NJ > NJ_MAX || (dtype == 0 && xs_t == nullptr) ||
+      (dtype == 1 && (S % 8 != 0) != (xs_t != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  prep::Args a;
+  a.xs = xs;
+  a.es = es;
+  a.a1 = static_cast<const float*>(a1);
+  a.a2 = static_cast<const float*>(a2);
+  for (int i = 0; i < 4; ++i) {
+    a.a1_st[i] = a_strides[i];
+    a.a2_st[i] = a_strides[4 + i];
+  }
+  a.t1 = static_cast<const float*>(t1);
+  a.t2 = static_cast<const float*>(t2);
+  a.idx = static_cast<int*>(idx);
+  a.wts = static_cast<float*>(wts);
+  a.xs_t = static_cast<__nv_bfloat16*>(xs_t);
+  a.es_t = static_cast<__nv_bfloat16*>(es_t);
+  a.tq = static_cast<float*>(tq);
+  a.M = M, a.G = G, a.B = B, a.N = N, a.S = S, a.F = F, a.P1 = P1, a.RB = RB, a.NJ = NJ;
+  const long long segs = dtype == 0 ? 6 : 1;
+  const long long k = segs * 2 * N;
+  const long long total = (long long)G * S * F + (long long)B * ((2 * F + 7) / 8) * k +
+                          (xs_t ? (long long)B * M * k * ((S + 7) / 8) : 0) +
+                          (long long)(P1 + RB) * (NJ - 1);
+  int sms = 0;
+  cudaError_t e = dau_hopper::sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const long long want = (total + prep::THREADS - 1) / prep::THREADS;
+  const int grid = (int)(want < 16LL * sms ? want : 16LL * sms);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    prep::operands_kernel<float><<<grid, prep::THREADS, 0, st>>>(a);
+  else if (dtype == 1)
+    prep::operands_kernel<__nv_bfloat16><<<grid, prep::THREADS, 0, st>>>(a);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 // K2's dx kernel: esb (B, 2N, F) in dtype; wg (G, S, F) f32; dxs (B, 2N, S)

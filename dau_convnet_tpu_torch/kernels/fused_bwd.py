@@ -41,16 +41,20 @@ import functools
 import torch
 
 from ._build import load_library
-from .forward import _DTYPE_CODE, _MAX_SMEM
+from .forward import _DTYPE_CODE, _MAX_SMEM, split_bf16_3
 
 __all__ = ["FusedPlanError", "spectral_plan", "factored_plan", "fused_spectral_grads",
-           "fused_spectral_grads_plain", "fused_factored_grads_plain"]
+           "fused_spectral_grads_plain", "fused_factored_grads_plain", "spectral_operands",
+           "spectral_table_quads", "bin_ranges"]
 
-# (M, G) pairs the kernel is instantiated for: the M*G*8 f32 sums each
-# thread keeps in registers spill beyond G = 4
+# (M, G) pairs the kernels are instantiated for: the f32 sums each thread
+# keeps in registers spill beyond G = 4
 _FILTERS = (3, 4)
 _MAX_UNITS = 4
 _MAX_EXPONENTS = 64  # table width the dx kernel stages
+_K1_STAGES = 2       # K1's ring (csrc/dau_spectral_grads.cu)
+_K1_ROWS = 64        # K rows per K1 stage
+_K1_WARPGROUPS = 2   # K1's warpgroups, each on its own f of a block
 
 
 class FusedPlanError(ValueError):
@@ -59,9 +63,9 @@ class FusedPlanError(ValueError):
 
 
 def _plan(m: int, g: int, nj: int, p1b: int, rbb: int, st: int):
-    """{'smem': bytes} of a block of st s x 32 f that stages both phase
+    """{'smem': bytes} of a K8 block of st s x 32 f that stages both phase
     tables, its units' taps and 16 images of xs and es; None where the
-    kernels cannot take the shape (M not in (3, 4), G > 4, more than 64
+    kernel cannot take the shape (M not in (3, 4), G > 4, more than 64
     exponents, shared memory above 227 KB)."""
     if m not in _FILTERS or not 1 <= g <= _MAX_UNITS or nj > _MAX_EXPONENTS:
         return None
@@ -72,8 +76,19 @@ def _plan(m: int, g: int, nj: int, p1b: int, rbb: int, st: int):
 
 def spectral_plan(*, m: int, g: int, nj: int, p1b: int, rbb: int):
     """Shape-only plan of the phi-gather kernel K1: {'smem': bytes}, or None
-    where it cannot take the shape (see `_plan`)."""
-    return _plan(m, g, nj, p1b, rbb, 32 if m * g <= 8 else 16)
+    where it cannot take the shape (M not in (3, 4), G > 4, more than 64
+    exponents). A block of 64 s x FT f (FT = 16 at M*G <= 8, else 8) holds
+    two ring stages (the M planes' X tile, the ES tile and the bin's two
+    table rows each), its units' weights and taps and the ring's barriers;
+    the table rows are streamed per bin, so P1 and rb do not enter."""
+    if m not in _FILTERS or not 1 <= g <= _MAX_UNITS or nj > _MAX_EXPONENTS:
+        return None
+    ft, wgs = _k1_tile_f(m, g), _K1_WARPGROUPS
+    row = -(-4 * max(nj - 1, 1) // 32) * 32
+    stage = m * _K1_ROWS * 64 * 2 + 2 * wgs * ft // 8 * _K1_ROWS * 16 + 2 * row * 4
+    units = g * ft // 2 * 128 * wgs * 20
+    smem = 1024 + _K1_STAGES * stage + units + 16 * _K1_STAGES
+    return {"smem": smem} if smem <= _MAX_SMEM else None
 
 
 def factored_plan(*, m: int, g: int, nj: int, p1b: int, rbb: int):
@@ -82,6 +97,67 @@ def factored_plan(*, m: int, g: int, nj: int, p1b: int, rbb: int):
     its P/Q sums fill the registers K1 gives a second s). JAX's VMEM budget
     has no counterpart here."""
     return _plan(m, g, nj, p1b, rbb, 16)
+
+
+def _k1_tile_f(m: int, g: int) -> int:
+    """f per K1 warpgroup (`tile_f` in csrc/dau_spectral_grads.cu): its
+    cross-spectra, gather sums and phase factors fit the registers at 16 up
+    to M*G = 8, else at 8."""
+    return 16 if m * g <= 8 else 8
+
+
+def _interleave(es_k, n_img: int):
+    """ES (B, K, 2F) from re/im-stacked spectra (B, K, F), K a stack of
+    2N-row segments [re; im]: column 2f is [Ere; Eim], column 2f+1 [-Eim;
+    Ere], so X^T . ES gives Tre(s, f) in column 2f and Tim(s, f) in 2f+1."""
+    b, k, f = es_k.shape
+    e = es_k.reshape(b, k // (2 * n_img), 2, n_img, f)
+    odd = torch.stack([-e[:, :, 1], e[:, :, 0]], dim=2)
+    return torch.stack([e, odd], dim=-1).reshape(b, k, 2 * f)
+
+
+def spectral_operands(xs, es, n_img: int):
+    """K1's GEMM operands, both bf16: (xs_t (B, M, K, S8), es_t (B, C8, K,
+    8)). bf16 spectra: K = 2N and xs_t is xs itself (S padded with zeros to
+    S8, a multiple of 8, where it is not one). f32 spectra are split in
+    three bf16 parts (`split_bf16_3`) stacked along K = 12N, x as [x1, x1,
+    x2, x1, x2, x3] against es as [e1, e2, e1, e3, e2, e1]: the six products
+    of K4, ~2**-24 of each f32 product. es_t is the interleaved ES
+    (`_interleave`) chunk-major: column c at chunk c // 8, lane c % 8, the
+    columns past 2F zero (C8 = ceil(2F / 8))."""
+    b, _, _, s = xs.shape
+    es = es.to(xs.dtype)
+    if xs.dtype == torch.float32:
+        x1, x2, x3 = split_bf16_3(xs)
+        e1, e2, e3 = split_bf16_3(es)
+        xs_k = torch.cat([x1, x1, x2, x1, x2, x3], dim=2)
+        es_k = torch.cat([e1, e2, e1, e3, e2, e1], dim=1)
+    else:
+        xs_k, es_k = xs, es
+    s8 = -(-s // 8) * 8
+    if s8 != s:
+        xs_k = torch.nn.functional.pad(xs_k, (0, s8 - s))
+    es_i = _interleave(es_k, n_img)
+    k, f2 = es_i.shape[1:]
+    c8 = -(-f2 // 8)
+    if c8 * 8 != f2:
+        es_i = torch.nn.functional.pad(es_i, (0, c8 * 8 - f2))
+    es_t = es_i.reshape(b, k, c8, 8).transpose(1, 2).contiguous()
+    return xs_k.contiguous(), es_t
+
+
+def spectral_table_quads(t, rows: int):
+    """(rows, NJ-1, 4) f32 quads (c[j], c[j+1], s[j], s[j+1]) of a [cos;
+    sin] table (2*rows, NJ): one 16-byte read gives a tap pair's factors."""
+    c, sn = t[:rows], t[rows:]
+    return torch.stack([c[:, :-1], c[:, 1:], sn[:, :-1], sn[:, 1:]], dim=-1).contiguous()
+
+
+def bin_ranges(b: int, r: int):
+    """The K1 kernel's bin ranges [(begin, end)], r of them at most: blocks
+    of range z take bins [z*per, min(b, (z+1)*per)), per = ceil(b / r)."""
+    per = -(-b // r)
+    return [(z, min(b, z + per)) for z in range(0, b, per)]
 
 
 def _dx_spectra_plain(esb, phire, phiim, wg, n_img: int):
@@ -215,6 +291,38 @@ def _taps(a, cdt):
     return j.int(), w.gather(0, j[None])[0], w.gather(0, (j + 1)[None])[0]
 
 
+def _spectral_operands_cuda(lib, xs, es, a1, a2, t1, t2, n_img: int, p1b: int, rbb: int):
+    """K1's operands on the card, from one launch of the library's operand
+    kernel: (xs_t, es_t, tq, idx, wts) as `spectral_operands`,
+    `spectral_table_quads` (t1's rows, then t2's, rounded to xs's dtype) and
+    `_taps` build them (the card tests hold them equal bit for bit). xs_t is
+    xs itself where it can be read as it is (bf16, S a multiple of 8)."""
+    b, m, _, s = xs.shape
+    f = es.shape[2]
+    nj, g = a1.shape[0], a1.shape[1]
+    dev = xs.device
+    f32 = xs.dtype == torch.float32
+    k = (12 if f32 else 2) * n_img
+    s8 = -(-s // 8) * 8
+    a1, a2 = a1.float(), a2.float()
+    t1, t2 = t1.float().contiguous(), t2.float().contiguous()
+    copy_xs = f32 or s8 != s
+    xs_t = torch.empty((b, m, k, s8), dtype=torch.bfloat16, device=dev) if copy_xs else xs
+    es_t = torch.empty((b, -(-2 * f // 8), k, 8), dtype=torch.bfloat16, device=dev)
+    tq = torch.empty((p1b + rbb, nj - 1, 4), dtype=torch.float32, device=dev)
+    idx = torch.empty((2, g, s, f), dtype=torch.int32, device=dev)
+    wts = torch.empty((4, g, s, f), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 8)(*a1.stride(), *a2.stride())
+    err = lib.dau_spectral_operands_launch(
+        xs.data_ptr(), es.data_ptr(), a1.data_ptr(), a2.data_ptr(), strides, t1.data_ptr(),
+        t2.data_ptr(), idx.data_ptr(), wts.data_ptr(), xs_t.data_ptr() if copy_xs else None,
+        es_t.data_ptr(), tq.data_ptr(), _DTYPE_CODE[xs.dtype], m, g, b, n_img, s, f, p1b, rbb,
+        nj, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_spectral_grads operand launch failed: cudaError {err}")
+    return xs_t, es_t, tq, idx, wts
+
+
 def fused_spectral_grads(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int, rbb: int,
                          esb=None, wg=None, gather: str = "phi"):
     """Unit gradients (M, S, G, F) f32 from the spectra; with esb and wg,
@@ -256,27 +364,33 @@ def fused_spectral_grads(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int, rbb: i
     cdt = xs.dtype
     code = _DTYPE_CODE[cdt]
     es = es.to(cdt).contiguous()
-    t1 = t1.to(cdt).float().contiguous()
-    t2 = t2.to(cdt).float().contiguous()
-    j1, a1lo, a1hi = _taps(a1, cdt)
-    j2, a2lo, a2hi = _taps(a2, cdt)
-    idx = torch.stack([j1, j2]).contiguous()
-    wts = torch.stack([a1lo, a1hi, a2lo, a2hi]).contiguous()
-
     name = "dau_factored_grads" if factored else "dau_spectral_grads"
     lib = _library(name)
     if getattr(lib, f"{name}_smem_bytes")(m, g, p1b, rbb, nj) != plan["smem"]:
         raise RuntimeError(f"fused_spectral_grads ({gather}): the plan disagrees with the "
                            "kernel's")
+    t1r = t2r = None  # the tables rounded to cdt, for K8 and the dx kernel
+    if factored or esb is not None:
+        t1r = t1.to(cdt).float().contiguous()
+        t2r = t2.to(cdt).float().contiguous()
+    if factored:
+        j1, a1lo, a1hi = _taps(a1, cdt)
+        j2, a2lo, a2hi = _taps(a2, cdt)
+        idx = torch.stack([j1, j2]).contiguous()
+        wts = torch.stack([a1lo, a1hi, a2lo, a2hi]).contiguous()
+        ops, rows = (xs, es, t1r, t2r), n_img
+    else:
+        xs_t, es_t, tq, idx, wts = _spectral_operands_cuda(lib, xs, es, a1, a2, t1, t2, n_img,
+                                                           p1b, rbb)
+        ops, rows = (xs_t, es_t, tq, tq[p1b:]), es_t.shape[2]
     r = _ranges(name, code, m, g, b, s, f, p1b, rbb, nj)
     out = torch.empty((r, m, s, g, f), dtype=torch.float32, device=xs.device)
     counts = fused_spectral_grads
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = getattr(lib, f"{name}_launch")(
-            xs.data_ptr(), es.data_ptr(), t1.data_ptr(), t2.data_ptr(), idx.data_ptr(),
-            wts.data_ptr(), out.data_ptr(), code, m, g, b, n_img, s, f, p1b, rbb, nj, r,
-            plan["smem"], stream)
+            *(t.data_ptr() for t in ops), idx.data_ptr(), wts.data_ptr(), out.data_ptr(), code,
+            m, g, b, rows, s, f, p1b, rbb, nj, r, plan["smem"], stream)
         if err != 0:
             raise RuntimeError(f"fused_spectral_grads ({gather}) launch failed: cudaError {err}")
         grads = out[0] if r == 1 else out.sum(dim=0)
@@ -291,7 +405,7 @@ def fused_spectral_grads(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int, rbb: i
         wg = wg.to(cdt).float().contiguous()
         dxs = torch.empty((b, 2 * n_img, s), dtype=torch.float32, device=xs.device)
         err = _library("dau_spectral_grads").dau_spectral_dx_launch(
-            esb.data_ptr(), t1.data_ptr(), t2.data_ptr(), idx.data_ptr(), wts.data_ptr(),
+            esb.data_ptr(), t1r.data_ptr(), t2r.data_ptr(), idx.data_ptr(), wts.data_ptr(),
             wg.data_ptr(), dxs.data_ptr(), code, g, b, n_img, s, f, p1b, rbb, nj, stream)
     if err != 0:
         raise RuntimeError(f"fused_spectral_grads dx launch failed: cudaError {err}")
@@ -333,4 +447,7 @@ def _library(name: str) -> ctypes.CDLL:
     if name == "dau_spectral_grads":
         lib.dau_spectral_dx_launch.argtypes = [c_ptr] * 7 + [c_int] * 9 + [c_ptr]
         lib.dau_spectral_dx_launch.restype = c_int
+        lib.dau_spectral_operands_launch.argtypes = (
+            [c_ptr] * 4 + [ctypes.POINTER(c_ll)] + [c_ptr] * 7 + [c_int] * 10 + [c_ptr])
+        lib.dau_spectral_operands_launch.restype = c_int
     return lib

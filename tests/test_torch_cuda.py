@@ -166,6 +166,48 @@ def test_grad_tables_kernel_edges_match_twin(cuda_device, name, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ks", [19, 33])
+def test_grad_tables_kernel_past_ks17_matches_twin(cuda_device, ks, dtype):
+    # kernel sizes the wrapper refused before it checked the kernel's own
+    # limits: a grid 19*7 and 33*11 blocks deep, taps reaching past the image
+    gen = torch.Generator().manual_seed(ks)
+    xb = torch.randn((1, 5 * 3, 13, 11), generator=gen).reshape(1, 5, 3, 13, 11)
+    err = torch.randn((1, 20, 13, 11), generator=gen)
+    a = xb.permute(2, 0, 1, 3, 4).to(cuda_device, dtype)
+    b = err.to(cuda_device, dtype)
+    before = tkb.grad_tables.launches
+    got = tkb.grad_tables(a, b, ks)
+    torch.cuda.synchronize()
+    assert tkb.grad_tables.launches == before + 1
+    want = tkb.grad_tables_plain(a, b, ks)
+    assert got.shape == want.shape == (3, 5, 20, ks, ks)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_pallas_step_past_ks17_runs_k6(cuda_device):
+    # one AlexNet-DAU SGD step on the 'pallas' engine at max_kernel_size=19
+    # (synthesized ks 19, which K6's wrapper refused before): 4 K6 launches,
+    # a finite loss and finite gradients
+    from dau_convnet_tpu_torch.models import AlexNetDAU
+    from dau_convnet_tpu_torch.parallel.train import make_train_step
+
+    model = AlexNetDAU(num_classes=10, max_kernel_size=19, engine="pallas", image_size=67,
+                       device=cuda_device, generator=torch.Generator().manual_seed(0))
+    assert model.dau_conv3.cfg.synth_kernel_size == 19
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-4))
+    x = torch.rand((2, 3, 67, 67), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    before = tkb.grad_tables.launches
+    loss = step(x, torch.tensor([1, 7], device=cuda_device))
+    torch.cuda.synchronize()
+    assert tkb.grad_tables.launches == before + 4
+    assert bool(torch.isfinite(loss))
+    for name, p in model.named_parameters():
+        assert p.grad is None or bool(torch.isfinite(p.grad).all()), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_aggregate_kernel_matches_twin(cuda_device, name):
     args, interp = _case(name, cuda_device)
@@ -232,7 +274,7 @@ SPECTRAL = {
 
 
 def _spectral_case(name, device, dtype, seed=0):
-    m, n, s, g, f, h = SPECTRAL[name]
+    m, n, s, g, f, h = SPECTRAL[name] if isinstance(name, str) else name
     gen = torch.Generator().manual_seed(seed)
     p1, p2, rb = tfe.plan_bins(h, h, KS)
     span = KS // 2 + 1
@@ -283,6 +325,57 @@ def test_spectral_grads_dx_kernel_matches_twin(cuda_device, name, dtype, bound):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
         assert float((g - w).abs().max()) <= bound * float(w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spectral_grads_kernel_is_deterministic(cuda_device, dtype):
+    # each output is summed by one block per bin range, in one order, and the
+    # ranges by the wrapper: no atomics
+    args, kw, _ = _spectral_case("wide", cuda_device, dtype, seed=3)
+    first = tfb.fused_spectral_grads(*args, **kw)
+    second = tfb.fused_spectral_grads(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+@pytest.mark.parametrize("m", [3, 4])
+def test_spectral_grads_every_instance_matches_twin(cuda_device, m, g):
+    # every (M, G) instance (16 f per block up to M*G = 8, else 8), S and F
+    # over ragged tiles, N = 3 (6 of the 16 rows of a k16 step)
+    for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        args, kw, _ = _spectral_case((m, 3, 70, g, 40, 9), cuda_device, dtype, seed=m * g)
+        before = tfb.fused_spectral_grads.launches_k1
+        got = tfb.fused_spectral_grads(*args, **kw)
+        torch.cuda.synchronize()
+        assert tfb.fused_spectral_grads.launches_k1 == before + 1
+        want = tfb.fused_spectral_grads_plain(*args, **kw)
+        assert got.shape == want.shape == (m, 70, g, 40)
+        assert float((got - want).abs().max()) <= bound * float(want.abs().max()), dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["ragged", "wide"])
+def test_spectral_operand_kernel_matches_the_torch_operands(cuda_device, name, dtype):
+    # K1's operand kernel builds, bit for bit, what `spectral_operands`,
+    # `spectral_table_quads` and `_taps` build in torch (the CPU tests hold
+    # those against the JAX kernel); "ragged" pads S = 37 to 40
+    (xs, es, t1, t2, a1, a2), kw, _ = _spectral_case(name, cuda_device, dtype, seed=4)
+    n, p1, rb = kw["n_img"], kw["p1b"], kw["rbb"]
+    lib = tfb._library("dau_spectral_grads")
+    xs_t, es_t, tq, idx, wts = tfb._spectral_operands_cuda(lib, xs, es, a1, a2, t1, t2, n, p1,
+                                                           rb)
+    torch.cuda.synchronize()
+    want_x, want_e = tfb.spectral_operands(xs, es, n)
+    assert torch.equal(xs_t, want_x) and torch.equal(es_t, want_e)
+    quads = [tfb.spectral_table_quads(t.to(dtype).float(), rows) for t, rows in ((t1, p1), (t2, rb))]
+    assert torch.equal(tq, torch.cat(quads))
+    (j1, a1lo, a1hi), (j2, a2lo, a2hi) = tfb._taps(a1, dtype), tfb._taps(a2, dtype)
+    assert torch.equal(idx, torch.stack([j1, j2]))
+    assert torch.equal(wts, torch.stack([a1lo, a1hi, a2lo, a2hi]))
 
 
 @pytest.mark.cuda

@@ -86,6 +86,21 @@ def test_grad_tables_operands_split_along_the_batch():
     assert bf_err.shape[1] == bf_xb.shape[1] == 2  # no split: N images
 
 
+@pytest.mark.parametrize("ks", [9, 17, 33, 65])
+def test_grad_tables_take_every_tier_kernel_size(ks):
+    # the JAX tiers (utils/tiers.py): K6 takes ks at run time, so its wrapper
+    # accepts every odd ks within the kernel's grid and TMA limits
+    tkb.check_kernel_limits(ks, 96, 27, 27)
+
+
+@pytest.mark.parametrize("ks,limit", [(8, "odd"), (0, "odd"), (443, "z extent")])
+def test_grad_tables_refuse_a_kernel_size_past_the_limits(ks, limit):
+    # 441 * ceil(441 / 3) = 64,827 blocks deep fits; 443 * 148 = 65,564 does not
+    tkb.check_kernel_limits(441, 2, 13, 13)
+    with pytest.raises(ValueError, match=limit):
+        tkb.check_kernel_limits(ks, 2, 13, 13)
+
+
 def test_table_view_is_the_position_major_table():
     m, s, f, ks = 2, 3, 5, 3
     table = torch.arange(ks * ks * f * m * s, dtype=torch.float32).reshape(ks * ks, f, m * s)

@@ -15,7 +15,7 @@ def test_port_imports_no_jax():
         "import dau_convnet_tpu_torch.kernels, dau_convnet_tpu_torch.models\n"
         "import dau_convnet_tpu_torch.nn, dau_convnet_tpu_torch.utils\n"
         "import dau_convnet_tpu_torch.parallel, dau_convnet_tpu_torch.ops.fourier_engine\n"
-        "import dau_convnet_tpu_torch.kernels.fused_bwd\n"
+        "import dau_convnet_tpu_torch.kernels.fused_bwd, dau_convnet_tpu_torch.tools.k1_variants\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'dau_convnet_tpu')]\n"
