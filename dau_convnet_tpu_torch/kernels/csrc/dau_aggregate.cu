@@ -23,16 +23,19 @@
 //     warpgroups per block (272 positions: one 13x13 image, 265 flat
 //     positions, in one block; 27x27, 937 positions, in four); output
 //     channels are wgmma's M, 64 per block, shared by both warpgroups;
-//   - the producer warp stages, per group of 64 input channels, the padded
-//     rows of xb the block's taps reach: one 5-D TMA box (8 channels x Wp
-//     columns x rows x 8 channel chunks) from column -c, row r0 - c. TMA
+//   - the producer warp stages, per group of 64 input channels and band of
+//     kyb tap rows, the padded rows of xb the band's taps reach: one 5-D
+//     TMA box (8 channels x Wp columns x rows x 8 channel chunks) from
+//     column -c, row r0 - c + b*kyb. TMA
 //     reads the halo, the columns between rows and the ragged channels as
 //     zeros, so the wrapper copies no padding. In shared memory a chunk is
 //     the flat padded plane, one pixel per 16 bytes: wgmma's no-swizzle
 //     K-major layout (SBO = 128), in which tap (ky, kx) is the same
-//     descriptor 16*(ky*Wp + kx) bytes on. The window stays for all ks^2
-//     taps (the next one loads meanwhile where the shared memory holds
-//     two);
+//     descriptor 16*((ky - b*kyb)*Wp + kx) bytes on. The window stays for
+//     all the band's taps (the next one loads meanwhile where the shared
+//     memory holds two). Up to ks = 17 at the AlexNet-DAU planes one band
+//     holds all ks tap rows; at ks = 33 and 65 no window of all of them fits
+//     the shared memory, and the plan takes the tallest band that does;
 //   - K streams through a ring of STAGES stages, one tap's 64 f x 64 s
 //     tile (8 KB, 128-byte swizzled as in K7) per stage; each stage feeds
 //     four m64n136k16 per warpgroup;
@@ -63,7 +66,8 @@ template <typename Tout>
 __global__ void __launch_bounds__(THREADS, 1)
 aggregate_kernel(const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap xb_map, Tout* __restrict__ out, int F,
-                 int S8, int H, int W, int ks, int wp, int rows, int nxb) {
+                 int S8, int H, int W, int ks, int kyb, int bands, int wp, int rows,
+                 int nxb) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* a = align1024(smem_raw);  // [STAGES][64 f][64 s], swizzled
   const uint32_t plane = (uint32_t)rows * wp * 16;
@@ -74,8 +78,7 @@ aggregate_kernel(const __grid_constant__ CUtensorMap k_map,
   uint64_t* xempty = xfull + 2;                               // [2]
 
   const int c = ks / 2;
-  const int taps = ks * ks;
-  const int groups = (S8 + SG - 1) / SG;
+  const int windows = (S8 + SG - 1) / SG * bands;
   const int f0 = blockIdx.x * FB;
   const int q0 = blockIdx.y * QB;
   const int n = blockIdx.z;
@@ -93,25 +96,29 @@ aggregate_kernel(const __grid_constant__ CUtensorMap k_map,
 
   if (threadIdx.x / 32 == 4 * CONSUMERS) {  // the producer warp
     if (threadIdx.x % 32 == 0) {
-      auto load_window = [&](int g) {
-        const int slot = g % nxb;
-        mbar_wait(&xempty[slot], ((g / nxb) & 1) ^ 1);
+      // window wi: group wi / bands, band wi % bands, whose rows start kyb
+      // padded rows below the previous band's
+      auto load_window = [&](int wi) {
+        const int slot = wi % nxb;
+        const int g = wi / bands;
+        mbar_wait(&xempty[slot], ((wi / nxb) & 1) ^ 1);
         mbar_expect_tx(&xfull[slot], 8 * plane);
-        tma_load_5d(xb + slot * window, &xb_map, &xfull[slot], 0, -c, r0 - c, n, g * 8);
+        tma_load_5d(xb + slot * window, &xb_map, &xfull[slot], 0, -c,
+                    r0 - c + (wi - g * bands) * kyb, n, g * 8);
       };
-      // with two windows, window g + 1 is loaded during group g, once the
-      // consumers have passed group g's first tap (and so freed window g - 1);
-      // with one, after group g's last K tile is issued
-      const int prefetch_at = nxb == 2 ? min(STAGES, taps - 1) : taps - 1;
+      // with two windows, window wi + 1 is loaded during window wi, once the
+      // consumers have passed its first tap (and so freed window wi - 1);
+      // with one, after window wi's last K tile is issued
       load_window(0);
-      produce_k(a, ring, &k_map, groups, taps, f0, [&](int g, int p) {
-        if (p == prefetch_at && g + 1 < groups) load_window(g + 1);
+      produce_k(a, ring, &k_map, windows, ks, kyb, bands, f0, [&](int wi, int i, int taps) {
+        const int prefetch_at = nxb == 2 ? min(STAGES, taps - 1) : taps - 1;
+        if (i == prefetch_at && wi + 1 < windows) load_window(wi + 1);
       });
     }
     return;
   }
-  consume<Tout>(a, xb, window, plane, ring, xfull, xempty, out, F, S8, H, W, ks, wp, nxb, f0,
-                q0, n, off);
+  consume<Tout>(a, xb, window, plane, ring, xfull, xempty, out, F, S8, H, W, ks, kyb, bands, wp,
+                nxb, f0, q0, n, off);
 }
 
 template <typename Tout>
@@ -121,7 +128,8 @@ cudaError_t launch(const CUtensorMap& k_map, const CUtensorMap& xb_map, void* ou
   if (e != cudaSuccess) return e;
   const dim3 grid((F + FB - 1) / FB, p.tiles, N);
   aggregate_kernel<Tout><<<grid, THREADS, p.smem, stream>>>(
-      k_map, xb_map, static_cast<Tout*>(out), F, S8, H, W, ks, p.wp, p.rows, p.nxb);
+      k_map, xb_map, static_cast<Tout*>(out), F, S8, H, W, ks, p.kyb, p.bands, p.wp, p.rows,
+      p.nxb);
   return cudaGetLastError();
 }
 
@@ -129,8 +137,9 @@ cudaError_t launch(const CUtensorMap& k_map, const CUtensorMap& xb_map, void* ou
 
 extern "C" {
 
-// The dynamic shared memory a launch at (H, W, ks) takes, or -1 where its
-// staged window does not fit (the wrapper raises on -1).
+// The dynamic shared memory a launch at (H, W, ks) takes, or -1 where no
+// band of its staged window fits (the wrapper refuses such a shape first,
+// through `forward.aggregate_plan`).
 long long dau_aggregate_smem_bytes(int H, int W, int ks) {
   if (H <= 0 || W <= 0 || ks < 1 || ks % 2 == 0) return -1;
   const Plan p = make_plan(H, W, ks);

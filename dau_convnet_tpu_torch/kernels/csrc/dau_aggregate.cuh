@@ -6,21 +6,29 @@
 // image, y[f,q] = sum_p K_p[f,:] . xb[:, q + ky*Wp + kx] on the row-strided
 // flat plane (row stride Wp = W + ks - 1, output q = i*Wp + j, tap p = ky*ks
 // + kx): ks^2 GEMMs on the tensor cores, bf16 operands, f32 sums.
-//   - the staged window: per group of SG = 64 input channels, 8 chunks of 8
-//     channels, each the flat padded plane of the rows the block's taps
-//     reach, one 16-byte pixel of 8 channels per row of wgmma's no-swizzle
-//     K-major layout (SBO = 128): tap (ky, kx) is the same descriptor
-//     16*(ky*Wp + kx) bytes on. Pixels outside the image (the halo, the
-//     columns between rows, the rows past the image) hold zeros. Window g
-//     sits in slot g % nxb; its "full" barrier completes when it is staged,
-//     its "empty" barrier when the 256 consumer threads are done with it;
+//   - the staged window: per group of SG = 64 input channels and band of
+//     kyb tap rows, 8 chunks of 8 channels, each the flat padded plane of
+//     the rows the block's taps of that band reach, one 16-byte pixel of 8
+//     channels per row of wgmma's no-swizzle K-major layout (SBO = 128):
+//     tap (ky, kx) of band b is the same descriptor 16*((ky - b*kyb)*Wp +
+//     kx) bytes on. Pixels outside the image (the halo, the columns between
+//     rows, the rows past the image) hold zeros. Windows go in (group,
+//     band) order; window i sits in slot i % nxb, its "full" barrier
+//     completes when it is staged, its "empty" barrier when the 256
+//     consumer threads are done with it. One band (kyb = ks) covers every
+//     tap row where the window fits; a larger ks (the tiers 33 and 65)
+//     takes several bands, so a window holds the reach of kyb tap rows,
+//     not of all ks;
 //   - K streams through a ring of STAGES stages, one tap's 64 f x 64 s tile
 //     (8 KB, 128-byte swizzled) per stage, loaded by TMA from a (ks*ks, F,
-//     S8) bf16 tensor; each stage feeds four m64n136k16 per warpgroup;
-//   - the sums stay in registers (68 per thread, folded every few taps into
-//     68 more) and are stored straight to (N, F, H, W); the flat plane's
-//     dead columns (j >= W) and rows past the image are not stored;
-//   - each output is summed by one block in one fixed order: no atomics;
+//     S8) bf16 tensor in (group, tap) order, which is also (group, band,
+//     tap); each stage feeds four m64n136k16 per warpgroup;
+//   - the sums stay in registers (68 per thread, folded every few taps of a
+//     group, counted across its bands, into 68 more) and are stored
+//     straight to (N, F, H, W); the flat plane's dead columns (j >= W) and
+//     rows past the image are not stored;
+//   - each output is summed by one block in one fixed order: no atomics,
+//     whatever the number of bands;
 //   - K5 runs two blocks as a cluster, which write each other's windows:
 //     the consumers then wait for a window at cluster scope and free it in
 //     both blocks (`consume<..., true>`).
@@ -49,11 +57,13 @@ constexpr size_t MAX_SMEM = 232448;    // 227 KB per block
 
 __host__ __device__ constexpr uint32_t round128(uint32_t v) { return (v + 127) / 128 * 128; }
 
-// The staged window of a launch: padded rows per window, the bytes of one
-// chunk (a flat plane of rows x Wp pixels) and of a window (8 chunks), the
-// windows in flight and the dynamic shared memory. smem = 0: no plan.
+// The staged window of a launch: padded rows per window, the tap rows per
+// band (kyb) and the bands, the bytes of one chunk (a flat plane of rows x
+// Wp pixels) and of a window (8 chunks), the windows in flight and the
+// dynamic shared memory. smem = 0: no plan. (`kernels/forward.py` mirrors
+// the plans of this file and of dau_forward_fused.cu.)
 struct Plan {
-  int wp, tiles, rows, nxb;
+  int wp, tiles, rows, nxb, kyb, bands;
   uint32_t plane, window;
   size_t smem;
 };
@@ -64,15 +74,19 @@ inline size_t smem_for(int nxb, uint32_t window) {
   return 1024 + STAGES * A_BYTES + nxb * round128(window) + sizeof(Ring<STAGES>) + 4 * 8;
 }
 
-// The window's geometry at (H, W, ks), without nxb and smem.
-inline Plan window_plan(int H, int W, int ks) {
+// The window's geometry at (H, W, ks) with bands of kyb tap rows, without
+// nxb and smem: the rows that a tile's QB positions reach through kyb tap
+// rows and all ks tap columns.
+inline Plan window_plan(int H, int W, int ks, int kyb) {
   Plan p{};
   p.wp = W + ks - 1;
+  p.kyb = kyb;
+  p.bands = (ks + kyb - 1) / kyb;
   const int flat = (H - 1) * p.wp + W;  // the output positions a block may own
   p.tiles = (flat + QB - 1) / QB;
   for (int t = 0; t < p.tiles; ++t) {
     const int off = (t * QB) % p.wp;  // the tile's first column in its first row
-    const int rows = (off + QB + (ks - 1) * (p.wp + 1) + p.wp - 1) / p.wp;
+    const int rows = (off + QB + (kyb - 1) * p.wp + ks - 1 + p.wp - 1) / p.wp;
     p.rows = rows > p.rows ? rows : p.rows;
   }
   p.plane = (uint32_t)p.rows * p.wp * 16;
@@ -80,17 +94,24 @@ inline Plan window_plan(int H, int W, int ks) {
   return p;
 }
 
-// K4's plan: two windows where they fit, else one; a TMA box side holds at
-// most 256.
+// K4's plan: the largest kyb whose window fits, two windows where they fit,
+// else one (kyb = ks where that fits: one band). A TMA box side holds at
+// most 256: a padded row wider than that has no plan, a window of more
+// rows takes thinner bands.
 inline Plan make_plan(int H, int W, int ks) {
-  Plan p = window_plan(H, W, ks);
-  if (p.wp > 256 || p.rows > 256) return p;
-  for (p.nxb = 2; p.nxb >= 1; --p.nxb)
-    if (smem_for(p.nxb, p.window) <= MAX_SMEM) {
-      p.smem = smem_for(p.nxb, p.window);
-      return p;
-    }
+  Plan p{};
+  for (int kyb = ks; kyb >= 1; --kyb) {
+    p = window_plan(H, W, ks, kyb);
+    if (p.wp > 256) break;
+    if (p.rows > 256) continue;
+    for (p.nxb = 2; p.nxb >= 1; --p.nxb)
+      if (smem_for(p.nxb, p.window) <= MAX_SMEM) {
+        p.smem = smem_for(p.nxb, p.window);
+        return p;
+      }
+  }
   p.nxb = 0;
+  p.smem = 0;
   return p;
 }
 
@@ -99,25 +120,25 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// The two consumer warpgroups (warps 0-7) of a block: for every group of SG
-// input channels, wait for its window, run the ks^2 taps against the K ring
-// and free the window; then store the block's outputs. `xb` is the first
-// window slot, `window` the (128-rounded) bytes between slots; q0 is the
-// block's first flat position, off its pixel in the window. kPeer: another
-// block of the cluster may write this block's windows too (K5), so the
-// window barriers are waited on at cluster scope, and where peer_xempty (a
-// shared::cluster address of the peer block's xempty) is not 0 each window
-// is also freed there.
+// The two consumer warpgroups (warps 0-7) of a block: for every window
+// (group of SG input channels, band of kyb tap rows), wait for it, run the
+// band's taps against the K ring and free it; then store the block's
+// outputs. `xb` is the first window slot, `window` the (128-rounded) bytes
+// between slots; q0 is the block's first flat position, off its pixel in
+// the window. kPeer: another block of the cluster may write this block's
+// windows too (K5), so the window barriers are waited on at cluster scope,
+// and where peer_xempty (a shared::cluster address of the peer block's
+// xempty) is not 0 each window is also freed there.
 template <typename Tout, bool kPeer = false>
 __device__ __forceinline__ void consume(uint8_t* a, uint8_t* xb, uint32_t window, uint32_t plane,
                                         Ring<STAGES>& ring, uint64_t* xfull, uint64_t* xempty,
                                         Tout* __restrict__ out, int F, int S8, int H, int W,
-                                        int ks, int wp, int nxb, int f0, int q0, int n, int off,
-                                        uint32_t peer_xempty = 0) {
+                                        int ks, int kyb, int bands, int wp, int nxb, int f0,
+                                        int q0, int n, int off, uint32_t peer_xempty = 0) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int taps = ks * ks;
-  const int groups = (S8 + SG - 1) / SG;
+  const int windows = (S8 + SG - 1) / SG * bands;
   constexpr int fold = sizeof(Tout) == 4 ? FOLD_F32 : FOLD_BF16;
   const int wg = warp / 4;
   float acc[NP / 2];  // the wgmmas' sums since the last fold
@@ -127,17 +148,20 @@ __device__ __forceinline__ void consume(uint8_t* a, uint8_t* xb, uint32_t window
 
   RingPos<STAGES> pos;
   int pending = -1;  // the K stage whose wgmmas may still be reading it
-  for (int g = 0; g < groups; ++g) {
-    const int slot = g % nxb;
-    mbar_wait<kPeer>(&xfull[slot], (g / nxb) & 1);
+  for (int wi = 0; wi < windows; ++wi) {
+    const int g = wi / bands;
+    const int ky0 = (wi - g * bands) * kyb;  // the band's first tap row
+    const int slot = wi % nxb;
+    mbar_wait<kPeer>(&xfull[slot], (wi / nxb) & 1);
     __syncwarp();
     const int ksteps = min(SG, S8 - g * SG + 15) / 16;  // k16 steps with channels left
     // the warpgroup's first flat position; chunk pairs 2*plane apart
     const uint64_t db0 =
         make_desc(xb + slot * window + 16 * (off + wg * NP), plane, 128, kNoSwizzle);
-    for (int p = 0; p < taps; ++p) {
+    const int p_end = min(ks, ky0 + kyb) * ks;  // one past the band's last tap
+    for (int p = ky0 * ks; p < p_end; ++p) {
       const int ky = p / ks;
-      const uint64_t db = desc_advance(db0, 16 * (ky * wp + p - ky * ks));
+      const uint64_t db = desc_advance(db0, 16 * ((ky - ky0) * wp + p - ky * ks));
       pos.wait_full(ring);
       const uint64_t da = make_desc(a + pos.stage * A_BYTES, 16, 1024, kSwizzle128);
       fence_regs(acc);
@@ -152,23 +176,27 @@ __device__ __forceinline__ void consume(uint8_t* a, uint8_t* xb, uint32_t window
       if (pending >= 0) mbar_arrive(&ring.empty[pending]);
       pending = pos.stage;
       pos.next();
-      if ((p + 1) % fold == 0 || p + 1 == taps) {
-        // the tensor cores round each running f32 sum toward zero, a bias
-        // that grows with the number of k16 steps summed into it: every
-        // `fold` taps the partial sums are added into `sum` on the FMA
-        // units (rounded to nearest) and restarted from zero
+      // the tensor cores round each running f32 sum toward zero, a bias
+      // that grows with the number of k16 steps summed into it: every
+      // `fold` taps of the group (counted across its bands) the partial
+      // sums are added into `sum` on the FMA units (rounded to nearest) and
+      // restarted from zero
+      const bool fold_now = (p + 1) % fold == 0 || p + 1 == taps;
+      if (fold_now || p + 1 == p_end) {  // and the band's window is freed after its last tap
         wgmma_wait<0>();
         fence_regs(acc);
         mbar_arrive(&ring.empty[pending]);
         pending = -1;
+        if (fold_now) {
 #pragma unroll
-        for (int v = 0; v < NP / 2; ++v) {
-          sum[v] += acc[v];
-          acc[v] = 0.f;
+          for (int v = 0; v < NP / 2; ++v) {
+            sum[v] += acc[v];
+            acc[v] = 0.f;
+          }
         }
       }
     }
-    mbar_arrive(&xempty[slot]);  // the fold at the last tap waited for every wgmma on it
+    mbar_arrive(&xempty[slot]);  // the wait at the band's last tap covered every wgmma on it
     if constexpr (kPeer) {
       if (peer_xempty != 0) mbar_arrive_cluster(peer_xempty + 8 * slot);
     }
@@ -194,19 +222,25 @@ __device__ __forceinline__ void consume(uint8_t* a, uint8_t* xb, uint32_t window
   }
 }
 
-// The K producer: one lane streams every group's ks^2 K tiles (64 f x 64 s,
-// from F tile f0) through the ring. `between(g, p)` runs after tap p of
-// group g is issued (K4 loads its next window from there).
+// The K producer: one lane streams the K tiles (64 f x 64 s, from F tile
+// f0) of every window's taps through the ring: for group g and band b, the
+// taps of tap rows b*kyb .. min(ks, (b+1)*kyb) - 1. `between(wi, i, n)`
+// runs after the i-th of the n taps of window wi is issued (K4 loads its
+// next window from there).
 template <typename Between>
 __device__ __forceinline__ void produce_k(uint8_t* a, Ring<STAGES>& ring, const CUtensorMap* k_map,
-                                          int groups, int taps, int f0, Between between) {
+                                          int windows, int ks, int kyb, int bands, int f0,
+                                          Between between) {
   RingPos<STAGES> pos;
-  for (int g = 0; g < groups; ++g) {
-    for (int p = 0; p < taps; ++p) {
+  for (int wi = 0; wi < windows; ++wi) {
+    const int g = wi / bands;
+    const int p0 = (wi - g * bands) * kyb * ks;
+    const int p1 = min(ks * ks, p0 + kyb * ks);
+    for (int p = p0; p < p1; ++p) {
       uint64_t* full = pos.acquire(ring, A_BYTES);
       tma_load_3d(a + pos.stage * A_BYTES, k_map, full, g * SG, f0, p);
       pos.next();
-      between(g, p);
+      between(wi, p - p0, p1 - p0);
     }
   }
 }

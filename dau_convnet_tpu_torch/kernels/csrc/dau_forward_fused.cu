@@ -51,8 +51,13 @@
 //     and the rows past the image hold the zeros written once at the
 //     start; (e) `fence.proxy.async` before the window's full barrier makes
 //     the stores visible to wgmma;
-//   - with two windows the blur of group g + 1 runs during the wgmmas of
-//     group g;
+//   - with two windows the blur of the next window runs during the wgmmas
+//     of this one;
+//   - where ks is too large for one window of all its tap rows (the tiers
+//     33 and 65), K4's plan cuts the taps into bands of kyb tap rows, one
+//     window per (group, band): the blur warps blur the raw rows each band
+//     reaches (with the kb - 1 halo rows) and write zeros into the window
+//     rows outside the image, which move from band to band;
 //   - the blur warps are the kernel's bottleneck: every F tile of the same
 //     pixels needs the same window. Where the F tiles pair up, two
 //     neighbouring tiles run as a cluster of two blocks, and each block
@@ -81,7 +86,9 @@ constexpr int FPAD = 3;        // zeros on each side of a filter row (TPX - 1)
 // up to an odd number: the blur threads of a warp read the same column of
 // consecutive rows, and an odd pitch of 16-byte pixels puts each 8 of them
 // on distinct banks), rc raw chunks per TMA box, nbuf raw buffers, `raw`
-// bytes per raw chunk, `filt` bytes of padded filter rows.
+// bytes per raw chunk, `filt` bytes of padded filter rows. As K4's plan, the
+// largest band of kyb tap rows whose buffers fit (kyb = ks where they do);
+// a raw row wider than a TMA box side (256) has no plan.
 struct FusedPlan {
   Plan win;
   int vr, rr, rwp, rc, nbuf;
@@ -90,28 +97,34 @@ struct FusedPlan {
 
 inline FusedPlan make_fused_plan(int H, int W, int ks, int kb, int in_bytes) {
   FusedPlan p{};
-  p.win = window_plan(H, W, ks);
-  for (int t = 0; t < p.win.tiles; ++t) {
-    const int top = (t * QB) / p.win.wp - ks / 2;  // the image row of the window's first row
-    const int lo = top > 0 ? top : 0;
-    const int hi = top + p.win.rows < H ? top + p.win.rows : H;
-    p.vr = hi - lo > p.vr ? hi - lo : p.vr;
-  }
-  p.rr = p.vr + kb - 1;
-  p.rwp = (W + kb - 1) | 1;
-  p.raw = (uint32_t)p.rr * p.rwp * 8 * in_bytes;
-  p.filt = (uint32_t)(kb * (kb + 2 * FPAD) * 4 + 15) / 16 * 16;
-  if (p.rr > 256 || p.rwp > 256) return p;  // a TMA box side holds at most 256
-  for (p.win.nxb = 2; p.win.nxb >= 1; --p.win.nxb)
-    for (p.nbuf = 2; p.nbuf >= 1; --p.nbuf)
-      for (p.rc = 8; p.rc >= 1; p.rc /= 2) {
-        const size_t smem = smem_for(p.win.nxb, p.win.window) +
-                            p.nbuf * round128(p.rc * p.raw) + p.filt + 4 * 8;
-        if (smem <= MAX_SMEM) {
-          p.win.smem = smem;
-          return p;
-        }
+  for (int kyb = ks; kyb >= 1; --kyb) {
+    p = FusedPlan{};
+    p.win = window_plan(H, W, ks, kyb);
+    for (int t = 0; t < p.win.tiles; ++t)
+      for (int b = 0; b < p.win.bands; ++b) {
+        // the image row of the window's first row
+        const int top = (t * QB) / p.win.wp - ks / 2 + b * kyb;
+        const int lo = top > 0 ? top : 0;
+        const int hi = top + p.win.rows < H ? top + p.win.rows : H;
+        p.vr = hi - lo > p.vr ? hi - lo : p.vr;
       }
+    p.rr = p.vr + kb - 1;
+    p.rwp = (W + kb - 1) | 1;
+    p.raw = (uint32_t)p.rr * p.rwp * 8 * in_bytes;
+    p.filt = (uint32_t)(kb * (kb + 2 * FPAD) * 4 + 15) / 16 * 16;
+    if (p.rwp > 256) break;  // a TMA box side holds at most 256
+    if (p.rr > 256) continue;
+    for (p.win.nxb = 2; p.win.nxb >= 1; --p.win.nxb)
+      for (p.nbuf = 2; p.nbuf >= 1; --p.nbuf)
+        for (p.rc = 8; p.rc >= 1; p.rc /= 2) {
+          const size_t smem = smem_for(p.win.nxb, p.win.window) +
+                              p.nbuf * round128(p.rc * p.raw) + p.filt + 4 * 8;
+          if (smem <= MAX_SMEM) {
+            p.win.smem = smem;
+            return p;
+          }
+        }
+  }
   p.win.nxb = 0;
   return p;
 }
@@ -155,8 +168,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap x_map, const float* __restrict__ filt,
                      T* __restrict__ out, int F, int S, int parts, int S8, int H, int W, int ks,
-                     int kb, int wp, int rows, int nxb, int rc, int nbuf, int rr, int rwp,
-                     int csize) {
+                     int kb, int kyb, int bands, int wp, int rows, int nxb, int rc, int nbuf,
+                     int rr, int rwp, int csize) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* a = align1024(smem_raw);  // [STAGES][64 f][64 s], swizzled
   const uint32_t plane = (uint32_t)rows * wp * 16;
@@ -175,7 +188,7 @@ fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
   uint64_t* rawempty = xfull + 6;                             // [2]
 
   const int c = ks / 2;
-  const int groups = (S8 + SG - 1) / SG;
+  const int windows = (S8 + SG - 1) / SG * bands;  // (group, band) windows
   const int f0 = blockIdx.x * FB;
   const int q0 = blockIdx.y * QB;
   const int n = blockIdx.z;
@@ -211,12 +224,12 @@ fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
 
   if (warp == 4 * CONSUMERS) {  // the K warp
     if (threadIdx.x % 32 == 0)
-      produce_k(a, ring, &k_map, groups, ks * ks, f0, [](int, int) {});
+      produce_k(a, ring, &k_map, windows, ks, kyb, bands, f0, [](int, int, int) {});
     return;
   }
   if (warp < 4 * CONSUMERS) {
-    consume<T, true>(a, xb, window, plane, ring, xfull, xempty, out, F, S8, H, W, ks, wp, nxb,
-                     f0, q0, n, off, csize > 1 ? cluster_map(xempty, peer) : 0);
+    consume<T, true>(a, xb, window, plane, ring, xfull, xempty, out, F, S8, H, W, ks, kyb, bands,
+                     wp, nxb, f0, q0, n, off, csize > 1 ? cluster_map(xempty, peer) : 0);
     return;
   }
 
@@ -224,70 +237,83 @@ fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
   const int bt = threadIdx.x - (4 * CONSUMERS + 1) * 32;
   const int cb = kb / 2;
 
-  const int top = r0 - c;  // the image row of the window's first row
-  const int lo = top > 0 ? top : 0;
-  const int vr = (top + rows < H ? top + rows : H) - lo;  // image rows in the window
+  // band b's window starts at image row r0 - c + b*kyb; rows lo .. hi - 1
+  // of it lie inside the image
+  auto band_top = [&](int b) { return r0 - c + b * kyb; };
+  auto band_lo = [&](int b) { return max(band_top(b), 0); };
+  auto band_hi = [&](int b) { return min(band_top(b) + rows, H); };
+  // with one band every window holds the same rows, and the rows outside
+  // the image keep the zeros written at the start; with several, a slot's
+  // rows move from window to window, so the blur threads cover every row
+  // and write zeros outside the image
+  const int nrows = bands > 1 ? rows : band_hi(0) - band_lo(0);
   const int strips = (W + TPX - 1) / TPX;
   const int stacked = parts * S;
-  const int batches = 8 / rc;  // raw boxes per group
+  const int batches = 8 / rc;  // raw boxes per window
   // the chunks this block blurs: those of its rank; with one chunk per box,
   // the boxes of its rank
   const bool split = rc >= csize;
   const int own = split ? rc / csize : 1;              // chunks blurred per box
-  const int boxes = split ? batches : batches / csize;  // boxes loaded per group
-  const int total = groups * boxes;
-  const int blur_items = own * strips * vr;
-  // the k-th box this block loads (of all boxes: group j / batches, chunks
-  // j * rc .. j * rc + rc - 1 of the stack)
+  const int boxes = split ? batches : batches / csize;  // boxes loaded per window
+  const int total = windows * boxes;
+  const int blur_items = own * strips * nrows;
+  // the k-th box this block loads (of all boxes: window k / boxes; of the
+  // stack, chunks j * rc .. j * rc + rc - 1, group j / batches)
   auto box_of = [&](int k) {
-    return k / boxes * batches + (split ? k % boxes : k % boxes * csize + (int)rank);
+    return k / boxes / bands * batches + (split ? k % boxes : k % boxes * csize + (int)rank);
   };
-  // (a) box k: image rows lo - cb .. lo - cb + rr - 1, columns -cb .. rwp -
-  // cb - 1, into buffer k % nbuf once every blur thread is done with box k -
-  // nbuf
+  // (a) box k: image rows lo - cb .. lo - cb + rr - 1 of its window's band,
+  // columns -cb .. rwp - cb - 1, into buffer k % nbuf once every blur
+  // thread is done with box k - nbuf
   auto load_box = [&](int k) {
     uint64_t* bar = &rawfull[k % nbuf];
     mbar_wait(&rawempty[k % nbuf], ((k / nbuf) & 1) ^ 1);
     mbar_expect_tx(bar, raw_bytes);
-    tma_load_5d(raw + (k % nbuf) * round128(raw_bytes), &x_map, bar, 0, -cb, lo - cb, n,
-                box_of(k) * rc);
+    tma_load_5d(raw + (k % nbuf) * round128(raw_bytes), &x_map, bar, 0, -cb,
+                band_lo(k / boxes % bands) - cb, n, box_of(k) * rc);
   };
   if (bt == 0)
     for (int k = 0; k < nbuf - 1 && k < total; ++k) load_box(k);
-  for (int g = 0; g < groups; ++g) {
-    const int slot = g % nxb;
+  for (int wi = 0; wi < windows; ++wi) {
+    const int slot = wi % nxb;
+    const int g = wi / bands;
+    const int b = wi - g * bands;
+    const int top = band_top(b);
+    const int lo = band_lo(b);
+    const int hi = band_hi(b);
+    const int first_row = bands > 1 ? top : lo;  // the image row of item row 0
     uint8_t* win = xb + slot * window;
     const uint32_t peer_win = csize > 1 ? cluster_map(win, peer) : 0;
-    mbar_wait<true>(&xempty[slot], ((g / nxb) & 1) ^ 1);
+    mbar_wait<true>(&xempty[slot], ((wi / nxb) & 1) ^ 1);
     for (int kk = 0; kk < boxes; ++kk) {
-      const int k = g * boxes + kk;
+      const int k = wi * boxes + kk;
       const int b0 = box_of(k) % batches * rc;  // the box's first chunk in the window
       if (bt == 0 && k + nbuf - 1 < total) load_box(k + nbuf - 1);
       mbar_wait(&rawfull[k % nbuf], (k / nbuf) & 1);
       const T* box = reinterpret_cast<const T*>(raw + (k % nbuf) * round128(raw_bytes));
       // (b-d) blur TPX output pixels x 8 channels per item in f32, write the
-      // pixels inside the image into the window; consecutive threads take
-      // consecutive rows, and the items of all boxes are dealt round-robin
-      // as one sequence, so a box whose items do not fill the last round
-      // leaves no thread idle
+      // pixels inside the image into the window (zeros in the rows outside
+      // it); consecutive threads take consecutive rows, and the items of
+      // all boxes are dealt round-robin as one sequence, so a box whose
+      // items do not fill the last round leaves no thread idle
       const int first = (bt - k * blur_items % BLUR + BLUR) % BLUR;
       for (int it = first; it < blur_items; it += BLUR) {
-        const int oi = it / (strips * vr);
+        const int oi = it / (strips * nrows);
         const int ci = split ? oi * csize + (int)rank : 0;  // the chunk's place in the box
-        const int rem = it - oi * strips * vr;
-        const int col0 = rem / vr * TPX;
-        const int v = rem - rem / vr * vr;
+        const int rem = it - oi * strips * nrows;
+        const int col0 = rem / nrows * TPX;
+        const int row = first_row + rem - rem / nrows * nrows;  // its image row
         const int chunk = b0 + ci;
         const int base = (g * 8 + chunk) * 8;
         const int ncol = W - col0 < TPX ? W - col0 : TPX;
-        const uint32_t at = chunk * plane + ((lo + v - top) * wp + col0 + c) * 16;
+        const uint32_t at = chunk * plane + ((row - top) * wp + col0 + c) * 16;
         float acc[TPX][8];
 #pragma unroll
         for (int o = 0; o < TPX; ++o)
 #pragma unroll
           for (int l = 0; l < 8; ++l) acc[o][l] = 0.f;
-        if (base < stacked) {
-          const T* rp = box + ((size_t)ci * raw_px + v * rwp + col0) * 8;
+        if (base < stacked && row >= lo && row < hi) {
+          const T* rp = box + ((size_t)ci * raw_px + (row - lo) * rwp + col0) * 8;
           for (int dy = 0; dy < kb; ++dy) {
             const float* frow = fp + dy * fl;
             // wt[o] = filt[dy][jj - o] at raw column jj: frow[jj - o + FPAD],
@@ -340,8 +366,8 @@ fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
   // the peer's consumers free these windows remotely: stay until they have,
   // so that no arrival lands on a block that has exited
   if (csize > 1)
-    for (int g = groups > nxb ? groups - nxb : 0; g < groups; ++g)
-      mbar_wait<true>(&xempty[g % nxb], (g / nxb) & 1);
+    for (int wi = windows > nxb ? windows - nxb : 0; wi < windows; ++wi)
+      mbar_wait<true>(&xempty[wi % nxb], (wi / nxb) & 1);
 }
 
 template <typename T>
@@ -378,8 +404,9 @@ cudaError_t launch(const CUtensorMap& k_map, const void* x_t, const float* filt,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, fused_forward_kernel<T>, k_map, x_map, filt,
-                           static_cast<T*>(out), F, S, parts, S8, H, W, ks, kb, p.win.wp,
-                           p.win.rows, p.win.nxb, p.rc, p.nbuf, p.rr, p.rwp, csize);
+                           static_cast<T*>(out), F, S, parts, S8, H, W, ks, kb, p.win.kyb,
+                           p.win.bands, p.win.wp, p.win.rows, p.win.nxb, p.rc, p.nbuf, p.rr,
+                           p.rwp, csize);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -14,6 +14,9 @@ call raises.
 Both kernels run one mainloop (`csrc/dau_aggregate.cuh`): the ks*ks taps as
 shifted windows of a flat padded plane staged in shared memory, bf16
 products on the tensor cores with f32 sums, and return the input's dtype.
+Where ks is too large for one window of all its tap rows, the window holds
+a band of kyb tap rows at a time; `aggregate_plan` and `fused_plan` mirror
+the kernels' plans, and the wrappers refuse through them before any launch.
 Their wrappers build the same K operand (`aggregate_kernel_operand`): the
 synthesized aggregation kernel (`synthesize_kernel_pfs`, in w's dtype, as
 the JAX wrappers build it) as (ks*ks, F, S8) bf16, split in three
@@ -39,10 +42,104 @@ from ._build import load_library
 
 __all__ = ["dau_forward_fused", "dau_forward_fused_plain", "aggregate_forward",
            "aggregate_forward_plain", "aggregate_forward_operands", "aggregate_kernel_operand",
-           "fused_forward_operands", "chunk_major", "split_bf16", "split_bf16_3"]
+           "fused_forward_operands", "aggregate_plan", "fused_plan", "chunk_major",
+           "split_bf16", "split_bf16_3"]
 
 _MAX_SMEM = 227 * 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the geometry of K4's and K5's mainloop (csrc/dau_aggregate.cuh,
+# csrc/dau_forward_fused.cu), which `aggregate_plan` and `fused_plan` mirror
+_QB = 272               # flat output positions per block
+_K_RING = 6 * 64 * 64 * 2  # STAGES K tiles of 64 f x 64 s, bf16
+_RING_BARRIERS = 2 * 6 * 8
+_TMA_BOX_MAX = 256
+_FPAD = 3               # zeros on each side of a staged filter row
+
+
+def _round128(v: int) -> int:
+    return -(-v // 128) * 128
+
+
+def _smem_for(nxb: int, window: int) -> int:
+    """`smem_for`: the K ring, nxb windows and their barriers."""
+    return 1024 + _K_RING + nxb * _round128(window) + _RING_BARRIERS + 4 * 8
+
+
+def _window_plan(h: int, w: int, ks: int, kyb: int) -> dict:
+    """`window_plan`: the staged window at (H, W, ks) with bands of kyb tap
+    rows: the rows that a tile's positions reach through kyb tap rows."""
+    wp = w + ks - 1
+    tiles = -(-((h - 1) * wp + w) // _QB)
+    rows = max((t * _QB % wp + _QB + (kyb - 1) * wp + ks - 1 + wp - 1) // wp
+               for t in range(tiles))
+    return dict(wp=wp, tiles=tiles, rows=rows, kyb=kyb, bands=-(-ks // kyb),
+                window=8 * rows * wp * 16)
+
+
+def aggregate_plan(h: int, w: int, ks: int) -> dict:
+    """K4's launch plan, as the kernel's `make_plan` makes it: the tallest
+    band of kyb tap rows (kyb = ks, one band, wherever that fits) whose
+    staged window fits the shared memory, two windows where they fit, else
+    one. {'wp', 'tiles', 'rows', 'kyb', 'bands', 'window', 'nxb', 'smem'}.
+    Raises ValueError, naming the limit, where no band fits: a padded row of
+    W + ks - 1 pixels wider than a TMA box side (256), or a window of one
+    tap row above the shared memory."""
+    if h <= 0 or w <= 0 or ks < 1 or ks % 2 == 0:
+        raise ValueError(f"no plan for a {h}x{w} plane at ks={ks}: the plane must be "
+                         "non-empty and ks odd")
+    for kyb in range(ks, 0, -1):
+        p = _window_plan(h, w, ks, kyb)
+        if p["wp"] > _TMA_BOX_MAX:
+            raise ValueError(f"the staged window of a {h}x{w} plane at ks={ks} does not fit: a "
+                             f"padded row of {p['wp']} pixels is wider than a TMA box side "
+                             f"({_TMA_BOX_MAX})")
+        if p["rows"] > _TMA_BOX_MAX:
+            continue
+        for nxb in (2, 1):
+            if _smem_for(nxb, p["window"]) <= _MAX_SMEM:
+                return dict(p, nxb=nxb, smem=_smem_for(nxb, p["window"]))
+    raise ValueError(f"the staged window of a {h}x{w} plane at ks={ks} does not fit the shared "
+                     f"memory ({_MAX_SMEM} bytes) even with one tap row per band")
+
+
+def fused_plan(h: int, w: int, ks: int, kb: int, dtype) -> dict:
+    """K5's launch plan, as the kernel's `make_fused_plan` makes it: K4's
+    window and the raw buffers of x in `dtype` (f32 or bf16) at the tallest
+    band of kyb tap rows that fits. The keys of `aggregate_plan` and 'vr',
+    'rr', 'rwp', 'rc', 'nbuf'. Raises ValueError, naming the limit, where no
+    band fits: a raw row of W + kb - 1 pixels wider than a TMA box side, or
+    no band whose buffers fit the shared memory."""
+    if h <= 0 or w <= 0 or ks < 1 or ks % 2 == 0 or kb < 1 or kb % 2 == 0:
+        raise ValueError(f"no plan for a {h}x{w} plane at ks={ks}, kb={kb}: the plane must be "
+                         "non-empty and ks and kb odd")
+    in_bytes = 4 if dtype == torch.float32 else 2
+    rwp = (w + kb - 1) | 1
+    if rwp > _TMA_BOX_MAX:
+        raise ValueError(f"the staged window of a {h}x{w} plane at ks={ks}, kb={kb} does not "
+                         f"fit: a raw row of {rwp} pixels is wider than a TMA box side "
+                         f"({_TMA_BOX_MAX})")
+    filt = -(-kb * (kb + 2 * _FPAD) * 4 // 16) * 16
+    for kyb in range(ks, 0, -1):
+        p = _window_plan(h, w, ks, kyb)
+        vr = 0
+        for t in range(p["tiles"]):
+            for b in range(p["bands"]):
+                top = t * _QB // p["wp"] - ks // 2 + b * kyb
+                vr = max(vr, min(top + p["rows"], h) - max(top, 0))
+        rr = vr + kb - 1
+        if rr > _TMA_BOX_MAX:
+            continue
+        raw = rr * rwp * 8 * in_bytes
+        for nxb in (2, 1):
+            for nbuf in (2, 1):
+                for rc in (8, 4, 2, 1):
+                    smem = _smem_for(nxb, p["window"]) + nbuf * _round128(rc * raw) + filt + 32
+                    if smem <= _MAX_SMEM:
+                        return dict(p, nxb=nxb, smem=smem, vr=vr, rr=rr, rwp=rwp, rc=rc,
+                                    nbuf=nbuf)
+    raise ValueError(f"the staged window of a {h}x{w} plane at ks={ks}, kb={kb} does not fit "
+                     f"the shared memory ({_MAX_SMEM} bytes) even with one tap row per band")
 
 
 def split_bf16(t):
@@ -229,8 +326,8 @@ def dau_forward_fused(x, w, mu1, mu2, blur_filter, ks: int,
 
     On a CUDA tensor this launches the sm_90a tensor-core kernel (one launch
     per call, counted in `dau_forward_fused.launches`; any odd ks and kb
-    whose staged window fits the shared memory); on a CPU tensor it computes
-    the plain twin. Other devices raise.
+    with a `fused_plan`, whose bands of tap rows take the tiers 33 and 65);
+    on a CPU tensor it computes the plain twin. Other devices raise.
     """
     _check(x, w, mu1, mu2, blur_filter, ks)
     if x.device.type == "cpu":
@@ -245,10 +342,10 @@ def dau_forward_fused(x, w, mu1, mu2, blur_filter, ks: int,
     f = w.shape[-1]
     kb = blur_filter.shape[-1]
     code = _DTYPE_CODE[x.dtype]
+    plan = fused_plan(h, wd, ks, kb, x.dtype)  # raises, naming the limit, where none fits
     lib = _library("dau_forward_fused")
-    if lib.dau_forward_fused_smem_bytes(h, wd, ks, kb, code) < 0:
-        raise ValueError(f"the staged window of a {h}x{wd} plane at ks={ks}, kb={kb} does not "
-                         f"fit the shared memory ({_MAX_SMEM} bytes)")
+    if lib.dau_forward_fused_smem_bytes(h, wd, ks, kb, code) != plan["smem"]:
+        raise RuntimeError("dau_forward_fused: the plan disagrees with the kernel's")
     x_t, kern_t, filt = fused_forward_operands(x, w, mu1, mu2, blur_filter, ks,
                                                use_interpolation)
     out = torch.empty((n, f, h, wd), dtype=x.dtype, device=x.device)
@@ -273,8 +370,8 @@ def aggregate_forward(x_blur, w, mu1, mu2, ks: int,
 
     On a CUDA tensor this launches the sm_90a tensor-core kernel (one
     launch per call, counted in `aggregate_forward.launches`; any odd ks
-    whose staged window fits the shared memory); on a CPU tensor it
-    computes the plain twin. Other devices raise.
+    with an `aggregate_plan`, whose bands of tap rows take the tiers 33 and
+    65); on a CPU tensor it computes the plain twin. Other devices raise.
     """
     _check(x_blur, w, mu1, mu2, None, ks)
     if x_blur.device.type == "cpu":
@@ -284,10 +381,10 @@ def aggregate_forward(x_blur, w, mu1, mu2, ks: int,
 
     n, _, h, wd = x_blur.shape
     f = w.shape[-1]
+    plan = aggregate_plan(h, wd, ks)  # raises, naming the limit, where none fits
     lib = _library("dau_aggregate")
-    if lib.dau_aggregate_smem_bytes(h, wd, ks) < 0:
-        raise ValueError(f"the staged window of a {h}x{wd} plane at ks={ks} does not fit "
-                         f"the shared memory ({_MAX_SMEM} bytes) or a TMA box")
+    if lib.dau_aggregate_smem_bytes(h, wd, ks) != plan["smem"]:
+        raise RuntimeError("aggregate_forward: the plan disagrees with the kernel's")
     xb_t, kern_t = aggregate_forward_operands(x_blur, w, mu1, mu2, ks, use_interpolation)
     out = torch.empty((n, f, h, wd), dtype=x_blur.dtype, device=x_blur.device)
     with torch.cuda.device(x_blur.device):

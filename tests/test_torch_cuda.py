@@ -208,6 +208,33 @@ def test_pallas_step_past_ks17_runs_k6(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("engine,kernel,counter", [
+    ("pallas", tk.aggregate_forward, "launches"),
+    ("pallas_fused", tk.dau_forward_fused, "launches")])
+def test_alexnet_step_at_ks33_runs_k4_and_k5(cuda_device, engine, kernel, counter):
+    # one AlexNet-DAU SGD step at max_kernel_size=33 (synthesized ks 33, the
+    # tier whose window takes bands of tap rows): 8 K4 or K5 launches (the
+    # forward and the dx pass of four layers) and 4 K6, a finite loss and
+    # finite gradients
+    from dau_convnet_tpu_torch.models import AlexNetDAU
+    from dau_convnet_tpu_torch.parallel.train import make_train_step
+
+    model = AlexNetDAU(num_classes=10, max_kernel_size=33, engine=engine, image_size=67,
+                       device=cuda_device, generator=torch.Generator().manual_seed(0))
+    assert model.dau_conv2.cfg.synth_kernel_size == 33
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-4))
+    x = torch.rand((2, 3, 67, 67), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    before = (getattr(kernel, counter), tkb.grad_tables.launches)
+    loss = step(x, torch.tensor([1, 7], device=cuda_device))
+    torch.cuda.synchronize()
+    assert (getattr(kernel, counter), tkb.grad_tables.launches) == (before[0] + 8,
+                                                                     before[1] + 4)
+    assert bool(torch.isfinite(loss))
+    for name, p in model.named_parameters():
+        assert p.grad is None or bool(torch.isfinite(p.grad).all()), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_aggregate_kernel_matches_twin(cuda_device, name):
     args, interp = _case(name, cuda_device)
@@ -665,6 +692,33 @@ def test_aggregate_kernel_runtime_ks_matches_twin(cuda_device, ks, h, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dx", [False, True])
+@pytest.mark.parametrize("name", sorted(AGG_LAYERS))
+@pytest.mark.parametrize("ks", [33, 65])
+def test_aggregate_kernel_past_ks17_at_layer_shapes_matches_twin(cuda_device, ks, name, dx):
+    # the tiers 33 and 65: bands of tap rows, one window per (group, band)
+    s, f, h = AGG_LAYERS[name]
+    if dx:
+        s, f = f, s
+    assert tk.aggregate_plan(h, h, ks)["bands"] > 1
+    _check_aggregate(_agg_inputs(2, s, 2, f, h, ks, cuda_device, seed=ks + len(name)), ks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [3, 7, 13, 27])
+@pytest.mark.parametrize("ks", [9, 17, 33, 65])
+def test_band_plans_equal_the_kernels(cuda_device, ks, h):
+    # the CPU mirror of the plans against the libraries' own, forward and dx
+    # planes alike (the same H x W)
+    assert tk._library("dau_aggregate").dau_aggregate_smem_bytes(h, h, ks) == \
+        tk.aggregate_plan(h, h, ks)["smem"]
+    lib = tk._library("dau_forward_fused")
+    for dtype, code in tk._DTYPE_CODE.items():
+        assert lib.dau_forward_fused_smem_bytes(h, h, ks, 9, code) == \
+            tk.fused_plan(h, h, ks, 9, dtype)["smem"]
+
+
+@pytest.mark.cuda
 def test_aggregate_kernel_rejects_a_window_too_large(cuda_device):
     args = _agg_inputs(1, 3, 2, 4, 4, 3, cuda_device, w_cols=300)
     with pytest.raises(ValueError, match="window"):
@@ -709,6 +763,21 @@ def test_fused_kernel_ragged_and_runtime_sizes_match_twin(cuda_device, name):
     n, s, f, h, w, ks, kb = FUSED_TC[name]
     args = _agg_inputs(n, s, 2, f, h, ks, cuda_device, seed=len(name), w_cols=w)
     _check_fused(args, _blur_filter(kb, cuda_device), ks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dx", [False, True])
+@pytest.mark.parametrize("name", sorted(AGG_LAYERS))
+@pytest.mark.parametrize("ks", [33, 65])
+def test_fused_kernel_past_ks17_at_layer_shapes_matches_twin(cuda_device, ks, name, dx):
+    # the tiers 33 and 65: the blur warps write each band's window, zeros in
+    # the rows outside the image; the dx pass takes the mirrored filter
+    s, f, h = AGG_LAYERS[name]
+    if dx:
+        s, f = f, s
+    filt = gaussian_filters(0.5, size=9, device=cuda_device)["error" if dx else "w"]
+    assert tk.fused_plan(h, h, ks, 9, torch.bfloat16)["bands"] > 1
+    _check_fused(_agg_inputs(2, s, 2, f, h, ks, cuda_device, seed=ks + len(name)), filt, ks)
 
 
 @pytest.mark.cuda
