@@ -5,15 +5,16 @@ one NVIDIA GPU.
 
 Run from the root of the repository, on a machine with a CUDA card. Phases:
 
-1. build: compile the seven kernel libraries for sm_90a, one nvcc each, all
+1. build: compile the six kernel libraries for sm_90a, one nvcc each, all
    at once (K5 the fused forward, K4 the aggregation, K6 the grad tables,
-   K1/K2 the fused spectral gradients, K8 the factored gather, K7 the
-   partial iDFT, K3 the fused apply-phi), and print their registers and
-   spills (ks=9; K1 at every (dtype, M, G) instance, failing if one at
-   M=3, G=2 spills; K8 at M=3, G=2); count the tensor-core instructions
-   (HGMMA, HMMA) and TMA loads (UTMALDG) in the SASS of the K5, K4, K6, K7
-   and K1/K2 libraries (`cuobjdump -sass`) and fail if any has none of
-   either;
+   K1/K2 and K8 the fused spectral gradients, one kernel under two gather
+   policies, K7 the partial iDFT, K3 the fused apply-phi), and print their
+   registers and spills (ks=9; K1 and K8 at every (dtype, M, G) instance,
+   failing if K1 spills at M=3, G=2 or K8 at any instance); count the
+   tensor-core instructions (HGMMA, HMMA) and TMA loads (UTMALDG) in the
+   SASS of the K5, K4, K6, K7 and K1/K2/K8 libraries (`cuobjdump -sass`) and
+   fail if any has none of either, and the HGMMA of each K8 instance, failing
+   if one has none;
 2. kernel vs twin: `dau_forward_fused` against `dau_forward_fused_plain` at
    the four AlexNet-DAU layer shapes (N=4) in f32 (TF32 off, bound
    1e-4*max|y|) and bf16 (twin in f32 on the same bf16 values, bound
@@ -106,13 +107,22 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    (bf16) * max|y|; then the path `fourier_apply_phi_fused` in both
    directions at the four layers (N=32, bf16), 8 K3 calls;
 18. timing: per layer at N=32 bf16, K8 and K8 dx against their twin, K1
-   and the unfused torch path; K7 against its twin and one bf16 matmul of
-   the stacked operands, also summed over the layers; K3 against its twin
-   and the unfused chain, and its closing launch (K7's kernel on f32
-   spectra) alone; the
-   factored steps (and the phi-gather Fourier step beside them) as medians
-   of 5 runs with min and max, and the device time by kernel of the
-   factored step.
+   and the unfused torch path, and K8's device time (`torch.profiler`: the
+   kernel alone, and with its operand kernel and sum), also summed over the
+   layers; K7 against its twin and one bf16 matmul of the stacked operands,
+   also summed over the layers; K3 against its twin and the unfused chain,
+   and its closing launch (K7's kernel on f32 spectra) alone; K4's and K5's
+   kernels alone at ks=9 (device time over the 8 launches of a step, forward
+   and dx shapes); the factored steps (and the phi-gather Fourier step
+   beside them) as medians of 5 runs with min and max, and the device time
+   by kernel of the factored step;
+19. K4 and K5 past ks 17, the kernel tiers 33 and 65, whose staged windows
+   hold bands of tap rows: both against their twins at ks=33 at the four
+   layer shapes and their dx shapes (N=4, f32 1e-4*max|y|, bf16
+   1e-2*max|y|, as in phase 6); their times at ks 33 and 65 (N=32 bf16,
+   forward and dx shapes, with the wrapper and as device time); then 3 bf16
+   SGD steps at max_kernel_size=33 on 'pallas' (8 K4 + 4 K6 per step) and on
+   'pallas_fused' (8 K5 + 4 K6), with the checks of phase 7.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -163,7 +173,7 @@ KERNEL_K1 = dict(name="fused_spectral_grads (K1)", route="cuda",
                  replaces="dau_convnet_tpu/kernels/fused_bwd.py:965")
 KERNEL_K2 = dict(KERNEL_K1, name="fused_spectral_grads with dx (K2)")
 KERNEL_K8 = dict(name="fused_spectral_grads gather=factored (K8)", route="cuda",
-                 source="dau_convnet_tpu_torch/kernels/csrc/dau_factored_grads.cu",
+                 source="dau_convnet_tpu_torch/kernels/csrc/dau_spectral_grads.cu",
                  replaces="dau_convnet_tpu/kernels/fused_bwd.py:763")
 KERNEL_K8_DX = dict(KERNEL_K8, name="fused_spectral_grads gather=factored with dx (K8 dx)")
 KERNEL_K7 = dict(name="partial_idft (K7)", route="cuda",
@@ -173,7 +183,7 @@ KERNEL_K3 = dict(name="fused_apply_phi (K3)", route="cuda",
                  source="dau_convnet_tpu_torch/kernels/csrc/dau_apply_phi.cu",
                  replaces="dau_convnet_tpu/kernels/fused_fwd.py:225")
 LIBRARIES = ("dau_forward_fused", "dau_aggregate", "dau_grad_tables", "dau_spectral_grads",
-             "dau_factored_grads", "dau_partial_idft", "dau_apply_phi")
+             "dau_partial_idft", "dau_apply_phi")
 # the card's peaks for the bounds (H100 SXM data sheet, dense, at 700 W):
 # bf16 on the tensor cores and the memory rate
 PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
@@ -392,6 +402,9 @@ TRAIN_RUNS = {
     "fourier factored": (dict(fused_gather="factored"), (0, 0, 0, 0, 0, 4, 0, 0, 0)),
     "fourier factored fused_dx": (dict(fused_gather="factored", fused_dx="on"),
                                   (0, 0, 0, 0, 0, 0, 4, 0, 0)),
+    "pallas ks33": (dict(engine="pallas", max_kernel_size=33), (0, 8, 4, 0, 0, 0, 0, 0, 0)),
+    "pallas_fused ks33": (dict(engine="pallas_fused", max_kernel_size=33),
+                          (8, 0, 4, 0, 0, 0, 0, 0, 0)),
 }
 
 
@@ -618,8 +631,7 @@ def time_spectral(gen, dev, card, worst):
                           _check_err(f"K2 dx spectra {tag}", got[1], want[1], 1e-2))
         del got, want
         t_k1 = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw))
-        d_k1, d_all = _device_ms(lambda: kfb.fused_spectral_grads(*args, **kw),
-                                 "spectral_grads_kernel")
+        d_k1, d_all = _device_ms(lambda: kfb.fused_spectral_grads(*args, **kw), "PhiGather")
         t_p1 = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw), iters=3, warmup=1)
         t_k2 = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw, **dx))
         t_p2 = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw, **dx), iters=3,
@@ -663,17 +675,44 @@ def _ptxas(lib, markers):
     return found
 
 
-def _k1_instances():
-    """Print registers and spills of every (dtype, M, G) instance of K1's
-    kernel; raise if one is missing or the M=3, G=2 instances spill."""
-    found = _ptxas("dau_spectral_grads", ["spectral_grads_kernel"])
+def _spectral_instances(gather, kernel, spill_free):
+    """Print registers and spills of every (dtype, M, G) instance of the
+    spectral kernel under `gather` (PhiGather: K1, FactoredGather: K8);
+    raise if one is missing or one whose mangled name holds a marker of
+    `spill_free` spills (K1: M=3, G=2; K8: every instance)."""
+    found = _ptxas("dau_spectral_grads", ["spectral_grads_kernel", gather])
     if len(found) != 16:
-        raise AssertionError(f"dau_spectral_grads: {len(found)} K1 instances in the build log, "
-                             "expected 16 (f32/bf16 x M 3, 4 x G 1-4)")
+        raise AssertionError(f"dau_spectral_grads: {len(found)} {kernel} instances in the "
+                             "build log, expected 16 (f32/bf16 x M 3, 4 x G 1-4)")
     for entry, info in found.items():
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
-        if "Li3ELi2E" in entry and (spill is None or spill.groups() != ("0", "0")):
-            raise AssertionError(f"K1 instance {entry} (M=3, G=2) spills: {info}")
+        if any(mk in entry for mk in spill_free) and (
+                spill is None or spill.groups() != ("0", "0")):
+            raise AssertionError(f"{kernel} instance {entry} spills: {info}")
+
+
+def _hgmma_per_instance(lib, marker, kernel):
+    """Print the HGMMA and UTMALDG count of each function of the library's
+    SASS whose name holds `marker`; raise if one has no HGMMA."""
+    counts, name = {}, None
+    for line in disassemble(lib).splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1) if marker in found.group(1) else None
+            if name:
+                counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += len(re.findall(r"\bHGMMA\.", line))
+            counts[name][1] += line.count("UTMALDG")
+    for name, (hgmma, tma) in sorted(counts.items()):
+        inst = re.search(r"kernelI(\w+?)Li(\d)ELi(\d)E", name)
+        tag = f"{'bf16' if 'bfloat16' in name else 'f32'} M={inst.group(2)} G={inst.group(3)}" \
+            if inst else name[:60]
+        print(f"  {lib} {kernel} {tag}: {hgmma} HGMMA, {tma} UTMALDG")
+        if not hgmma:
+            raise AssertionError(f"{kernel} instance {name}: no HGMMA in its SASS")
+    if len(counts) != 16:
+        raise AssertionError(f"{lib}: {len(counts)} {kernel} functions in the SASS, expected 16")
 
 
 def _tensor_core_count(lib):
@@ -731,9 +770,9 @@ def _k5_line(t):
 CATEGORIES = (("K5 fused_forward_kernel", ("fused_forward_kernel",)),
               ("K4 aggregate_kernel", ("aggregate_kernel",)),
               ("K6 grad_tables_kernel", ("grad_tables_kernel",)),
-              ("K1/K2 spectral_grads_kernel", ("spectral_grads_kernel",)),
+              ("K8 spectral_grads_kernel<FactoredGather>", ("FactoredGather",)),
+              ("K1/K2 spectral_grads_kernel<PhiGather>", ("spectral_grads_kernel",)),
               ("K2/K8 spectral_dx_kernel", ("spectral_dx_kernel",)),
-              ("K8 factored_grads_kernel", ("factored_grads_kernel",)),
               ("GEMM (cuBLAS)", ("gemm", "Gemm", "cutlass", "xmma", "sm90_", "sm80_")),
               ("convolution (cuDNN)", ("conv", "cudnn", "Conv")),
               ("elementwise / reduce / copy", ("elementwise", "Elementwise", "reduce", "Reduce",
@@ -937,6 +976,9 @@ def time_new_kernels(gen, dev, card, worst):
     the layers."""
     out = {k: [0.0, 0.0, None, Bounds()] for k in ("k8", "k8dx", "k7", "k3")}
     out["k7"][2] = 0.0
+    # K8's device time summed over the layers: the kernel alone, with its
+    # operand kernel and the wrapper's sum, and the dx kernel of K8 dx
+    out["k8dev"] = [0.0, 0.0, 0.0]
     for name, s, f, hw in LAYERS:
         tag = f"{name} bfloat16 N={BATCH}"
         args, kw, dx, (xb, err, mu1, mu2) = _spectral_inputs(
@@ -945,6 +987,10 @@ def time_new_kernels(gen, dev, card, worst):
             f"K8 {tag}", kfb.fused_spectral_grads(*args, **kw, gather="factored"),
             kfb.fused_factored_grads_plain(*args, **kw), 1e-2))
         t_k = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw, gather="factored"))
+        d_k, d_all = _device_ms(lambda: kfb.fused_spectral_grads(*args, **kw, gather="factored"),
+                                "FactoredGather")
+        d_dx = _device_ms(lambda: kfb.fused_spectral_grads(*args, **kw, **dx, gather="factored"),
+                          "spectral_dx_kernel")[0]
         t_p = _cuda_ms(lambda: kfb.fused_factored_grads_plain(*args, **kw), iters=3, warmup=1)
         t_kd = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw, **dx, gather="factored"))
         t_pd = _cuda_ms(lambda: kfb.fused_factored_grads_plain(*args, **kw, **dx), iters=3,
@@ -956,12 +1002,15 @@ def time_new_kernels(gen, dev, card, worst):
         bd = out["k8"][3].add(*_spectral_work(args, kw))
         bdd = out["k8dx"][3].add(*_spectral_work(args, kw, dx))
         print(f"layer {name} K8 N={BATCH} B={kw['p1b'] * kw['rbb']} bf16: kernel {t_k:.3f} ms "
-              f"(bound {bd:.4f}), twin {t_p:.3f} ms; K8 dx kernel {t_kd:.3f} ms (bound "
-              f"{bdd:.4f}), twin {t_pd:.3f} ms; K1 kernel {t_k1:.3f} ms; from the blurred "
-              f"planes: unfused torch path {t_unf:.3f} ms, DFTs + K8 {t_f2:.3f} ms [{card}]")
+              f"(bound {bd:.4f}; device time: the kernel {d_k:.4f} ms, with its operand "
+              f"kernel and sum {d_all:.4f} ms), twin {t_p:.3f} ms; K8 dx kernel {t_kd:.3f} ms "
+              f"(bound {bdd:.4f}; its dx kernel {d_dx:.4f} ms device time), twin {t_pd:.3f} "
+              f"ms; K1 kernel {t_k1:.3f} ms; from the blurred planes: unfused torch path "
+              f"{t_unf:.3f} ms, DFTs + K8 {t_f2:.3f} ms [{card}]")
         for k, (a, b) in (("k8", (t_k, t_p)), ("k8dx", (t_kd, t_pd))):
             out[k][0] += a
             out[k][1] += b
+        out["k8dev"] = [a + b for a, b in zip(out["k8dev"], (d_k, d_all, d_dx))]
         del args, dx, xb
 
         ops, _ = _idft_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
@@ -1042,14 +1091,15 @@ def main(argv=None) -> int:
     _ptxas("dau_forward_fused", ["fused_forward_kernel"])
     _ptxas("dau_aggregate", ["aggregate_kernel"])
     _ptxas("dau_grad_tables", ["grad_tables_kernel"])
-    _k1_instances()
+    _spectral_instances("PhiGather", "K1", ("Li3ELi2E",))
+    _spectral_instances("FactoredGather", "K8", ("FactoredGather",))
     _ptxas("dau_spectral_grads", ["spectral_dx_kernel"])
-    _ptxas("dau_factored_grads", ["factored_grads_kernel", "Li3ELi2E"])
     _ptxas("dau_partial_idft", ["partial_idft_kernel"])
     _ptxas("dau_apply_phi", ["apply_phi_kernel"])
     for lib in ("dau_forward_fused", "dau_aggregate", "dau_grad_tables", "dau_partial_idft",
                 "dau_spectral_grads"):
         _tensor_core_count(lib)
+    _hgmma_per_instance("dau_spectral_grads", "FactoredGather", "K8")
 
     # 2. kernel vs twin
     gen = torch.Generator().manual_seed(args.seed)
@@ -1280,6 +1330,15 @@ def main(argv=None) -> int:
 
     # 18. timing: K8, K7, K3 per layer and the factored steps
     new = time_new_kernels(gen, dev, card, worst_fac)
+    for key, what in (("k8", "K8"), ("k8dx", "K8 dx")):
+        ms, plain, _, bound = new[key]
+        dev_ms = (f"device time: the kernel {new['k8dev'][0]:.4f} ms, with its operand kernel "
+                  f"and sum {new['k8dev'][1]:.4f} ms" if key == "k8" else
+                  f"device time of its dx kernel {new['k8dev'][2]:.4f} ms")
+        print(f"{what} over the four layers N={BATCH} bf16: kernel with its wrapper {ms:.3f} "
+              f"ms ({dev_ms}), bound {bound.ms:.4f} ms ({bound.bound_by}), twin {plain:.3f} "
+              f"ms [{card}]")
+    time_aggregation(gen, dev, card, ks)
     for key, what in (("k7", "K7"), ("k3", "K3 (both directions)")):
         ms, plain, lib, bound = new[key]
         print(f"{what} over the four layers N={BATCH} bf16: kernel {ms:.3f} ms, bound "
@@ -1296,6 +1355,14 @@ def main(argv=None) -> int:
               f"plain path {_fmt(t_p)}, over 5 runs of 3 [{card}]")
     profile_step("fourier factored", runs["fourier factored"][0], batches[0], labels,
                  step_ms["fourier factored"], card)
+
+    # 19. K4 and K5 past ks 17: the tiers 33 and 65, in bands of tap rows
+    worst_bwd["k4"] = max(worst_bwd["k4"], compare_bands(gen, dev, "K4", 33))
+    worst_bwd["k5dx"] = max(worst_bwd["k5dx"], compare_bands(gen, dev, "K5", 33))
+    for tier in (33, 65):
+        time_aggregation(gen, dev, card, tier)
+    for engine in ("pallas ks33", "pallas_fused ks33"):
+        _train_run(engine, dev, args.seed, batches, labels)
 
     launches_k5 = launches + runs["pallas_fused"][1][0]
     launches_k4 = runs["pallas"][1][1]
@@ -1331,6 +1398,67 @@ def main(argv=None) -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def compare_bands(gen, dev, kernel, ks):
+    """Phase 19: K4 or K5 at kernel size ks (bands of tap rows) against its
+    twin at each layer shape and its dx shape (N=4), f32 and bf16, bounds as
+    in phase 6; returns the largest |error|."""
+    worst = 0.0
+    filters = gaussian_filters(0.5, size=9, device=dev)
+    for name, s, f, hw in LAYERS:
+        for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            x, w, mu1, mu2 = _layer_inputs(gen, 4, s, f, hw, dtype, dev)
+            e, wt, m1, m2 = _dx_inputs(gen, 4, s, f, hw, dtype, dev)
+            for way, args, filt in (("forward", (x, w, mu1, mu2), filters["w"]),
+                                    ("dx", (e, wt, m1, m2), filters["error"])):
+                if kernel == "K4":
+                    plan = kfwd.aggregate_plan(hw, hw, ks)
+                    got = kfwd.aggregate_forward(*args, ks)
+                    want = kfwd.aggregate_forward_plain(args[0].float(), *args[1:], ks)
+                else:
+                    plan = kfwd.fused_plan(hw, hw, ks, 9, dtype)
+                    got = kfwd.dau_forward_fused(*args, filt, ks)
+                    want = kfwd.dau_forward_fused_plain(args[0].float(), *args[1:], filt, ks)
+                if got.dtype != dtype:
+                    raise AssertionError(f"{kernel} ks={ks} {name} {way}: output is {got.dtype}")
+                worst = max(worst, _check_err(
+                    f"{kernel} ks={ks} ({plan['bands']} bands of {plan['kyb']} tap rows) {way} "
+                    f"{name} {str(dtype)[6:]}", got, want, bound))
+    return worst
+
+
+def time_aggregation(gen, dev, card, ks):
+    """Phase 18 (ks=9) and 19 (ks 33, 65): K4 and K5 per layer at N=32 bf16,
+    forward and dx shapes, with the wrapper (CUDA events) and the kernel
+    alone (device time, `torch.profiler`); prints each and the sums over the
+    8 launches of a step."""
+    filters = gaussian_filters(0.5, size=9, device=dev)
+    sums = {k: [0.0, 0.0] for k in ("K4", "K5")}
+    iters = 10 if ks <= 9 else 3
+    for name, s, f, hw in LAYERS:
+        x, w, mu1, mu2 = _layer_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
+        e, wt, m1, m2 = _dx_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
+        cols = []
+        for way, args, filt in (("forward", (x, w, mu1, mu2), filters["w"]),
+                                ("dx", (e, wt, m1, m2), filters["error"])):
+            for kernel, fn, frag in (
+                    ("K4", lambda: kfwd.aggregate_forward(*args, ks), "aggregate_kernel"),
+                    ("K5", lambda: kfwd.dau_forward_fused(*args, filt, ks),
+                     "fused_forward_kernel")):
+                t = _cuda_ms(fn, iters=iters, warmup=1)
+                d = _device_ms(fn, frag, iters=iters)[0]
+                sums[kernel][0] += t
+                sums[kernel][1] += d
+                cols.append(f"{kernel} {way} {t:.3f} ms (kernel {d:.4f})")
+        print(f"layer {name} ks={ks} N={BATCH} bf16: {'; '.join(cols)} [{card}]")
+        del x, e
+    plan = kfwd.aggregate_plan(27, 27, ks), kfwd.fused_plan(27, 27, ks, 9, torch.bfloat16)
+    for kernel, (ms, dev_ms) in sums.items():
+        print(f"{kernel} ks={ks} over the 8 launches of a step (four forward, four dx shapes) "
+              f"N={BATCH} bf16: with its wrapper {ms:.3f} ms, the kernel alone {dev_ms:.4f} ms "
+              f"device time (conv2's plan: {plan[kernel == 'K5']['bands']} bands of "
+              f"{plan[kernel == 'K5']['kyb']} tap rows) [{card}]")
 
 
 def _train_run(engine, dev, seed, batches, labels):

@@ -324,6 +324,19 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // Accumulator layout of a 64 x N f32 result over a warpgroup's 128 threads:
 // d[4j + 2h + e] holds row 16*(warp % 4) + lane/4 + 8h, column 8j + 2*(lane % 4) + e.
 
+// D (64 x 8, f32) += A (64 x 16) * B (16 x 8), both bf16 in shared memory;
+// TA / TB = 1: the operand is MN-major (M or N contiguous).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n8(float (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3},"
+      " %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 // D (64 x 16, f32) += A (64 x 16) * B (16 x 16), both bf16 in shared memory;
 // TA / TB = 1: the operand is MN-major (M or N contiguous).
 template <int TA, int TB>

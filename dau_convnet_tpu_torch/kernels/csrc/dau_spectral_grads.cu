@@ -1,10 +1,12 @@
 // Fused spectral unit gradients of the Fourier engine for Hopper (sm_90a):
-// K1 (the unit gradients) and K2 (the same call that also emits the
-// input-gradient spectra).
+// K1 (the unit gradients), K2 (the same call that also emits the
+// input-gradient spectra) and K8 (the unit gradients by the factored
+// gather).
 //
-// Replaces dau_convnet_tpu/kernels/fused_bwd.py::fused_spectral_grads_call
-// (the Pallas kernel `_kernel_spectral`, phi gather). It computes the same
-// function, not the same blocks:
+// Replaces dau_convnet_tpu/kernels/fused_bwd.py::fused_spectral_grads_call:
+// the Pallas kernel `_kernel_spectral` (phi gather; K1, K2) and, through
+// `_fused_factored_call`, `_kernel_factored` (K8). It computes the same
+// functions, not the same blocks:
 //
 //   Tre[k,m,s,f] = sum_n Xre*Ere + Xim*Eim     Tim = sum_n Xim*Ere - Xre*Eim
 //   grad[m,s,g,f] = sum_k Re(phiU[k,g,s,f]) * Tre - Im(phiU) * Tim
@@ -54,17 +56,47 @@
 //     no atomics.
 // What paces it: `tools/k1_variants.py` times variants of this source on
 // the card (PERF.md, section 7).
+// K8 is the same kernel under another gather policy (`FactoredGather`): the
+// same ring, wgmma chains, table quads and staged taps, with the factored
+// contraction of the Pallas kernel, and its roundings, in place of the
+// phase gather that closes each bin (k = k1*RB + k2):
+//   P[m,g,h] += c2[j+h]*Tre - s2[j+h]*Tim,  Q[m,g,h] += s2[j+h]*Tre + c2[j+h]*Tim
+// for h in {0, 1} at each unit's taps j, j+1 into t2 (the bin's t2 quad),
+// T rounded to the operand dtype first; at the end of each k1 row P and Q
+// are rounded to it and folded with the row's t1 quad at the unit's taps
+// into t1, grad += (b0*c1[j'] + b1*c1[j'+1])*(a0*P0 + a1*P1) - (b0*s1[j'] +
+// b1*s1[j'+1])*(a0*Q0 + a1*Q1), and restarted. The Pallas kernel forms
+// E[j1,j2] = sum_k1 t1 (P, Q) over all NJ^2 entries and combines four of
+// them per unit; here only those four are ever formed, the sum over k1
+// taken in another f32 order. A block's bins are whole k1 rows (17 x 9 bins
+// at conv3-conv5, 31 x 16 at conv2), ranges of rows chosen to fill the card
+// in whole waves. Each thread keeps 2*M*G*FT P/Q sums beside K1's M*FT
+// cross-spectra and M*G*FT/2 gradient sums, so K8's tile is narrower: FT =
+// 8 (wgmma m64n16k16) on the AlexNet-DAU path (M = 3, G = 2), 16 at M = 3,
+// G = 1, 4 (m64n8k16) from M*G = 8 on (`FactoredGather::tile_f`). The bin's stage is freed after its P/Q update, which reads
+// the stage's table rows. Its dx spectra are K2's function: the wrapper
+// takes them from K2's dx kernel.
 // K2's dx contracts over F, which the F-tiled K1 block does not own: a second
 // kernel (`spectral_dx_kernel`, FP32 FMAs), one block per (bin, 32 s), loops
 // over F in chunks of 32, builds sum_g w*phiU for the chunk in shared memory
 // and accumulates a (32 n x 32 s) complex tile, 4 FMAs per (n, s, f).
 
 #include "dau_hopper_gemm.cuh"
-#include "dau_spectral.cuh"
 
 namespace {
 
-// ------------------------------------------------------------------ K1
+constexpr int THREADS = 128;  // threads of the dx kernel
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// a value rounded to T and widened back
+__device__ __forceinline__ float round_as(float v, float) { return v; }
+__device__ __forceinline__ float round_as(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// ------------------------------------------------------------------ K1, K8
 
 namespace tc {
 
@@ -78,10 +110,28 @@ constexpr int MAX_RANGES = 8;
 constexpr int WGS = 2;         // warpgroups, each on its own FT f of the block
 constexpr int THREADS = 128 * WGS;  // thread 0 also issues the loads
 
-// f per warpgroup (the wgmma's N is 2*FT): the M*FT cross-spectra, the
-// M*G*FT/2 gather sums and the G*FT/2 phase factors per thread fit the
-// registers at FT = 16 up to M*G = 8, else at FT = 8
-__host__ __device__ constexpr int tile_f(int m, int g) { return m * g <= 8 ? 16 : 8; }
+// The gather that closes each bin, the template parameter of
+// `spectral_grads_kernel`, and the f per warpgroup FT it leaves room for
+// (the wgmma's N is 2*FT).
+// K1: the phi gather. Per thread M*FT cross-spectra, M*G*FT/2 gather sums
+// and G*FT/2 phase factors fit the registers at FT = 16 up to M*G = 8,
+// else at FT = 8.
+struct PhiGather {
+  static constexpr bool kFactored = false;
+  __host__ __device__ static constexpr int tile_f(int m, int g) { return m * g <= 8 ? 16 : 8; }
+};
+// K8: the factored gather. Beside the M*FT cross-spectra and M*G*FT/2
+// gradient sums each thread keeps P and Q at each unit's two taps,
+// 2*M*G*FT sums: the widest FT at which the three take at most 170
+// registers (FT*M*(5G+2)/2: 16 at M = 3, G = 1; 8 at M = 3, G = 2 and M = 4,
+// G = 1), else FT = 4. Every instance builds without a spill (ptxas: 118-255
+// registers).
+struct FactoredGather {
+  static constexpr bool kFactored = true;
+  __host__ __device__ static constexpr int tile_f(int m, int g) {
+    return 16 * m * (5 * g + 2) / 2 <= 170 ? 16 : 8 * m * (5 * g + 2) / 2 <= 170 ? 8 : 4;
+  }
+};
 
 // floats of one staged phase-table row: NJ-1 quads (c[j], c[j+1], s[j],
 // s[j+1]), padded to 128 bytes
@@ -103,8 +153,7 @@ struct Layout {
   int a, b, tab, w4, jj, ring, bytes;
 };
 
-__host__ __device__ inline Layout layout(int M, int G, int NJ) {
-  const int ft = tile_f(M, G);
+__host__ __device__ inline Layout layout(int M, int G, int NJ, int ft) {
   Layout l;
   l.a = 0;                                          // [STAGES][M][KC][64 s] bf16
   l.b = l.a + STAGES * M * KC * ST * 2;             // [STAGES][2*WGS*FT/8][KC][8] bf16
@@ -118,8 +167,9 @@ __host__ __device__ inline Layout layout(int M, int G, int NJ) {
 
 // idx (2, G, S, F) int: tap index j of mu1 (into t2) and of mu2 (into t1);
 // wts (4, G, S, F) f32: the weights at j and j+1, mu1 then mu2; out (R, M,
-// S, G, F) f32.
-template <typename T, int M, int G>
+// S, G, F) f32. Gather::kFactored: the block's bins are whole k1 rows
+// (bins_per_block a multiple of RB).
+template <typename T, int M, int G, typename Gather>
 __global__ void __launch_bounds__(THREADS, 1)
 spectral_grads_kernel(const __grid_constant__ CUtensorMap x_map,
                       const __grid_constant__ CUtensorMap e_map,
@@ -127,12 +177,13 @@ spectral_grads_kernel(const __grid_constant__ CUtensorMap x_map,
                       const __grid_constant__ CUtensorMap t2_map, const int* __restrict__ idx,
                       const float* __restrict__ wts, float* __restrict__ out, int B, int K,
                       int S, int F, int RB, int NJ, int bins_per_block) {
-  constexpr int FT = tile_f(M, G);
+  constexpr bool kFactored = Gather::kFactored;
+  constexpr int FT = Gather::tile_f(M, G);
   constexpr int NP = FT / 2;            // (s, f) pairs per thread
   constexpr int A_M = KC * ST * 2;      // bytes of one m's X tile
   constexpr int B_WG = 2 * FT / 8 * KC * 16;  // bytes of one warpgroup's ES tile
   constexpr int B_STAGE = WGS * B_WG;
-  const Layout lay = layout(M, G, NJ);
+  const Layout lay = layout(M, G, NJ, FT);
   const int tabw = table_row(NJ);
   const int q = 4 * (NJ - 1);
   const uint32_t stage_bytes = M * A_M + B_STAGE + 2 * q * 4;
@@ -210,6 +261,18 @@ spectral_grads_kernel(const __grid_constant__ CUtensorMap x_map,
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int p = 0; p < NP; ++p) gacc[m][g][p] = 0.f;
+  // K8: P and Q of the current k1 row at each unit's taps j, j+1 into t2,
+  // {P(j), P(j+1), Q(j), Q(j+1)}
+  constexpr int MF = kFactored ? M : 1;
+  float pq[MF][G][NP][4];
+#pragma unroll
+  for (int m = 0; m < MF; ++m)
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) pq[m][g][p][h] = 0.f;
 
   RingPos<STAGES> pos;
   for (int k = kbeg; k < kend; ++k) {
@@ -218,7 +281,7 @@ spectral_grads_kernel(const __grid_constant__ CUtensorMap x_map,
     for (int m = 0; m < M; ++m)
 #pragma unroll
       for (int v = 0; v < FT; ++v) tacc[m][v] = 0.f;
-    float phr[G][NP], phm[G][NP];  // the units' phase factors at bin k
+    float phr[kFactored ? 1 : G][NP], phm[kFactored ? 1 : G][NP];  // K1: phiU at bin k
     for (int c = 0; c < chunks; ++c) {
       const int i = (k - kbeg) * chunks + c;
       if (tid == 0 && i + 1 < steps) issue(i + 1);  // waits for step i-1's release
@@ -238,34 +301,38 @@ spectral_grads_kernel(const __grid_constant__ CUtensorMap x_map,
         for (int kk = 0; kk < KC / 16; ++kk) {
           if constexpr (FT == 16)
             wgmma_m64n32<1, 1>(tacc[m], desc_advance(da, 2048 * kk), desc_advance(db, 256 * kk));
-          else
+          else if constexpr (FT == 8)
             wgmma_m64n16<1, 1>(tacc[m], desc_advance(da, 2048 * kk), desc_advance(db, 256 * kk));
+          else
+            wgmma_m64n8<1, 1>(tacc[m], desc_advance(da, 2048 * kk), desc_advance(db, 256 * kk));
         }
       }
       wgmma_commit();
-      if (c + 1 == chunks) {
-        // while the wgmmas run: each unit's phase factor phiU = py[k1] *
-        // px[k2] from the bin's table quads (c[j], c[j+1], s[j], s[j+1]) in
-        // this stage and the unit's taps
-        const float4* ty =
-            reinterpret_cast<const float4*>(base + lay.tab) + pos.stage * tabw / 2;
-        const float4* tx = ty + tabw / 4;
+      if constexpr (!kFactored) {
+        if (c + 1 == chunks) {
+          // while the wgmmas run: each unit's phase factor phiU = py[k1] *
+          // px[k2] from the bin's table quads (c[j], c[j+1], s[j], s[j+1]) in
+          // this stage and the unit's taps
+          const float4* ty =
+              reinterpret_cast<const float4*>(base + lay.tab) + pos.stage * tabw / 2;
+          const float4* tx = ty + tabw / 4;
 #pragma unroll
-        for (int g = 0; g < G; ++g)
+          for (int g = 0; g < G; ++g)
 #pragma unroll
-          for (int p = 0; p < NP; ++p) {
-            const int u = (g * NP + p) * THREADS + tid;
-            const float4 w = w4[u];  // a0, a1 (mu1), b0, b1 (mu2)
-            const int j = jj[u];
-            const float4 y = ty[j >> 16];
-            const float4 x = tx[j & 0xffff];
-            const float pyre = fmaf(y.y, w.w, y.x * w.z);
-            const float pyim = fmaf(y.w, w.w, y.z * w.z);
-            const float pxre = fmaf(x.y, w.y, x.x * w.x);
-            const float pxim = fmaf(x.w, w.y, x.z * w.x);
-            phr[g][p] = pyre * pxre - pyim * pxim;
-            phm[g][p] = pyre * pxim + pyim * pxre;
-          }
+            for (int p = 0; p < NP; ++p) {
+              const int u = (g * NP + p) * THREADS + tid;
+              const float4 w = w4[u];  // a0, a1 (mu1), b0, b1 (mu2)
+              const int j = jj[u];
+              const float4 y = ty[j >> 16];
+              const float4 x = tx[j & 0xffff];
+              const float pyre = fmaf(y.y, w.w, y.x * w.z);
+              const float pyim = fmaf(y.w, w.w, y.z * w.z);
+              const float pxre = fmaf(x.y, w.y, x.x * w.x);
+              const float pxim = fmaf(x.w, w.y, x.z * w.x);
+              phr[g][p] = pyre * pxre - pyim * pxim;
+              phm[g][p] = pyre * pxim + pyim * pxre;
+            }
+        }
       }
       wgmma_wait<0>();
 #pragma unroll
@@ -275,22 +342,79 @@ spectral_grads_kernel(const __grid_constant__ CUtensorMap x_map,
         pos.next();
       }
     }
-    mbar_arrive(&ring.empty[pos.stage]);
-    pos.next();
 
-    // the gather on the accumulators: grad += Re(phiU) * Tre - Im(phiU) * Tim,
-    // T rounded to T
+    if constexpr (!kFactored) {
+      mbar_arrive(&ring.empty[pos.stage]);
+      pos.next();
+
+      // the gather on the accumulators: grad += Re(phiU) * Tre - Im(phiU) * Tim,
+      // T rounded to T
 #pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      const int v = 4 * (p % (FT / 4)) + 2 * (p / (FT / 4));
+      for (int p = 0; p < NP; ++p) {
+        const int v = 4 * (p % (FT / 4)) + 2 * (p / (FT / 4));
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        float tr = tacc[m][v], ti = tacc[m][v + 1];
-        round_pair(tr, ti, T());
+        for (int m = 0; m < M; ++m) {
+          float tr = tacc[m][v], ti = tacc[m][v + 1];
+          round_pair(tr, ti, T());
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            gacc[m][g][p] = fmaf(phr[g][p], tr, fmaf(-phm[g][p], ti, gacc[m][g][p]));
+        }
+      }
+    } else {
+      // the factored gather, with the Pallas kernel's roundings: T rounded
+      // to T, then P and Q of this k1 row at each unit's taps j, j+1 into t2
+      // from the bin's t2 quad (c[j], c[j+1], s[j], s[j+1]),
+      //   P += c*Tre - s*Tim,  Q += s*Tre + c*Tim   (f32)
+      const float4* ty = reinterpret_cast<const float4*>(base + lay.tab) + pos.stage * tabw / 2;
+      const float4* tx = ty + tabw / 4;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int v = 4 * (p % (FT / 4)) + 2 * (p / (FT / 4));
+#pragma unroll
+        for (int m = 0; m < M; ++m) round_pair(tacc[m][v], tacc[m][v + 1], T());
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float4 x = tx[jj[(g * NP + p) * THREADS + tid] & 0xffff];
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            const float tr = tacc[m][v], ti = tacc[m][v + 1];
+            float(&u)[4] = pq[m][g][p];
+            u[0] = fmaf(x.x, tr, fmaf(-x.z, ti, u[0]));
+            u[1] = fmaf(x.y, tr, fmaf(-x.w, ti, u[1]));
+            u[2] = fmaf(x.z, tr, fmaf(x.x, ti, u[2]));
+            u[3] = fmaf(x.w, tr, fmaf(x.y, ti, u[3]));
+          }
+        }
+      }
+      if (k % RB == RB - 1) {
+        // the row's share of the combine: P and Q rounded to T, then in f32
+        //   Pw = a0*P(j) + a1*P(j+1), Qw likewise (a: mu1's taps),
+        //   grad += Re(py) * Pw - Im(py) * Qw,
+        // py = b0*t1[k1, j'] + b1*t1[k1, j'+1] from the row's t1 quad at
+        // mu2's tap j'; then P = Q = 0
 #pragma unroll
         for (int g = 0; g < G; ++g)
-          gacc[m][g][p] = fmaf(phr[g][p], tr, fmaf(-phm[g][p], ti, gacc[m][g][p]));
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const int u = (g * NP + p) * THREADS + tid;
+            const float4 w = w4[u];  // a0, a1 (mu1), b0, b1 (mu2)
+            const float4 y = ty[jj[u] >> 16];
+            const float pyre = fmaf(y.y, w.w, y.x * w.z);
+            const float pyim = fmaf(y.w, w.w, y.z * w.z);
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              float(&r)[4] = pq[m][g][p];
+              const float pw = fmaf(round_as(r[1], T()), w.y, round_as(r[0], T()) * w.x);
+              const float qw = fmaf(round_as(r[3], T()), w.y, round_as(r[2], T()) * w.x);
+              gacc[m][g][p] = fmaf(pyre, pw, fmaf(-pyim, qw, gacc[m][g][p]));
+              r[0] = r[1] = r[2] = r[3] = 0.f;
+            }
+          }
       }
+      // the bin's stage, table rows included, is free now
+      mbar_arrive(&ring.empty[pos.stage]);
+      pos.next();
     }
   }
 
@@ -341,41 +465,47 @@ inline cudaError_t make_maps(Maps* mp, const void* xs, const void* es, const voi
                   CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
-template <typename T, int M, int G>
+// One launch over R ranges of the bins, each a whole number of `unit` bins
+// (K1: 1; K8: RB, a k1 row).
+template <typename T, int M, int G, typename Gather>
 cudaError_t launch(const Maps& mp, const int* idx, const float* wts, float* out, int B, int K,
-                   int S, int F, int RB, int NJ, int R, size_t smem, cudaStream_t stream) {
-  cudaError_t e = dau_hopper::set_smem(spectral_grads_kernel<T, M, G>, smem);
+                   int S, int F, int RB, int NJ, int unit, int R, size_t smem,
+                   cudaStream_t stream) {
+  cudaError_t e = dau_hopper::set_smem(spectral_grads_kernel<T, M, G, Gather>, smem);
   if (e != cudaSuccess) return e;
-  constexpr int FB = WGS * tile_f(M, G);  // f per block
-  const int per = (B + R - 1) / R;
+  constexpr int FB = WGS * Gather::tile_f(M, G);  // f per block
+  const int units = B / unit;
+  const int per = (units + R - 1) / R * unit;
   const dim3 grid((F + FB - 1) / FB, (S + ST - 1) / ST, R);
-  spectral_grads_kernel<T, M, G><<<grid, THREADS, smem, stream>>>(
+  spectral_grads_kernel<T, M, G, Gather><<<grid, THREADS, smem, stream>>>(
       mp.x, mp.e, mp.t1, mp.t2, idx, wts, out, B, K, S, F, RB, NJ, per);
   return cudaGetLastError();
 }
 
-// Bin ranges R (<= MAX_RANGES, none empty) that fill the card in whole
-// waves: the fewest bins per block times waves, one bin's worth added per
-// wave for the block's staging. Returns R, or -cudaError.
-template <typename T, int M, int G>
-int ranges(int B, int S, int F, size_t smem) {
+// Ranges R (<= MAX_RANGES, none empty) of whole units of `unit` bins that
+// fill the card in whole waves: the fewest bins per block times waves, one
+// bin's worth added per wave for the block's staging. Returns R, or
+// -cudaError.
+template <typename T, int M, int G, typename Gather>
+int ranges(int B, int S, int F, int unit, size_t smem) {
   int per_sm = 0, sms = 0;
-  cudaError_t e = dau_hopper::set_smem(spectral_grads_kernel<T, M, G>, smem);
+  cudaError_t e = dau_hopper::set_smem(spectral_grads_kernel<T, M, G, Gather>, smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, spectral_grads_kernel<T, M, G>,
-                                                      THREADS, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, spectral_grads_kernel<T, M, G, Gather>, THREADS, smem);
   if (e == cudaSuccess) e = sm_count(&sms);
   if (e != cudaSuccess) return -(int)e;
   if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
-  constexpr int FB = WGS * tile_f(M, G);
+  constexpr int FB = WGS * Gather::tile_f(M, G);
   const long long tiles = (long long)((F + FB - 1) / FB) * ((S + ST - 1) / ST);
   const long long slots = (long long)per_sm * sms;
+  const int units = B / unit;
   int best = 1;
   long long best_cost = -1;
-  for (int r = 1; r <= MAX_RANGES && r <= B; ++r) {
-    const int per = (B + r - 1) / r;
-    const int rr = (B + per - 1) / per;
-    const long long cost = (tiles * rr + slots - 1) / slots * (per + 1);
+  for (int r = 1; r <= MAX_RANGES && r <= units; ++r) {
+    const int per = (units + r - 1) / r;
+    const int rr = (units + per - 1) / per;
+    const long long cost = (tiles * rr + slots - 1) / slots * (per * unit + 1);
     if (best_cost < 0 || cost < best_cost) {
       best_cost = cost;
       best = rr;
@@ -555,10 +685,10 @@ operands_kernel(const __grid_constant__ Args a) {
       const float* sn = t + (size_t)(rows + kr) * a.NJ;
       float4 o = make_float4(c[j], c[j + 1], sn[j], sn[j + 1]);
       if (!kF32) {
-        o.x = dau_spectral::round_as(o.x, __nv_bfloat16());
-        o.y = dau_spectral::round_as(o.y, __nv_bfloat16());
-        o.z = dau_spectral::round_as(o.z, __nv_bfloat16());
-        o.w = dau_spectral::round_as(o.w, __nv_bfloat16());
+        o.x = round_as(o.x, __nv_bfloat16());
+        o.y = round_as(o.y, __nv_bfloat16());
+        o.z = round_as(o.z, __nv_bfloat16());
+        o.w = round_as(o.w, __nv_bfloat16());
       }
       reinterpret_cast<float4*>(a.tq)[r] = o;
     }
@@ -568,8 +698,6 @@ operands_kernel(const __grid_constant__ Args a) {
 }  // namespace prep
 
 // ------------------------------------------------------------------ K2's dx
-
-using namespace dau_spectral;
 
 constexpr int DX_T = 32;              // s, f and n tile of the dx kernel
 constexpr int NJ_MAX = 64;            // largest exponent table width (dx kernel)
@@ -703,21 +831,71 @@ spectral_dx_kernel(const T* __restrict__ esb, const float* __restrict__ t1,
     default: return -(int)cudaErrorInvalidValue;                        \
   }
 
-template <typename T>
-int k1_ranges(int M, int G, int B, int S, int F, size_t smem) {
-#define DAU_RANGES(MM, GG) tc::ranges<T, MM, GG>(B, S, F, smem)
+template <typename T, typename Gather>
+int tc_ranges(int M, int G, int B, int S, int F, int unit, size_t smem) {
+#define DAU_RANGES(MM, GG) tc::ranges<T, MM, GG, Gather>(B, S, F, unit, smem)
   DAU_MG_DISPATCH(DAU_RANGES)
 #undef DAU_RANGES
 }
 
-template <typename T>
-int k1_launch(int M, int G, const tc::Maps& mp, const int* idx, const float* wts, float* out,
-              int B, int K, int S, int F, int RB, int NJ, int R, size_t smem,
+template <typename T, typename Gather>
+int tc_launch(int M, int G, const tc::Maps& mp, const int* idx, const float* wts, float* out,
+              int B, int K, int S, int F, int RB, int NJ, int unit, int R, size_t smem,
               cudaStream_t stream) {
-#define DAU_LAUNCH(MM, GG) \
-  -(int)tc::launch<T, MM, GG>(mp, idx, wts, out, B, K, S, F, RB, NJ, R, smem, stream)
+#define DAU_LAUNCH(MM, GG)                                                                 \
+  -(int)tc::launch<T, MM, GG, Gather>(mp, idx, wts, out, B, K, S, F, RB, NJ, unit, R, smem, \
+                                      stream)
   DAU_MG_DISPATCH(DAU_LAUNCH)
 #undef DAU_LAUNCH
+}
+
+// Shared-memory bytes of the kernel under `Gather` for M filters, G units
+// and NJ exponents (the bins' table rows are streamed: P1 and RB do not
+// enter), or -1 where M, G or NJ has no instance.
+template <typename Gather>
+long long tc_smem_bytes(int M, int G, int NJ) {
+  if (M < 3 || M > 4 || G < 1 || G > 4 || NJ < 2 || NJ > NJ_MAX) return -1;
+  return tc::layout(M, G, NJ, Gather::tile_f(M, G)).bytes;
+}
+
+// Ranges of whole units of `unit` bins (see tc::ranges), or -cudaError.
+template <typename Gather>
+int ranges_of(int dtype, int M, int G, int B, int S, int F, int NJ, int unit) {
+  const long long smem = tc_smem_bytes<Gather>(M, G, NJ);
+  if (smem < 0 || unit < 1 || B % unit != 0) return -(int)cudaErrorInvalidValue;
+  return dtype == 0 ? tc_ranges<float, Gather>(M, G, B, S, F, unit, (size_t)smem)
+                    : tc_ranges<__nv_bfloat16, Gather>(M, G, B, S, F, unit, (size_t)smem);
+}
+
+// One launch of the kernel under `Gather` over R ranges of whole units of
+// `unit` bins; the arguments of dau_spectral_grads_launch. Returns a
+// cudaError_t.
+template <typename Gather>
+int launch_of(const void* xs_t, const void* es_t, const void* t1q, const void* t2q,
+              const void* idx, const void* wts, void* out, int dtype, int M, int G, int B, int K,
+              int S, int F, int P1, int RB, int NJ, int unit, int R, long long smem,
+              void* stream) {
+  if (B <= 0 || K <= 0 || S <= 0 || F <= 0 || P1 <= 0 || RB <= 0 || B % unit != 0 || R < 1 ||
+      R > B / unit || smem != tc_smem_bytes<Gather>(M, G, NJ))
+    return (int)cudaErrorInvalidValue;
+  tc::Maps mp;
+  cudaError_t e = tc::make_maps(&mp, xs_t, es_t, t1q, t2q, M, B, K, S, F, P1, RB, NJ,
+                                Gather::tile_f(M, G));
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ii = static_cast<const int*>(idx);
+  const float* fw = static_cast<const float*>(wts);
+  float* fo = static_cast<float*>(out);
+  int r;
+  if (dtype == 0)
+    r = tc_launch<float, Gather>(M, G, mp, ii, fw, fo, B, K, S, F, RB, NJ, unit, R,
+                                 (size_t)smem, st);
+  else if (dtype == 1)
+    r = tc_launch<__nv_bfloat16, Gather>(M, G, mp, ii, fw, fo, B, K, S, F, RB, NJ, unit, R,
+                                         (size_t)smem, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return -r;
 }
 
 }  // namespace
@@ -730,18 +908,16 @@ extern "C" {
 long long dau_spectral_grads_smem_bytes(int M, int G, int P1, int RB, int NJ) {
   (void)P1;
   (void)RB;
-  if (M < 3 || M > 4 || G < 1 || G > 4 || NJ < 2 || NJ > NJ_MAX) return -1;
-  return tc::layout(M, G, NJ).bytes;
+  return tc_smem_bytes<tc::PhiGather>(M, G, NJ);
 }
 
 // Bin ranges for K1 so its grid fills the card in whole waves. Returns the
 // count (>= 1, <= B), or -cudaError on failure.
 int dau_spectral_grads_ranges(int dtype, int M, int G, int B, int S, int F, int P1, int RB,
                               int NJ) {
-  const long long smem = dau_spectral_grads_smem_bytes(M, G, P1, RB, NJ);
-  if (smem < 0) return -(int)cudaErrorInvalidValue;
-  return dtype == 0 ? k1_ranges<float>(M, G, B, S, F, (size_t)smem)
-                    : k1_ranges<__nv_bfloat16>(M, G, B, S, F, (size_t)smem);
+  (void)P1;
+  (void)RB;
+  return ranges_of<tc::PhiGather>(dtype, M, G, B, S, F, NJ, 1);
 }
 
 // K1: xs_t (B, M, K, S8) bf16 and es_t (B, C8, K, 8) bf16 from
@@ -755,27 +931,36 @@ int dau_spectral_grads_launch(const void* xs_t, const void* es_t, const void* t1
                               const void* t2q, const void* idx, const void* wts, void* out,
                               int dtype, int M, int G, int B, int K, int S, int F, int P1, int RB,
                               int NJ, int R, long long smem, void* stream) {
-  if (B <= 0 || K <= 0 || S <= 0 || F <= 0 || P1 <= 0 || RB <= 0 || R < 1 || R > B ||
-      smem != dau_spectral_grads_smem_bytes(M, G, P1, RB, NJ))
-    return (int)cudaErrorInvalidValue;
-  tc::Maps mp;
-  cudaError_t e = tc::make_maps(&mp, xs_t, es_t, t1q, t2q, M, B, K, S, F, P1, RB, NJ,
-                                tc::tile_f(M, G));
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* ii = static_cast<const int*>(idx);
-  const float* fw = static_cast<const float*>(wts);
-  float* fo = static_cast<float*>(out);
-  int r;
-  if (dtype == 0)
-    r = k1_launch<float>(M, G, mp, ii, fw, fo, B, K, S, F, RB, NJ, R, (size_t)smem, st);
-  else if (dtype == 1)
-    r = k1_launch<__nv_bfloat16>(M, G, mp, ii, fw, fo, B, K, S, F, RB, NJ, R, (size_t)smem, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return -r;
+  return launch_of<tc::PhiGather>(xs_t, es_t, t1q, t2q, idx, wts, out, dtype, M, G, B, K, S, F,
+                                  P1, RB, NJ, 1, R, smem, stream);
 }
 
+// Shared-memory bytes of K8 (the factored gather, K1's kernel with
+// `FactoredGather`), or -1 where M, G or NJ has no instance.
+long long dau_factored_grads_smem_bytes(int M, int G, int P1, int RB, int NJ) {
+  (void)P1;
+  (void)RB;
+  return tc_smem_bytes<tc::FactoredGather>(M, G, NJ);
+}
+
+// Ranges of whole k1 rows (RB bins each) for K8 so its grid fills the card
+// in whole waves. Returns the count (>= 1, <= P1), or -cudaError.
+int dau_factored_grads_ranges(int dtype, int M, int G, int B, int S, int F, int P1, int RB,
+                              int NJ) {
+  if (B != P1 * RB) return -(int)cudaErrorInvalidValue;
+  return ranges_of<tc::FactoredGather>(dtype, M, G, B, S, F, NJ, RB);
+}
+
+// K8: the arguments of K1's launch (B = P1*RB); out (R, M, S, G, F) f32
+// partial sums over R ranges of whole k1 rows. Returns a cudaError_t.
+int dau_factored_grads_launch(const void* xs_t, const void* es_t, const void* t1q,
+                              const void* t2q, const void* idx, const void* wts, void* out,
+                              int dtype, int M, int G, int B, int K, int S, int F, int P1, int RB,
+                              int NJ, int R, long long smem, void* stream) {
+  if (B != P1 * RB) return (int)cudaErrorInvalidValue;
+  return launch_of<tc::FactoredGather>(xs_t, es_t, t1q, t2q, idx, wts, out, dtype, M, G, B, K,
+                                       S, F, P1, RB, NJ, RB, R, smem, stream);
+}
 
 // K1's operands (see `prep::operands_kernel`): xs (B, M, 2N, S) and es (B,
 // 2N, F) in dtype (0 f32, 1 bf16), contiguous; a1, a2 (NJ, G, S, F) f32 with

@@ -3,9 +3,10 @@ gradient; K8, the factored gather), and their plain twins.
 
 Counterpart of `dau_convnet_tpu/kernels/fused_bwd.py::fused_spectral_grads_call`.
 `fused_spectral_grads` launches the hand-written CUDA kernels of
-`csrc/dau_spectral_grads.cu` (gather='phi') or `csrc/dau_factored_grads.cu`
-(gather='factored') on a CUDA tensor and calls the plain PyTorch twin
-(`fused_spectral_grads_plain`, `fused_factored_grads_plain`) on a CPU tensor.
+`csrc/dau_spectral_grads.cu` on a CUDA tensor, one kernel under two gather
+policies (gather='phi': K1; gather='factored': K8), and calls the plain
+PyTorch twin (`fused_spectral_grads_plain`, `fused_factored_grads_plain`) on
+a CPU tensor.
 There is no fallback: on a CUDA tensor the kernel runs or the call raises.
 
 All compute, for the re/im-stacked spectra xs (B, M, 2N, S) and es (B, 2N,
@@ -45,16 +46,16 @@ from .forward import _DTYPE_CODE, _MAX_SMEM, split_bf16_3
 
 __all__ = ["FusedPlanError", "spectral_plan", "factored_plan", "fused_spectral_grads",
            "fused_spectral_grads_plain", "fused_factored_grads_plain", "spectral_operands",
-           "spectral_table_quads", "bin_ranges"]
+           "spectral_table_quads", "bin_ranges", "row_ranges"]
 
 # (M, G) pairs the kernels are instantiated for: the f32 sums each thread
 # keeps in registers spill beyond G = 4
 _FILTERS = (3, 4)
 _MAX_UNITS = 4
 _MAX_EXPONENTS = 64  # table width the dx kernel stages
-_K1_STAGES = 2       # K1's ring (csrc/dau_spectral_grads.cu)
-_K1_ROWS = 64        # K rows per K1 stage
-_K1_WARPGROUPS = 2   # K1's warpgroups, each on its own f of a block
+_K1_STAGES = 2       # the ring of K1 and K8 (csrc/dau_spectral_grads.cu)
+_K1_ROWS = 64        # K rows per stage
+_K1_WARPGROUPS = 2   # warpgroups, each on its own f of a block
 
 
 class FusedPlanError(ValueError):
@@ -62,28 +63,17 @@ class FusedPlanError(ValueError):
     spectral gather instead (decided before the call, from the shape)."""
 
 
-def _plan(m: int, g: int, nj: int, p1b: int, rbb: int, st: int):
-    """{'smem': bytes} of a K8 block of st s x 32 f that stages both phase
-    tables, its units' taps and 16 images of xs and es; None where the
-    kernel cannot take the shape (M not in (3, 4), G > 4, more than 64
-    exponents, shared memory above 227 KB)."""
+def _tc_plan(m: int, g: int, nj: int, ft: int):
+    """{'smem': bytes} of a block of K1's kernel (`layout` in
+    csrc/dau_spectral_grads.cu) at FT f per warpgroup, or None where it
+    cannot take the shape (M not in (3, 4), G > 4, more than 64 exponents).
+    A block of 64 s x 2 warpgroups x FT f holds two ring stages (the M
+    planes' X tile, the ES tile and the bin's two table rows each), its
+    units' weights and taps and the ring's barriers; the table rows are
+    streamed per bin, so P1 and rb do not enter."""
     if m not in _FILTERS or not 1 <= g <= _MAX_UNITS or nj > _MAX_EXPONENTS:
         return None
-    tab = -(-2 * (p1b + rbb) * nj // 4) * 4
-    smem = 4 * (tab + 6 * g * st * 32 + m * 2 * 16 * st + 2 * 16 * 32)
-    return {"smem": smem} if smem <= _MAX_SMEM else None
-
-
-def spectral_plan(*, m: int, g: int, nj: int, p1b: int, rbb: int):
-    """Shape-only plan of the phi-gather kernel K1: {'smem': bytes}, or None
-    where it cannot take the shape (M not in (3, 4), G > 4, more than 64
-    exponents). A block of 64 s x FT f (FT = 16 at M*G <= 8, else 8) holds
-    two ring stages (the M planes' X tile, the ES tile and the bin's two
-    table rows each), its units' weights and taps and the ring's barriers;
-    the table rows are streamed per bin, so P1 and rb do not enter."""
-    if m not in _FILTERS or not 1 <= g <= _MAX_UNITS or nj > _MAX_EXPONENTS:
-        return None
-    ft, wgs = _k1_tile_f(m, g), _K1_WARPGROUPS
+    wgs = _K1_WARPGROUPS
     row = -(-4 * max(nj - 1, 1) // 32) * 32
     stage = m * _K1_ROWS * 64 * 2 + 2 * wgs * ft // 8 * _K1_ROWS * 16 + 2 * row * 4
     units = g * ft // 2 * 128 * wgs * 20
@@ -91,19 +81,32 @@ def spectral_plan(*, m: int, g: int, nj: int, p1b: int, rbb: int):
     return {"smem": smem} if smem <= _MAX_SMEM else None
 
 
+def spectral_plan(*, m: int, g: int, nj: int, p1b: int, rbb: int):
+    """Shape-only plan of the phi-gather kernel K1: {'smem': bytes}, or None
+    where it cannot take the shape (`_tc_plan` at FT = `_k1_tile_f`)."""
+    return _tc_plan(m, g, nj, _k1_tile_f(m, g))
+
+
 def factored_plan(*, m: int, g: int, nj: int, p1b: int, rbb: int):
-    """Shape-only plan of the factored-gather kernel K8: {'smem': bytes}, or
-    None where it cannot take the shape (see `_plan`; a K8 block owns 16 s,
-    its P/Q sums fill the registers K1 gives a second s). JAX's VMEM budget
-    has no counterpart here."""
-    return _plan(m, g, nj, p1b, rbb, 16)
+    """Shape-only plan of the factored-gather kernel K8, K1's kernel under
+    its factored gather: {'smem': bytes}, or None where it cannot take the
+    shape (`_tc_plan` at FT = `_k8_tile_f`). JAX's VMEM budget has no
+    counterpart here."""
+    return _tc_plan(m, g, nj, _k8_tile_f(m, g))
 
 
 def _k1_tile_f(m: int, g: int) -> int:
-    """f per K1 warpgroup (`tile_f` in csrc/dau_spectral_grads.cu): its
-    cross-spectra, gather sums and phase factors fit the registers at 16 up
-    to M*G = 8, else at 8."""
+    """f per K1 warpgroup (`PhiGather::tile_f` in csrc/dau_spectral_grads.cu):
+    its cross-spectra, gather sums and phase factors fit the registers at 16
+    up to M*G = 8, else at 8."""
     return 16 if m * g <= 8 else 8
+
+
+def _k8_tile_f(m: int, g: int) -> int:
+    """f per K8 warpgroup (`FactoredGather::tile_f`): beside K1's sums each
+    thread keeps P and Q at each unit's two taps, 2*M*G*FT more; the widest
+    of 16 and 8 at which the three take at most 170 registers, else 4."""
+    return next((ft for ft in (16, 8) if ft * m * (5 * g + 2) // 2 <= 170), 4)
 
 
 def _interleave(es_k, n_img: int):
@@ -158,6 +161,15 @@ def bin_ranges(b: int, r: int):
     of range z take bins [z*per, min(b, (z+1)*per)), per = ceil(b / r)."""
     per = -(-b // r)
     return [(z, min(b, z + per)) for z in range(0, b, per)]
+
+
+def row_ranges(p1b: int, rbb: int, r: int):
+    """K8's bin ranges [(begin, end)], r of them at most, each whole k1 rows
+    of rb bins (bin k = k1*rb + k2): blocks of range z take rows [z*per,
+    min(P1, (z+1)*per)), per = ceil(P1 / r), as the kernel's launch cuts
+    them."""
+    per = -(-p1b // r)
+    return [(z * rbb, min(p1b, z + per) * rbb) for z in range(0, p1b, per)]
 
 
 def _dx_spectra_plain(esb, phire, phiim, wg, n_img: int):
@@ -364,33 +376,24 @@ def fused_spectral_grads(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int, rbb: i
     cdt = xs.dtype
     code = _DTYPE_CODE[cdt]
     es = es.to(cdt).contiguous()
+    # one library, one kernel under the gather's policy: its entry points
+    # are named dau_spectral_grads_* (K1) and dau_factored_grads_* (K8)
     name = "dau_factored_grads" if factored else "dau_spectral_grads"
-    lib = _library(name)
+    lib = _library("dau_spectral_grads")
     if getattr(lib, f"{name}_smem_bytes")(m, g, p1b, rbb, nj) != plan["smem"]:
         raise RuntimeError(f"fused_spectral_grads ({gather}): the plan disagrees with the "
                            "kernel's")
-    t1r = t2r = None  # the tables rounded to cdt, for K8 and the dx kernel
-    if factored or esb is not None:
-        t1r = t1.to(cdt).float().contiguous()
-        t2r = t2.to(cdt).float().contiguous()
-    if factored:
-        j1, a1lo, a1hi = _taps(a1, cdt)
-        j2, a2lo, a2hi = _taps(a2, cdt)
-        idx = torch.stack([j1, j2]).contiguous()
-        wts = torch.stack([a1lo, a1hi, a2lo, a2hi]).contiguous()
-        ops, rows = (xs, es, t1r, t2r), n_img
-    else:
-        xs_t, es_t, tq, idx, wts = _spectral_operands_cuda(lib, xs, es, a1, a2, t1, t2, n_img,
-                                                           p1b, rbb)
-        ops, rows = (xs_t, es_t, tq, tq[p1b:]), es_t.shape[2]
+    xs_t, es_t, tq, idx, wts = _spectral_operands_cuda(lib, xs, es, a1, a2, t1, t2, n_img, p1b,
+                                                       rbb)
     r = _ranges(name, code, m, g, b, s, f, p1b, rbb, nj)
     out = torch.empty((r, m, s, g, f), dtype=torch.float32, device=xs.device)
     counts = fused_spectral_grads
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = getattr(lib, f"{name}_launch")(
-            *(t.data_ptr() for t in ops), idx.data_ptr(), wts.data_ptr(), out.data_ptr(), code,
-            m, g, b, rows, s, f, p1b, rbb, nj, r, plan["smem"], stream)
+            xs_t.data_ptr(), es_t.data_ptr(), tq.data_ptr(), tq[p1b:].data_ptr(), idx.data_ptr(),
+            wts.data_ptr(), out.data_ptr(), code, m, g, b, es_t.shape[2], s, f, p1b, rbb, nj, r,
+            plan["smem"], stream)
         if err != 0:
             raise RuntimeError(f"fused_spectral_grads ({gather}) launch failed: cudaError {err}")
         grads = out[0] if r == 1 else out.sum(dim=0)
@@ -403,8 +406,10 @@ def fused_spectral_grads(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int, rbb: i
         # the dx spectra: the same function under either gather, K2's kernel
         esb = esb.to(cdt).contiguous()
         wg = wg.to(cdt).float().contiguous()
+        t1r = t1.to(cdt).float().contiguous()  # the tables rounded to cdt
+        t2r = t2.to(cdt).float().contiguous()
         dxs = torch.empty((b, 2 * n_img, s), dtype=torch.float32, device=xs.device)
-        err = _library("dau_spectral_grads").dau_spectral_dx_launch(
+        err = lib.dau_spectral_dx_launch(
             esb.data_ptr(), t1r.data_ptr(), t2r.data_ptr(), idx.data_ptr(), wts.data_ptr(),
             wg.data_ptr(), dxs.data_ptr(), code, g, b, n_img, s, f, p1b, rbb, nj, stream)
     if err != 0:
@@ -424,9 +429,10 @@ fused_spectral_grads.launches_k8_dx = 0
 
 @functools.lru_cache(maxsize=None)
 def _ranges(name, code, m, g, b, s, f, p1b, rbb, nj) -> int:
-    """The kernel's bin ranges for a shape (the grid fills the card about
-    once; K8's ranges hold whole k1 rows)."""
-    r = getattr(_library(name), f"{name}_ranges")(code, m, g, b, s, f, p1b, rbb, nj)
+    """The kernel's bin ranges for a shape (the grid fills the card in whole
+    waves; K8's ranges hold whole k1 rows, `row_ranges`)."""
+    r = getattr(_library("dau_spectral_grads"), f"{name}_ranges")(code, m, g, b, s, f, p1b,
+                                                                  rbb, nj)
     if r < 1:
         raise RuntimeError(f"{name} occupancy query failed: cudaError {-r}")
     return r
@@ -434,20 +440,20 @@ def _ranges(name, code, m, g, b, s, f, p1b, rbb, nj) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
-    """The built kernel library `name` (dau_spectral_grads: K1 and the dx
-    kernel; dau_factored_grads: K8) with every C signature declared."""
+    """The built kernel library `name` (dau_spectral_grads: K1, K8, their
+    operand kernel and the dx kernel) with every C signature declared."""
     lib = load_library(name)
     c_int, c_ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    getattr(lib, f"{name}_smem_bytes").argtypes = [c_int] * 5
-    getattr(lib, f"{name}_smem_bytes").restype = c_ll
-    getattr(lib, f"{name}_ranges").argtypes = [c_int] * 9
-    getattr(lib, f"{name}_ranges").restype = c_int
-    getattr(lib, f"{name}_launch").argtypes = [c_ptr] * 7 + [c_int] * 11 + [c_ll, c_ptr]
-    getattr(lib, f"{name}_launch").restype = c_int
-    if name == "dau_spectral_grads":
-        lib.dau_spectral_dx_launch.argtypes = [c_ptr] * 7 + [c_int] * 9 + [c_ptr]
-        lib.dau_spectral_dx_launch.restype = c_int
-        lib.dau_spectral_operands_launch.argtypes = (
-            [c_ptr] * 4 + [ctypes.POINTER(c_ll)] + [c_ptr] * 7 + [c_int] * 10 + [c_ptr])
-        lib.dau_spectral_operands_launch.restype = c_int
+    for entry in ("dau_spectral_grads", "dau_factored_grads"):
+        getattr(lib, f"{entry}_smem_bytes").argtypes = [c_int] * 5
+        getattr(lib, f"{entry}_smem_bytes").restype = c_ll
+        getattr(lib, f"{entry}_ranges").argtypes = [c_int] * 9
+        getattr(lib, f"{entry}_ranges").restype = c_int
+        getattr(lib, f"{entry}_launch").argtypes = [c_ptr] * 7 + [c_int] * 11 + [c_ll, c_ptr]
+        getattr(lib, f"{entry}_launch").restype = c_int
+    lib.dau_spectral_dx_launch.argtypes = [c_ptr] * 7 + [c_int] * 9 + [c_ptr]
+    lib.dau_spectral_dx_launch.restype = c_int
+    lib.dau_spectral_operands_launch.argtypes = (
+        [c_ptr] * 4 + [ctypes.POINTER(c_ll)] + [c_ptr] * 7 + [c_int] * 10 + [c_ptr])
+    lib.dau_spectral_operands_launch.restype = c_int
     return lib

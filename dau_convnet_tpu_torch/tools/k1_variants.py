@@ -2,8 +2,9 @@
 
     python -m dau_convnet_tpu_torch.tools.k1_variants [--seed N]
 
-Each variant is `kernels/csrc/dau_spectral_grads.cu` with one part changed
-by a text edit (`VARIANTS`), compiled with the package's nvcc flags into
+Each variant is `kernels/csrc/dau_spectral_grads.cu` with one part of K1's
+kernel (`spectral_grads_kernel` under `PhiGather`) changed by a text edit
+(`VARIANTS`), compiled with the package's nvcc flags into
 `kernels/build/` and run through `fused_spectral_grads` at the AlexNet-DAU
 layer shapes (N=32, bf16, M=3, G=2, spectra and offsets from --seed). One
 line per variant gives the kernel's device time per layer (`torch.profiler`,
@@ -30,12 +31,14 @@ LAYERS = (("conv2", 96, 256, 27), ("conv3", 256, 384, 13), ("conv4", 384, 384, 1
           ("conv5", 384, 256, 13))
 M, G, N, KS = 3, 2, 32, 9
 
-_PHASE = "      if (c + 1 == chunks) {\n"
-_GATHER = "          gacc[m][g][p] = fmaf(phr[g][p], tr, fmaf(-phm[g][p], ti, gacc[m][g][p]));"
+_PHASE = "        if (c + 1 == chunks) {\n"
+_GATHER = "            gacc[m][g][p] = fmaf(phr[g][p], tr, fmaf(-phm[g][p], ti, gacc[m][g][p]));"
 _WGMMA = ("          if constexpr (FT == 16)\n"
           "            wgmma_m64n32<1, 1>(tacc[m], desc_advance(da, 2048 * kk), desc_advance(db, 256 * kk));\n"
+          "          else if constexpr (FT == 8)\n"
+          "            wgmma_m64n16<1, 1>(tacc[m], desc_advance(da, 2048 * kk), desc_advance(db, 256 * kk));\n"
           "          else\n"
-          "            wgmma_m64n16<1, 1>(tacc[m], desc_advance(da, 2048 * kk), desc_advance(db, 256 * kk));\n")
+          "            wgmma_m64n8<1, 1>(tacc[m], desc_advance(da, 2048 * kk), desc_advance(db, 256 * kk));\n")
 _STAGE_BYTES = "  const uint32_t stage_bytes = M * A_M + B_STAGE + 2 * q * 4;"
 _ES_LOAD = "    tma_load_4d(base + lay.b + ahead.stage * B_STAGE, &e_map, full, 0, c * KC, f0 / 4, k);\n"
 
@@ -43,11 +46,11 @@ _ES_LOAD = "    tma_load_4d(base + lay.b + ahead.stage * B_STAGE, &e_map, full, 
 VARIANTS = {
     "as built": [],
     "no gather (phase factors and gather dropped)": [
-        (_PHASE, "      if (false) {\n"),
-        (_GATHER, "          gacc[m][g][p] += tr - ti;")],
+        (_PHASE, "        if (false) {\n"),
+        (_GATHER, "            gacc[m][g][p] += tr - ti;")],
     "no wgmma": [(_WGMMA, "")],
     "neither gather nor wgmma": [
-        (_PHASE, "      if (false) {\n"), (_GATHER, "          gacc[m][g][p] += tr - ti;"),
+        (_PHASE, "        if (false) {\n"), (_GATHER, "            gacc[m][g][p] += tr - ti;"),
         (_WGMMA, "")],
     "X of M-1 planes loaded": [
         (_STAGE_BYTES, "  const uint32_t stage_bytes = (M - 1) * A_M + B_STAGE + 2 * q * 4;"),
@@ -60,7 +63,7 @@ VARIANTS = {
         ("    issue(0);\n", "    for (int i = 0; i < STAGES - 1 && i < steps; ++i) issue(i);\n"),
         ("if (tid == 0 && i + 1 < steps) issue(i + 1);",
          "if (tid == 0 && i + STAGES - 1 < steps) issue(i + STAGES - 1);")],
-    "T not rounded": [("        round_pair(tr, ti, T());\n", "")],
+    "T not rounded": [("          round_pair(tr, ti, T());\n", "")],
     "one bin range (72 / 48 blocks, one wave)": [
         ("constexpr int MAX_RANGES = 8;", "constexpr int MAX_RANGES = 1;")],
 }

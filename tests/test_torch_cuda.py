@@ -457,6 +457,57 @@ def test_factored_grads_kernel_matches_twin(cuda_device, name, dtype, bound):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+@pytest.mark.parametrize("m", [3, 4])
+def test_factored_grads_every_instance_matches_twin(cuda_device, m, g):
+    # every (M, G) instance of K8 (16, 8 or 4 f per warpgroup, where its P/Q
+    # sums fit the registers), S = 96 as at conv2 and F over ragged tiles,
+    # N = 3, at 13x13's 17 rows of 9 bins; without and with the dx operands
+    for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        args, kw, (esb, wg) = _spectral_case((m, 3, 96, g, 41, 13), cuda_device, dtype,
+                                             seed=m * g)
+        counts = tfb.fused_spectral_grads
+        before = (counts.launches_k8, counts.launches_k8_dx)
+        got = tfb.fused_spectral_grads(*args, **kw, gather="factored")
+        got_dx = tfb.fused_spectral_grads(*args, **kw, esb=esb, wg=wg, gather="factored")
+        torch.cuda.synchronize()
+        assert (counts.launches_k8, counts.launches_k8_dx) == (before[0] + 1, before[1] + 1)
+        want = tfb.fused_factored_grads_plain(*args, **kw, esb=esb, wg=wg)
+        assert got.shape == want[0].shape == (m, 96, g, 41)
+        for g_, w_ in zip((got, *got_dx), (want[0], *want)):
+            assert float((g_ - w_).abs().max()) <= bound * float(w_.abs().max()), dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_factored_grads_kernel_is_deterministic(cuda_device, dtype):
+    # each output is summed by one block per range of rows, in one order,
+    # and the ranges by the wrapper: no atomics
+    args, kw, _ = _spectral_case("wide", cuda_device, dtype, seed=4)
+    first = tfb.fused_spectral_grads(*args, **kw, gather="factored")
+    second = tfb.fused_spectral_grads(*args, **kw, gather="factored")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [9, 13, 27])
+def test_factored_plan_and_ranges_equal_the_kernels(cuda_device, h):
+    # the CPU plan against the library's shared memory, and the kernel's
+    # ranges: whole k1 rows, within 1 .. P1
+    p1, _, rb = tfe.plan_bins(h, h, KS)
+    lib = tfb._library("dau_spectral_grads")
+    for m in (3, 4):
+        for g in (1, 2, 3, 4):
+            plan = tfb.factored_plan(m=m, g=g, nj=12, p1b=p1, rbb=rb)
+            assert lib.dau_factored_grads_smem_bytes(m, g, p1, rb, 12) == plan["smem"]
+            for code in (0, 1):
+                r = lib.dau_factored_grads_ranges(code, m, g, p1 * rb, 96, 256, p1, rb, 12)
+                assert 1 <= r <= p1
+                assert len(tfb.row_ranges(p1, rb, r)) == r
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fused_dx", ["off", "on"])
 def test_layer_factored_backward_matches_unfused(cuda_device, fused_dx):
     grads = {}

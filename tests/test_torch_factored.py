@@ -2,7 +2,9 @@
 
 The twin `fused_factored_grads_plain` against the JAX Pallas kernel
 `fused_spectral_grads_call(gather="factored")` in interpret mode, as
-tests/test_pallas.py runs it; `fourier_unit_grads_fused2(gather="factored")`;
+tests/test_pallas.py runs it; K8's plan and row ranges, and its sums emulated
+in float64 from the operands K1's wrapper prepares (`_factored_from_operands`)
+against the same Pallas kernel; `fourier_unit_grads_fused2(gather="factored")`;
 and the op's Fourier backward with fused_bwd='on', fused_gather='factored'
 (and fused_dx='on') against `jax.vjp` of the JAX op. Shapes stay small (HW 9
 or 13, S <= 16, F <= 24): JAX's interpret mode needs S and F multiples of 8.
@@ -120,20 +122,125 @@ def test_factored_twin_bf16_matches_pallas():
                                      (13, 384, 256, 2), (13, 384, 384, 4)])
 def test_alexnet_shapes_have_a_factored_plan(h, s, f, g):
     # conv2 (496 bins) included: under the factored gate it has no unfused
-    # escape unless the plan refuses it
+    # escape unless the plan refuses it. K8 is K1's kernel under the
+    # factored gather: K1's layout (two ring stages of the X tile, the ES
+    # tile and the bin's two table rows; the units' weights and taps) at
+    # K8's f tile, no wider than K1's, whose P/Q sums take the registers K1
+    # gives its wider tile; the table rows are streamed, so the bins do not
+    # enter
     p1, _, rb = tfe.plan_bins(h, h, 9)
     for m in (3, 4):
         plan = tfb.factored_plan(m=m, g=g, nj=12, p1b=p1, rbb=rb)
         assert plan is not None and plan["smem"] <= 227 * 1024
+        ft = tfb._k8_tile_f(m, g)
+        assert ft in (4, 8, 16) and ft <= tfb._k1_tile_f(m, g)
+        assert plan == tfb._tc_plan(m, g, 12, ft)
+        assert tfb.factored_plan(m=m, g=g, nj=12, p1b=600, rbb=300) == plan
+    # the AlexNet-DAU path (M = 3, G = 2): wgmma m64n16, two ring stages of
+    # 24,576 bytes of X, 4,096 of ES and 512 of table rows; 40,960 bytes of
+    # unit weights and taps
+    if g == 2:
+        assert tfb._k8_tile_f(3, 2) == 8
+        assert tfb.factored_plan(m=3, g=2, nj=12, p1b=p1, rbb=rb)["smem"] == (
+            1024 + 2 * (24576 + 4096 + 512) + 40960 + 32)
 
 
 def test_factored_plan_names_what_the_kernel_cannot_take():
     assert tfb.factored_plan(m=5, g=2, nj=12, p1b=17, rbb=9) is None
     assert tfb.factored_plan(m=3, g=6, nj=12, p1b=17, rbb=9) is None
     assert tfb.factored_plan(m=3, g=2, nj=70, p1b=17, rbb=9) is None
+    # every instance the kernel is built for has a plan
+    for m in (3, 4):
+        for g in (1, 2, 3, 4):
+            assert tfb.factored_plan(m=m, g=g, nj=64, p1b=17, rbb=9) is not None
     with pytest.raises(ValueError, match="gather"):
         _, tops, kw = _kernel_inputs(0, 1, 8, 8, 2, 9, "float32", False)
         tfb.fused_spectral_grads(**tops, **kw, gather="rows")
+
+
+@pytest.mark.parametrize("h", [9, 13, 27])
+def test_factored_row_ranges_hold_whole_rows_and_every_bin_once(h):
+    p1, _, rb = tfe.plan_bins(h, h, 9)
+    for r in range(1, p1 + 1):
+        ranges = tfb.row_ranges(p1, rb, r)
+        assert 1 <= len(ranges) <= r
+        assert ranges[0][0] == 0 and ranges[-1][1] == p1 * rb
+        assert all(a[1] == c[0] for a, c in zip(ranges, ranges[1:]))
+        assert all(lo < hi and lo % rb == 0 and hi % rb == 0 for lo, hi in ranges)
+
+
+def _factored_from_operands(t, kw, ranges):
+    """What K8 sums, in float64, over the operands K1's wrapper prepares
+    (`t`: the port's tensors in the spectra's dtype): per bin, T = X^T . ES
+    rounded to the dtype; P and Q at each unit's taps j, j+1 into t2 from
+    the bin's t2 quad; at each k1 row's end P and Q rounded to the dtype and
+    folded with the row's t1 quad at the unit's taps into t1; the partial
+    sums per range of rows, and their sum. (M, S, G, F)."""
+    xs, es, t1, t2, a1, a2 = (t[k] for k in ("xs", "es", "t1", "t2", "a1", "a2"))
+    cdt = xs.dtype
+    m, s, f = xs.shape[1], xs.shape[3], es.shape[2]
+    rb = kw["rbb"]
+    xs_t, es_t = tfb.spectral_operands(xs, es, kw["n_img"])
+    e = es_t.double().transpose(1, 2).reshape(es_t.shape[0], es_t.shape[2], -1)[..., :2 * f]
+    tt = torch.einsum("bmks,bkc->bmsc", xs_t.double(), e)[:, :, :s]
+    tre, tim = (v.float().to(cdt).double() for v in (tt[..., 0::2], tt[..., 1::2]))
+    ty = tfb.spectral_table_quads(t1.to(cdt).float(), kw["p1b"]).double()
+    tx = tfb.spectral_table_quads(t2.to(cdt).float(), rb).double()
+    j1, a0, a1w = (v.double() if v.is_floating_point() else v.long()
+                   for v in tfb._taps(a1, cdt))
+    j2, b0, b1w = (v.double() if v.is_floating_point() else v.long()
+                   for v in tfb._taps(a2, cdt))
+
+    def rnd(v):
+        return v.float().to(cdt).double()
+
+    total = 0
+    for begin, end in ranges:
+        acc = torch.zeros((m,) + tuple(j1.shape), dtype=torch.float64)  # (M, G, S, F)
+        pq = torch.zeros((4, m) + tuple(j1.shape), dtype=torch.float64)
+        for k in range(begin, end):
+            x = tx[k % rb][j1]                                           # (G, S, F, 4)
+            tr, ti = tre[k][:, None], tim[k][:, None]                    # (M, 1, S, F)
+            pq[0] += x[..., 0] * tr - x[..., 2] * ti
+            pq[1] += x[..., 1] * tr - x[..., 3] * ti
+            pq[2] += x[..., 2] * tr + x[..., 0] * ti
+            pq[3] += x[..., 3] * tr + x[..., 1] * ti
+            if k % rb == rb - 1:
+                y = ty[k // rb][j2]
+                pyre = y[..., 1] * b1w + y[..., 0] * b0
+                pyim = y[..., 3] * b1w + y[..., 2] * b0
+                pw = rnd(pq[1]) * a1w + rnd(pq[0]) * a0
+                qw = rnd(pq[3]) * a1w + rnd(pq[2]) * a0
+                acc += pyre * pw - pyim * qw
+                pq.zero_()
+        total = total + acc
+    return total.transpose(1, 2)
+
+
+# (N, S, F, G, H=W, row ranges): 9x9's 6 x 5 bins and 13x13's 17 x 9 bins
+# in one or several ranges of rows, G = 1, 2 and 4 (K8's three tile
+# widths at M = 3), a ragged N
+FACTORED_CASES = {
+    "n2_g2_9px_one_range": (2, 8, 16, 2, 9, 1),
+    "n3_g4_9px_rows": (3, 8, 16, 4, 9, 4),
+    "n2_g1_13px_rows": (2, 16, 8, 1, 13, 6),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(FACTORED_CASES))
+def test_factored_sums_from_the_operands_match_pallas(name, dtype):
+    # K8's algebra on K1's operands against the Pallas factored kernel, at
+    # the bounds of the card tests (1e-4 / 1e-2 * max|reference|)
+    n, s, f, g, hw, r = FACTORED_CASES[name]
+    jops, tops, kw = _kernel_inputs(len(name), n, s, f, g, hw, dtype, False)
+    ref = np.asarray(_pallas_factored(jops, kw), np.float64)
+    ranges = tfb.row_ranges(kw["p1b"], kw["rbb"], r)
+    got = _factored_from_operands(tops, kw, ranges).numpy()
+    assert got.shape == ref.shape == (3, s, g, f)
+    bound = 1e-4 if dtype == "float32" else 1e-2
+    err = float(np.abs(got - ref).max())
+    assert err <= bound * float(np.abs(ref).max()), f"{name} {dtype}: max|err| {err}"
 
 
 def test_unit_grads_fused2_factored_match_jax():

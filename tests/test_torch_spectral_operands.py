@@ -202,3 +202,15 @@ def test_plan_takes_every_instance_and_fits(m, g):
     # the table rows are streamed per bin: the plan does not grow with the bins
     assert tfb.spectral_plan(m=m, g=g, nj=12, p1b=600, rbb=300) == plan
     assert tfb.spectral_plan(m=m, g=g, nj=64, p1b=17, rbb=9) is not None
+
+
+def test_k1_variant_edits_apply_to_the_kernel_source():
+    # `tools/k1_variants.py` times K1 with one part of its source changed by
+    # a text edit; each edit must still find its text in the kernel's source
+    # (a variant that no longer applies would fail only on the card)
+    from dau_convnet_tpu_torch.tools import k1_variants
+
+    source = (k1_variants._build._CSRC / "dau_spectral_grads.cu").read_text()
+    for name, edits in k1_variants.VARIANTS.items():
+        changed = k1_variants._variant_source(edits)
+        assert (changed == source) == (not edits), name
