@@ -661,6 +661,15 @@ def _k1_line(out, bound):
             f"bound {bound.ms:.4f} ms ({bound.bound_by}), twin {out['k1_plain']:.3f} ms")
 
 
+def _instance(entry):
+    """A kernel instance's template arguments read from its mangled name:
+    dtype, M and G, and the spectral kernel's gather policy."""
+    kind = "bf16" if "bfloat16" in entry else "f32" if re.search(r"If[LE]", entry) else ""
+    mg = re.search(r"Li(\d+)ELi(\d+)E", entry)
+    gather = next((g for g in ("PhiGather", "FactoredGather") if g in entry), "")
+    return " ".join(p for p in (kind, mg and f"M={mg.group(1)} G={mg.group(2)}", gather) if p)
+
+
 def _ptxas(lib, markers):
     """Print the compiler's registers/spills lines for the entries whose
     mangled name holds every marker; returns {entry: those lines}."""
@@ -669,9 +678,8 @@ def _ptxas(lib, markers):
     for i, line in enumerate(lines):
         if "Compiling entry" in line and all(mk in line for mk in markers):
             entry = line.split("'")[1] if "'" in line else line
-            kind = "bf16" if "bfloat16" in line else "f32" if re.search(r"If[LE]", line) else "-"
             found[entry] = " | ".join(l.split("info    : ")[-1].strip() for l in lines[i + 2:i + 4])
-            print(f"  {lib} {kind} {entry[:60]}: {found[entry]}")
+            print(f"  {lib} {markers[0]} {_instance(entry)}: {found[entry]}")
     return found
 
 
@@ -705,10 +713,7 @@ def _hgmma_per_instance(lib, marker, kernel):
             counts[name][0] += len(re.findall(r"\bHGMMA\.", line))
             counts[name][1] += line.count("UTMALDG")
     for name, (hgmma, tma) in sorted(counts.items()):
-        inst = re.search(r"kernelI(\w+?)Li(\d)ELi(\d)E", name)
-        tag = f"{'bf16' if 'bfloat16' in name else 'f32'} M={inst.group(2)} G={inst.group(3)}" \
-            if inst else name[:60]
-        print(f"  {lib} {kernel} {tag}: {hgmma} HGMMA, {tma} UTMALDG")
+        print(f"  {lib} {kernel} {_instance(name)}: {hgmma} HGMMA, {tma} UTMALDG")
         if not hgmma:
             raise AssertionError(f"{kernel} instance {name}: no HGMMA in its SASS")
     if len(counts) != 16:

@@ -31,7 +31,7 @@ import torch
 
 from ..ops import xla_engine
 from ._build import load_library
-from .forward import _DTYPE_CODE, chunk_major, split_bf16
+from .forward import _DTYPE_CODE, _TMA_BOX_MAX, chunk_major, split_bf16
 
 __all__ = ["grad_tables", "grad_tables_plain", "grad_tables_operands", "chunk_major",
            "table_view", "check_kernel_limits"]
@@ -42,7 +42,6 @@ __all__ = ["grad_tables", "grad_tables_plain", "grad_tables_operands", "chunk_ma
 _TAPS = 3
 _KC = 16
 _GRID_Z_MAX = 65535
-_TMA_BOX_MAX = 256
 _TMA_COORD_MAX = 2 ** 31
 _TMA_DIM_MAX = 2 ** 32
 _TMA_STRIDE_MAX = 2 ** 40

@@ -124,8 +124,8 @@ struct PhiGather {
 // gradient sums each thread keeps P and Q at each unit's two taps,
 // 2*M*G*FT sums: the widest FT at which the three take at most 170
 // registers (FT*M*(5G+2)/2: 16 at M = 3, G = 1; 8 at M = 3, G = 2 and M = 4,
-// G = 1), else FT = 4. Every instance builds without a spill (ptxas: 118-255
-// registers).
+// G = 1), else FT = 4, at which every instance builds without a spill
+// (chip_smoke.py prints ptxas' registers and spills of each).
 struct FactoredGather {
   static constexpr bool kFactored = true;
   __host__ __device__ static constexpr int tile_f(int m, int g) {

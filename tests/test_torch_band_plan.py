@@ -74,8 +74,9 @@ def test_one_band_up_to_ks17(kernel, ks, h):
 
 
 def test_k4_plan_at_ks17_is_the_one_measured_on_the_card():
-    # `dau_aggregate_smem_bytes(H, H, 17)` as the K4 library returned it on
-    # an H100 before the bands (chiprun of PR 11: ks 17, planes 3/7/13/27)
+    # `dau_aggregate_smem_bytes(H, H, 17)` as the one-window K4 library
+    # returned it on an NVIDIA H100 (planes 3, 7, 13 and 27): one band
+    # keeps that plan
     card = {3: 205952, 7: 221056, 13: 150528, 27: 182400}
     assert {h: tkf.aggregate_plan(h, h, 17)["smem"] for h in card} == card
 
