@@ -26,7 +26,8 @@
 //   - the producer warp stages, per group of 64 input channels and band of
 //     kyb tap rows, the padded rows of xb the band's taps reach: one 5-D
 //     TMA box (8 channels x Wp columns x rows x 8 channel chunks) from
-//     column -c, row r0 - c + b*kyb. TMA
+//     column c0 - c, row r0 - c + b*kyb (c0 the first output column of the
+//     block's column strip, 0 where the plane has one strip). TMA
 //     reads the halo, the columns between rows and the ragged channels as
 //     zeros, so the wrapper copies no padding. In shared memory a chunk is
 //     the flat padded plane, one pixel per 16 bytes: wgmma's no-swizzle
@@ -45,7 +46,11 @@
 //     drifted by 1.1e-4 of max|y|) and are stored straight to (N, F, H,
 //     W); the flat plane's dead columns (j >= W) and rows past the image
 //     are not stored;
-//   - each output is summed by one block in one fixed order: no atomics.
+//   - each output is summed by one block in one fixed order: no atomics;
+//   - a box side holds at most 256 pixels: where a padded row W + ks - 1
+//     exceeds it, the plan cuts the output columns into strips of Wc
+//     columns (Wc + ks - 1 <= 256), each staged as its own flat plane of
+//     row stride Wp = Wc + ks - 1, the zeros out of bounds still the halo.
 // What it costs: the flat layout computes Wp columns per W valid ones (62%
 // useful at 13x13, 77% at 27x27, before the tile's round-up), and every
 // block streams its 64-channel F tile of K once: 81 * S * 128 bytes (conv4:
@@ -66,8 +71,8 @@ template <typename Tout>
 __global__ void __launch_bounds__(THREADS, 1)
 aggregate_kernel(const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap xb_map, Tout* __restrict__ out, int F,
-                 int S8, int H, int W, int ks, int kyb, int bands, int wp, int rows,
-                 int nxb) {
+                 int S8, int H, int W, int ks, int kyb, int bands, int wc, int wp, int tiles,
+                 int rows, int nxb) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* a = align1024(smem_raw);  // [STAGES][64 f][64 s], swizzled
   const uint32_t plane = (uint32_t)rows * wp * 16;
@@ -80,7 +85,9 @@ aggregate_kernel(const __grid_constant__ CUtensorMap k_map,
   const int c = ks / 2;
   const int windows = (S8 + SG - 1) / SG * bands;
   const int f0 = blockIdx.x * FB;
-  const int q0 = blockIdx.y * QB;
+  const int strip = blockIdx.y / tiles;
+  const int q0 = (blockIdx.y - strip * tiles) * QB;  // in the strip's plane
+  const int c0 = strip * wc;     // the strip's first output column
   const int n = blockIdx.z;
   const int r0 = q0 / wp;        // the first padded row the window holds
   const int off = q0 - r0 * wp;  // q0's pixel in the window
@@ -103,7 +110,7 @@ aggregate_kernel(const __grid_constant__ CUtensorMap k_map,
         const int g = wi / bands;
         mbar_wait(&xempty[slot], ((wi / nxb) & 1) ^ 1);
         mbar_expect_tx(&xfull[slot], 8 * plane);
-        tma_load_5d(xb + slot * window, &xb_map, &xfull[slot], 0, -c,
+        tma_load_5d(xb + slot * window, &xb_map, &xfull[slot], 0, c0 - c,
                     r0 - c + (wi - g * bands) * kyb, n, g * 8);
       };
       // with two windows, window wi + 1 is loaded during window wi, once the
@@ -118,7 +125,7 @@ aggregate_kernel(const __grid_constant__ CUtensorMap k_map,
     return;
   }
   consume<Tout>(a, xb, window, plane, ring, xfull, xempty, out, F, S8, H, W, ks, kyb, bands, wp,
-                nxb, f0, q0, n, off);
+                nxb, f0, q0, n, off, c0, min(wc, W - c0));
 }
 
 template <typename Tout>
@@ -126,10 +133,10 @@ cudaError_t launch(const CUtensorMap& k_map, const CUtensorMap& xb_map, void* ou
                    int F, int H, int W, int ks, const Plan& p, cudaStream_t stream) {
   cudaError_t e = set_smem(aggregate_kernel<Tout>, p.smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((F + FB - 1) / FB, p.tiles, N);
+  const dim3 grid((F + FB - 1) / FB, p.tiles * p.strips, N);
   aggregate_kernel<Tout><<<grid, THREADS, p.smem, stream>>>(
-      k_map, xb_map, static_cast<Tout*>(out), F, S8, H, W, ks, p.kyb, p.bands, p.wp, p.rows,
-      p.nxb);
+      k_map, xb_map, static_cast<Tout*>(out), F, S8, H, W, ks, p.kyb, p.bands, p.wc, p.wp,
+      p.tiles, p.rows, p.nxb);
   return cudaGetLastError();
 }
 
@@ -138,8 +145,8 @@ cudaError_t launch(const CUtensorMap& k_map, const CUtensorMap& xb_map, void* ou
 extern "C" {
 
 // The dynamic shared memory a launch at (H, W, ks) takes, or -1 where no
-// band of its staged window fits (the wrapper refuses such a shape first,
-// through `forward.aggregate_plan`).
+// strip and band of its staged window fits (the wrapper refuses such a
+// shape first, through `forward.aggregate_plan`).
 long long dau_aggregate_smem_bytes(int H, int W, int ks) {
   if (H <= 0 || W <= 0 || ks < 1 || ks % 2 == 0) return -1;
   const Plan p = make_plan(H, W, ks);

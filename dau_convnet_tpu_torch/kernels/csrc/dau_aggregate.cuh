@@ -6,6 +6,13 @@
 // image, y[f,q] = sum_p K_p[f,:] . xb[:, q + ky*Wp + kx] on the row-strided
 // flat plane (row stride Wp = W + ks - 1, output q = i*Wp + j, tap p = ky*ks
 // + kx): ks^2 GEMMs on the tensor cores, bf16 operands, f32 sums.
+//   - column strips: a staged row is one TMA box side, at most 256 pixels,
+//     so where W + ks - 1 (K4) or K5's raw row exceeds it, the output
+//     columns are cut into strips of Wc columns, each its own flat plane of
+//     row stride Wp = Wc + ks - 1 whose padded rows start at image column
+//     c0 - ks/2 (c0 the strip's first output column); a block's tile lies
+//     in one strip. One strip (Wc = W) wherever the row fits: the plane of
+//     the kernels before strips, at every AlexNet-DAU plane;
 //   - the staged window: per group of SG = 64 input channels and band of
 //     kyb tap rows, 8 chunks of 8 channels, each the flat padded plane of
 //     the rows the block's taps of that band reach, one 16-byte pixel of 8
@@ -25,8 +32,8 @@
 //     tap); each stage feeds four m64n136k16 per warpgroup;
 //   - the sums stay in registers (68 per thread, folded every few taps of a
 //     group, counted across its bands, into 68 more) and are stored
-//     straight to (N, F, H, W); the flat plane's dead columns (j >= W) and
-//     rows past the image are not stored;
+//     straight to (N, F, H, W); the flat plane's dead columns (j >=
+//     min(Wc, W - c0)) and rows past the image are not stored;
 //   - each output is summed by one block in one fixed order: no atomics,
 //     whatever the number of bands;
 //   - K5 runs two blocks as a cluster, which write each other's windows:
@@ -57,13 +64,15 @@ constexpr size_t MAX_SMEM = 232448;    // 227 KB per block
 
 __host__ __device__ constexpr uint32_t round128(uint32_t v) { return (v + 127) / 128 * 128; }
 
-// The staged window of a launch: padded rows per window, the tap rows per
-// band (kyb) and the bands, the bytes of one chunk (a flat plane of rows x
-// Wp pixels) and of a window (8 chunks), the windows in flight and the
-// dynamic shared memory. smem = 0: no plan. (`kernels/forward.py` mirrors
-// the plans of this file and of dau_forward_fused.cu.)
+// The staged window of a launch: the strip width wc and the strips, the
+// padded row (wp = wc + ks - 1) and the tiles of one strip's plane, padded
+// rows per window, the tap rows per band (kyb) and the bands, the bytes of
+// one chunk (a flat plane of rows x wp pixels) and of a window (8 chunks),
+// the windows in flight and the dynamic shared memory. smem = 0: no plan.
+// (`kernels/forward.py` mirrors the plans of this file and of
+// dau_forward_fused.cu.)
 struct Plan {
-  int wp, tiles, rows, nxb, kyb, bands;
+  int wc, strips, wp, tiles, rows, nxb, kyb, bands;
   uint32_t plane, window;
   size_t smem;
 };
@@ -74,15 +83,16 @@ inline size_t smem_for(int nxb, uint32_t window) {
   return 1024 + STAGES * A_BYTES + nxb * round128(window) + sizeof(Ring<STAGES>) + 4 * 8;
 }
 
-// The window's geometry at (H, W, ks) with bands of kyb tap rows, without
-// nxb and smem: the rows that a tile's QB positions reach through kyb tap
-// rows and all ks tap columns.
-inline Plan window_plan(int H, int W, int ks, int kyb) {
+// The window's geometry at (H, ks) for a strip of Wc columns with bands of
+// kyb tap rows, without the strips, nxb and smem: the rows that a tile's QB
+// positions reach through kyb tap rows and all ks tap columns.
+inline Plan window_plan(int H, int Wc, int ks, int kyb) {
   Plan p{};
-  p.wp = W + ks - 1;
+  p.wc = Wc;
+  p.wp = Wc + ks - 1;
   p.kyb = kyb;
   p.bands = (ks + kyb - 1) / kyb;
-  const int flat = (H - 1) * p.wp + W;  // the output positions a block may own
+  const int flat = (H - 1) * p.wp + Wc;  // the output positions a block may own
   p.tiles = (flat + QB - 1) / QB;
   for (int t = 0; t < p.tiles; ++t) {
     const int off = (t * QB) % p.wp;  // the tile's first column in its first row
@@ -94,15 +104,17 @@ inline Plan window_plan(int H, int W, int ks, int kyb) {
   return p;
 }
 
-// K4's plan: the largest kyb whose window fits, two windows where they fit,
-// else one (kyb = ks where that fits: one band). A TMA box side holds at
-// most 256: a padded row wider than that has no plan, a window of more
-// rows takes thinner bands.
+// K4's plan: strips of the widest Wc whose padded row fits a TMA box side
+// (256 pixels; Wc = W, one strip, where W + ks - 1 fits), then the largest
+// kyb whose window fits, two windows where they fit, else one (kyb = ks
+// where that fits: one band). A window of more than 256 rows takes thinner
+// bands; ks > 256 has no plan.
 inline Plan make_plan(int H, int W, int ks) {
   Plan p{};
-  for (int kyb = ks; kyb >= 1; --kyb) {
-    p = window_plan(H, W, ks, kyb);
-    if (p.wp > 256) break;
+  const int wc = W + ks - 1 <= 256 ? W : 257 - ks;
+  for (int kyb = ks; kyb >= 1 && wc >= 1; --kyb) {
+    p = window_plan(H, wc, ks, kyb);
+    p.strips = (W + wc - 1) / wc;
     if (p.rows > 256) continue;
     for (p.nxb = 2; p.nxb >= 1; --p.nxb)
       if (smem_for(p.nxb, p.window) <= MAX_SMEM) {
@@ -125,16 +137,18 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
 // band's taps against the K ring and free it; then store the block's
 // outputs. `xb` is the first window slot, `window` the (128-rounded) bytes
 // between slots; q0 is the block's first flat position, off its pixel in
-// the window. kPeer: another block of the cluster may write this block's
-// windows too (K5), so the window barriers are waited on at cluster scope,
-// and where peer_xempty (a shared::cluster address of the peer block's
-// xempty) is not 0 each window is also freed there.
+// the window; c0 is the strip's first output column, wv its output columns
+// (min(Wc, W - c0)). kPeer: another block of the cluster may write this
+// block's windows too (K5), so the window barriers are waited on at cluster
+// scope, and where peer_xempty (a shared::cluster address of the peer
+// block's xempty) is not 0 each window is also freed there.
 template <typename Tout, bool kPeer = false>
 __device__ __forceinline__ void consume(uint8_t* a, uint8_t* xb, uint32_t window, uint32_t plane,
                                         Ring<STAGES>& ring, uint64_t* xfull, uint64_t* xempty,
                                         Tout* __restrict__ out, int F, int S8, int H, int W,
                                         int ks, int kyb, int bands, int wp, int nxb, int f0,
-                                        int q0, int n, int off, uint32_t peer_xempty = 0) {
+                                        int q0, int n, int off, int c0, int wv,
+                                        uint32_t peer_xempty = 0) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int taps = ks * ks;
@@ -212,11 +226,12 @@ __device__ __forceinline__ void consume(uint8_t* a, uint8_t* xb, uint32_t window
       const int q = qb + 8 * j + 2 * (lane % 4) + e;
       const int i = q / wp;
       const int jj = q - i * wp;
-      if (i >= H || jj >= W) continue;
+      if (i >= H || jj >= wv) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int f = frow + 8 * h;
-        if (f < F) store_out(out + (((size_t)n * F + f) * H + i) * W + jj, sum[4 * j + 2 * h + e]);
+        if (f < F)
+          store_out(out + (((size_t)n * F + f) * H + i) * W + c0 + jj, sum[4 * j + 2 * h + e]);
       }
     }
   }

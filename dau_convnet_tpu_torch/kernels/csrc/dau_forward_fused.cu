@@ -58,6 +58,14 @@
 //     window per (group, band): the blur warps blur the raw rows each band
 //     reaches (with the kb - 1 halo rows) and write zeros into the window
 //     rows outside the image, which move from band to band;
+//   - where a raw row (W + kb - 1, odd) is wider than a TMA box side (256
+//     pixels), the output columns are cut into strips of Wc columns, each
+//     window a flat plane of row stride Wc + ks - 1 from image column c0 -
+//     ks/2 (c0 the strip's first output column): the raw box holds the
+//     image columns the window reaches and the blur's halo, from column
+//     max(c0 - ks/2, 0) - kb/2; window columns outside the image keep the
+//     zeros written at the start, as they are the same for all the
+//     block's windows;
 //   - the blur warps are the kernel's bottleneck: every F tile of the same
 //     pixels needs the same window. Where the F tiles pair up, two
 //     neighbouring tiles run as a cluster of two blocks, and each block
@@ -86,20 +94,26 @@ constexpr int FPAD = 3;        // zeros on each side of a filter row (TPX - 1)
 // up to an odd number: the blur threads of a warp read the same column of
 // consecutive rows, and an odd pitch of 16-byte pixels puts each 8 of them
 // on distinct banks), rc raw chunks per TMA box, nbuf raw buffers, `raw`
-// bytes per raw chunk, `filt` bytes of padded filter rows. As K4's plan, the
-// largest band of kyb tap rows whose buffers fit (kyb = ks where they do);
-// a raw row wider than a TMA box side (256) has no plan.
+// bytes per raw chunk, `filt` bytes of padded filter rows. The column
+// strips: one (Wc = W) where the raw row of the plane fits a TMA box side
+// (256 pixels), else the widest Wc whose raw row (Wc + ks - 1 + kb - 1,
+// odd) does, narrowed further where no band's buffers fit; a strip's raw
+// row holds the image columns its window reaches, at most min(W, Wc + ks -
+// 1), and the blur's halo. Then, as K4's plan, the largest band of kyb tap
+// rows whose buffers fit (kyb = ks where they do).
 struct FusedPlan {
   Plan win;
   int vr, rr, rwp, rc, nbuf;
   uint32_t raw, filt;
 };
 
-inline FusedPlan make_fused_plan(int H, int W, int ks, int kb, int in_bytes) {
+// The plan for strips of wc columns; win.nxb = 0 where no band fits.
+inline FusedPlan fused_plan_at(int H, int W, int wc, int ks, int kb, int in_bytes) {
   FusedPlan p{};
   for (int kyb = ks; kyb >= 1; --kyb) {
     p = FusedPlan{};
-    p.win = window_plan(H, W, ks, kyb);
+    p.win = window_plan(H, wc, ks, kyb);
+    p.win.strips = (W + wc - 1) / wc;
     for (int t = 0; t < p.win.tiles; ++t)
       for (int b = 0; b < p.win.bands; ++b) {
         // the image row of the window's first row
@@ -109,10 +123,9 @@ inline FusedPlan make_fused_plan(int H, int W, int ks, int kb, int in_bytes) {
         p.vr = hi - lo > p.vr ? hi - lo : p.vr;
       }
     p.rr = p.vr + kb - 1;
-    p.rwp = (W + kb - 1) | 1;
+    p.rwp = ((W < p.win.wp ? W : p.win.wp) + kb - 1) | 1;
     p.raw = (uint32_t)p.rr * p.rwp * 8 * in_bytes;
     p.filt = (uint32_t)(kb * (kb + 2 * FPAD) * 4 + 15) / 16 * 16;
-    if (p.rwp > 256) break;  // a TMA box side holds at most 256
     if (p.rr > 256) continue;
     for (p.win.nxb = 2; p.win.nxb >= 1; --p.win.nxb)
       for (p.nbuf = 2; p.nbuf >= 1; --p.nbuf)
@@ -126,6 +139,27 @@ inline FusedPlan make_fused_plan(int H, int W, int ks, int kb, int in_bytes) {
         }
   }
   p.win.nxb = 0;
+  return p;
+}
+
+// The widest strip whose raw row fits a TMA box side; where its buffers fit
+// at no band, the widest narrower one that fits, by bisection (narrower
+// strips take less shared memory).
+inline FusedPlan make_fused_plan(int H, int W, int ks, int kb, int in_bytes) {
+  const int wc = ((W + kb - 1) | 1) <= 256 ? W : 257 - ks - kb;
+  if (wc < 1) return FusedPlan{};
+  FusedPlan p = fused_plan_at(H, W, wc, ks, kb, in_bytes);
+  int lo = 1, hi = p.win.nxb ? 0 : wc - 1;
+  while (lo <= hi) {
+    const int mid = (lo + hi) / 2;
+    const FusedPlan q = fused_plan_at(H, W, mid, ks, kb, in_bytes);
+    if (q.win.nxb == 0) {
+      hi = mid - 1;
+    } else {
+      p = q;
+      lo = mid + 1;
+    }
+  }
   return p;
 }
 
@@ -168,8 +202,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap x_map, const float* __restrict__ filt,
                      T* __restrict__ out, int F, int S, int parts, int S8, int H, int W, int ks,
-                     int kb, int kyb, int bands, int wp, int rows, int nxb, int rc, int nbuf,
-                     int rr, int rwp, int csize) {
+                     int kb, int kyb, int bands, int wc, int wp, int tiles, int rows, int nxb,
+                     int rc, int nbuf, int rr, int rwp, int csize) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* a = align1024(smem_raw);  // [STAGES][64 f][64 s], swizzled
   const uint32_t plane = (uint32_t)rows * wp * 16;
@@ -190,7 +224,9 @@ fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
   const int c = ks / 2;
   const int windows = (S8 + SG - 1) / SG * bands;  // (group, band) windows
   const int f0 = blockIdx.x * FB;
-  const int q0 = blockIdx.y * QB;
+  const int strip = blockIdx.y / tiles;
+  const int q0 = (blockIdx.y - strip * tiles) * QB;  // in the strip's plane
+  const int c0 = strip * wc;     // the strip's first output column
   const int n = blockIdx.z;
   const int r0 = q0 / wp;        // the first padded row the window holds
   const int off = q0 - r0 * wp;  // q0's pixel in the window
@@ -229,7 +265,8 @@ fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
   }
   if (warp < 4 * CONSUMERS) {
     consume<T, true>(a, xb, window, plane, ring, xfull, xempty, out, F, S8, H, W, ks, kyb, bands,
-                     wp, nxb, f0, q0, n, off, csize > 1 ? cluster_map(xempty, peer) : 0);
+                     wp, nxb, f0, q0, n, off, c0, min(wc, W - c0),
+                     csize > 1 ? cluster_map(xempty, peer) : 0);
     return;
   }
 
@@ -247,7 +284,12 @@ fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
   // rows move from window to window, so the blur threads cover every row
   // and write zeros outside the image
   const int nrows = bands > 1 ? rows : band_hi(0) - band_lo(0);
-  const int strips = (W + TPX - 1) / TPX;
+  // the image columns the window holds, x_lo .. x_lo + bw - 1 (all W where
+  // the plane has one strip), at window column wx0 on
+  const int x_lo = max(c0 - c, 0);
+  const int bw = min(c0 - c + wp, W) - x_lo;
+  const int wx0 = x_lo - (c0 - c);
+  const int spans = (bw + TPX - 1) / TPX;  // blur items per row
   const int stacked = parts * S;
   const int batches = 8 / rc;  // raw boxes per window
   // the chunks this block blurs: those of its rank; with one chunk per box,
@@ -256,20 +298,20 @@ fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
   const int own = split ? rc / csize : 1;              // chunks blurred per box
   const int boxes = split ? batches : batches / csize;  // boxes loaded per window
   const int total = windows * boxes;
-  const int blur_items = own * strips * nrows;
+  const int blur_items = own * spans * nrows;
   // the k-th box this block loads (of all boxes: window k / boxes; of the
   // stack, chunks j * rc .. j * rc + rc - 1, group j / batches)
   auto box_of = [&](int k) {
     return k / boxes / bands * batches + (split ? k % boxes : k % boxes * csize + (int)rank);
   };
   // (a) box k: image rows lo - cb .. lo - cb + rr - 1 of its window's band,
-  // columns -cb .. rwp - cb - 1, into buffer k % nbuf once every blur
-  // thread is done with box k - nbuf
+  // columns x_lo - cb .. x_lo - cb + rwp - 1, into buffer k % nbuf once
+  // every blur thread is done with box k - nbuf
   auto load_box = [&](int k) {
     uint64_t* bar = &rawfull[k % nbuf];
     mbar_wait(&rawempty[k % nbuf], ((k / nbuf) & 1) ^ 1);
     mbar_expect_tx(bar, raw_bytes);
-    tma_load_5d(raw + (k % nbuf) * round128(raw_bytes), &x_map, bar, 0, -cb,
+    tma_load_5d(raw + (k % nbuf) * round128(raw_bytes), &x_map, bar, 0, x_lo - cb,
                 band_lo(k / boxes % bands) - cb, n, box_of(k) * rc);
   };
   if (bt == 0)
@@ -298,15 +340,15 @@ fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
       // items do not fill the last round leaves no thread idle
       const int first = (bt - k * blur_items % BLUR + BLUR) % BLUR;
       for (int it = first; it < blur_items; it += BLUR) {
-        const int oi = it / (strips * nrows);
+        const int oi = it / (spans * nrows);
         const int ci = split ? oi * csize + (int)rank : 0;  // the chunk's place in the box
-        const int rem = it - oi * strips * nrows;
-        const int col0 = rem / nrows * TPX;
+        const int rem = it - oi * spans * nrows;
+        const int col0 = rem / nrows * TPX;  // from image column x_lo
         const int row = first_row + rem - rem / nrows * nrows;  // its image row
         const int chunk = b0 + ci;
         const int base = (g * 8 + chunk) * 8;
-        const int ncol = W - col0 < TPX ? W - col0 : TPX;
-        const uint32_t at = chunk * plane + ((row - top) * wp + col0 + c) * 16;
+        const int ncol = bw - col0 < TPX ? bw - col0 : TPX;
+        const uint32_t at = chunk * plane + ((row - top) * wp + col0 + wx0) * 16;
         float acc[TPX][8];
 #pragma unroll
         for (int o = 0; o < TPX; ++o)
@@ -392,7 +434,7 @@ cudaError_t launch(const CUtensorMap& k_map, const void* x_t, const float* filt,
   const int ftiles = (F + FB - 1) / FB;
   const int csize = ftiles % 2 == 0 ? 2 : 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ftiles, p.win.tiles, N);
+  cfg.gridDim = dim3(ftiles, p.win.tiles * p.win.strips, N);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = p.win.smem;
   cfg.stream = stream;
@@ -405,8 +447,8 @@ cudaError_t launch(const CUtensorMap& k_map, const void* x_t, const float* filt,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, fused_forward_kernel<T>, k_map, x_map, filt,
                            static_cast<T*>(out), F, S, parts, S8, H, W, ks, kb, p.win.kyb,
-                           p.win.bands, p.win.wp, p.win.rows, p.win.nxb, p.rc, p.nbuf, p.rr,
-                           p.rwp, csize);
+                           p.win.bands, p.win.wc, p.win.wp, p.win.tiles, p.win.rows, p.win.nxb,
+                           p.rc, p.nbuf, p.rr, p.rwp, csize);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -15,8 +15,10 @@ Both kernels run one mainloop (`csrc/dau_aggregate.cuh`): the ks*ks taps as
 shifted windows of a flat padded plane staged in shared memory, bf16
 products on the tensor cores with f32 sums, and return the input's dtype.
 Where ks is too large for one window of all its tap rows, the window holds
-a band of kyb tap rows at a time; `aggregate_plan` and `fused_plan` mirror
-the kernels' plans, and the wrappers refuse through them before any launch.
+a band of kyb tap rows at a time; where a row of the plane is too wide for
+one TMA box (256 pixels), the output columns are cut into strips, each its
+own flat plane. `aggregate_plan` and `fused_plan` mirror the kernels'
+plans, and the wrappers refuse through them before any launch.
 Their wrappers build the same K operand (`aggregate_kernel_operand`): the
 synthesized aggregation kernel (`synthesize_kernel_pfs`, in w's dtype, as
 the JAX wrappers build it) as (ks*ks, F, S8) bf16, split in three
@@ -55,6 +57,10 @@ _K_RING = 6 * 64 * 64 * 2  # STAGES K tiles of 64 f x 64 s, bf16
 _RING_BARRIERS = 2 * 6 * 8
 _TMA_BOX_MAX = 256
 _FPAD = 3               # zeros on each side of a staged filter row
+_GRID_YZ_MAX = 65535
+_TMA_COORD_MAX = 2 ** 31
+_TMA_DIM_MAX = 2 ** 32
+_TMA_STRIDE_MAX = 2 ** 40
 
 
 def _round128(v: int) -> int:
@@ -67,8 +73,9 @@ def _smem_for(nxb: int, window: int) -> int:
 
 
 def _window_plan(h: int, w: int, ks: int, kyb: int) -> dict:
-    """`window_plan`: the staged window at (H, W, ks) with bands of kyb tap
-    rows: the rows that a tile's positions reach through kyb tap rows."""
+    """`window_plan`: the staged window of one column strip w columns wide
+    (the whole plane where it has one strip) at (H, ks) with bands of kyb
+    tap rows: the rows that a tile's positions reach through kyb tap rows."""
     wp = w + ks - 1
     tiles = -(-((h - 1) * wp + w) // _QB)
     rows = max((t * _QB % wp + _QB + (kyb - 1) * wp + ks - 1 + wp - 1) // wp
@@ -77,51 +84,64 @@ def _window_plan(h: int, w: int, ks: int, kyb: int) -> dict:
                 window=8 * rows * wp * 16)
 
 
-def aggregate_plan(h: int, w: int, ks: int) -> dict:
-    """K4's launch plan, as the kernel's `make_plan` makes it: the tallest
-    band of kyb tap rows (kyb = ks, one band, wherever that fits) whose
-    staged window fits the shared memory, two windows where they fit, else
-    one. {'wp', 'tiles', 'rows', 'kyb', 'bands', 'window', 'nxb', 'smem'}.
-    Raises ValueError, naming the limit, where no band fits: a padded row of
-    W + ks - 1 pixels wider than a TMA box side (256), or a window of one
-    tap row above the shared memory."""
+def _check_grid(h: int, w: int, n: int, p: dict, what: str) -> None:
+    """Raise ValueError, naming the limit, where a launch at N images of H x
+    W with plan p leaves the grid's or a TMA map's range: the grid's y
+    extent (tiles x strips) and z extent (N), the TMA column coordinates
+    (up to W + ks) and dimensions, and the byte strides of the chunk-major
+    copy (16*N*H*W bytes per chunk for bf16, 32 for K5's f32 raw copy)."""
+    if p["tiles"] * p["strips"] > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
+        raise ValueError(f"{what} at N={n}, {h}x{w}: the grid's {p['tiles']} tiles x "
+                         f"{p['strips']} strips or its {n} images exceed {_GRID_YZ_MAX}")
+    if w + p["wp"] >= _TMA_COORD_MAX or max(h, w, n) >= _TMA_DIM_MAX:
+        raise ValueError(f"{what} at N={n}, {h}x{w}: a TMA coordinate or dimension exceeds "
+                         "its range")
+    if 32 * n * h * w >= _TMA_STRIDE_MAX:
+        raise ValueError(f"{what} at N={n}, {h}x{w}: a TMA stride exceeds {_TMA_STRIDE_MAX} "
+                         "bytes")
+
+
+@functools.lru_cache(maxsize=None)
+def aggregate_plan(h: int, w: int, ks: int, n: int = 1) -> dict:
+    """K4's launch plan, as the kernel's `make_plan` makes it. The output
+    columns are cut into strips of wc columns whose padded row of wc + ks -
+    1 pixels fits a TMA box side (256): one strip, wc = W, wherever W + ks
+    - 1 <= 256. Within a strip, the tallest band of kyb tap rows (kyb = ks,
+    one band, wherever that fits) whose staged window fits the shared
+    memory, two windows where they fit, else one. {'wc', 'strips', 'wp',
+    'tiles', 'rows', 'kyb', 'bands', 'window', 'nxb', 'smem'}; 'tiles' are
+    a strip's. Raises ValueError, naming the limit, where none fits: ks
+    wider than a TMA box (wc < 1), a window of one tap row above the shared
+    memory, or a grid or TMA range exceeded at N images."""
     if h <= 0 or w <= 0 or ks < 1 or ks % 2 == 0:
         raise ValueError(f"no plan for a {h}x{w} plane at ks={ks}: the plane must be "
                          "non-empty and ks odd")
+    wc = w if w + ks - 1 <= _TMA_BOX_MAX else _TMA_BOX_MAX - ks + 1
+    if wc < 1:
+        raise ValueError(f"the staged window of a {h}x{w} plane at ks={ks} does not fit: a "
+                         f"padded row of ks={ks} taps is wider than a TMA box side "
+                         f"({_TMA_BOX_MAX}) even for a strip of one column")
+    strips = -(-w // wc)
     for kyb in range(ks, 0, -1):
-        p = _window_plan(h, w, ks, kyb)
-        if p["wp"] > _TMA_BOX_MAX:
-            raise ValueError(f"the staged window of a {h}x{w} plane at ks={ks} does not fit: a "
-                             f"padded row of {p['wp']} pixels is wider than a TMA box side "
-                             f"({_TMA_BOX_MAX})")
+        p = _window_plan(h, wc, ks, kyb)
         if p["rows"] > _TMA_BOX_MAX:
             continue
         for nxb in (2, 1):
             if _smem_for(nxb, p["window"]) <= _MAX_SMEM:
-                return dict(p, nxb=nxb, smem=_smem_for(nxb, p["window"]))
+                p = dict(p, wc=wc, strips=strips, nxb=nxb, smem=_smem_for(nxb, p["window"]))
+                _check_grid(h, w, n, p, f"K4 at ks={ks}")
+                return p
     raise ValueError(f"the staged window of a {h}x{w} plane at ks={ks} does not fit the shared "
                      f"memory ({_MAX_SMEM} bytes) even with one tap row per band")
 
 
-def fused_plan(h: int, w: int, ks: int, kb: int, dtype) -> dict:
-    """K5's launch plan, as the kernel's `make_fused_plan` makes it: K4's
-    window and the raw buffers of x in `dtype` (f32 or bf16) at the tallest
-    band of kyb tap rows that fits. The keys of `aggregate_plan` and 'vr',
-    'rr', 'rwp', 'rc', 'nbuf'. Raises ValueError, naming the limit, where no
-    band fits: a raw row of W + kb - 1 pixels wider than a TMA box side, or
-    no band whose buffers fit the shared memory."""
-    if h <= 0 or w <= 0 or ks < 1 or ks % 2 == 0 or kb < 1 or kb % 2 == 0:
-        raise ValueError(f"no plan for a {h}x{w} plane at ks={ks}, kb={kb}: the plane must be "
-                         "non-empty and ks and kb odd")
-    in_bytes = 4 if dtype == torch.float32 else 2
-    rwp = (w + kb - 1) | 1
-    if rwp > _TMA_BOX_MAX:
-        raise ValueError(f"the staged window of a {h}x{w} plane at ks={ks}, kb={kb} does not "
-                         f"fit: a raw row of {rwp} pixels is wider than a TMA box side "
-                         f"({_TMA_BOX_MAX})")
+def _fused_plan_at(h: int, w: int, wc: int, ks: int, kb: int, in_bytes: int):
+    """K5's plan for strips of wc columns (`fused_plan_at`), or None where
+    no band's buffers fit."""
+    rwp = (min(w, wc + ks - 1) + kb - 1) | 1
     filt = -(-kb * (kb + 2 * _FPAD) * 4 // 16) * 16
     for kyb in range(ks, 0, -1):
-        p = _window_plan(h, w, ks, kyb)
+        p = _window_plan(h, wc, ks, kyb)
         vr = 0
         for t in range(p["tiles"]):
             for b in range(p["bands"]):
@@ -136,10 +156,49 @@ def fused_plan(h: int, w: int, ks: int, kb: int, dtype) -> dict:
                 for rc in (8, 4, 2, 1):
                     smem = _smem_for(nxb, p["window"]) + nbuf * _round128(rc * raw) + filt + 32
                     if smem <= _MAX_SMEM:
-                        return dict(p, nxb=nxb, smem=smem, vr=vr, rr=rr, rwp=rwp, rc=rc,
-                                    nbuf=nbuf)
-    raise ValueError(f"the staged window of a {h}x{w} plane at ks={ks}, kb={kb} does not fit "
-                     f"the shared memory ({_MAX_SMEM} bytes) even with one tap row per band")
+                        return dict(p, wc=wc, strips=-(-w // wc), nxb=nxb, smem=smem, vr=vr,
+                                    rr=rr, rwp=rwp, rc=rc, nbuf=nbuf)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def fused_plan(h: int, w: int, ks: int, kb: int, dtype, n: int = 1) -> dict:
+    """K5's launch plan, as the kernel's `make_fused_plan` makes it: K4's
+    strips, window and bands, and the raw buffers of x in `dtype` (f32 or
+    bf16) at the tallest band of kyb tap rows that fits. A strip's raw row
+    holds the image columns its window reaches (at most min(W, wc + ks -
+    1)) and the blur's kb - 1 halo, rounded up to an odd pitch 'rwp': one
+    strip, wc = W, wherever (W + kb - 1) | 1 <= 256 and the buffers fit,
+    else the widest wc with (wc + ks - 1 + kb - 1) | 1 <= 256 whose
+    buffers fit at some band (found by bisection: narrower strips take less
+    shared memory). The keys of `aggregate_plan` and 'vr', 'rr', 'rwp',
+    'rc', 'nbuf'. Raises ValueError, naming the limit, where none fits: ks
+    + kb too wide for a TMA box (wc < 1), no strip and band whose buffers fit
+    the shared memory, or a grid or TMA range exceeded at N images."""
+    if h <= 0 or w <= 0 or ks < 1 or ks % 2 == 0 or kb < 1 or kb % 2 == 0:
+        raise ValueError(f"no plan for a {h}x{w} plane at ks={ks}, kb={kb}: the plane must be "
+                         "non-empty and ks and kb odd")
+    in_bytes = 4 if dtype == torch.float32 else 2
+    wc = w if (w + kb - 1) | 1 <= _TMA_BOX_MAX else _TMA_BOX_MAX + 1 - ks - kb
+    if wc < 1:
+        raise ValueError(f"the staged window of a {h}x{w} plane at ks={ks}, kb={kb} does not "
+                         f"fit: a raw row of ks + kb - 1 = {ks + kb - 1} pixels is wider than a "
+                         f"TMA box side ({_TMA_BOX_MAX}) even for a strip of one column")
+    p = _fused_plan_at(h, w, wc, ks, kb, in_bytes)
+    lo, hi = 1, wc - 1 if p is None else 0
+    while lo <= hi:  # the widest narrower strip that fits
+        mid = (lo + hi) // 2
+        q = _fused_plan_at(h, w, mid, ks, kb, in_bytes)
+        if q is None:
+            hi = mid - 1
+        else:
+            p, lo = q, mid + 1
+    if p is None:
+        raise ValueError(f"the staged window of a {h}x{w} plane at ks={ks}, kb={kb} does not "
+                         f"fit the shared memory ({_MAX_SMEM} bytes) even with one tap row per "
+                         "band")
+    _check_grid(h, w, n, p, f"K5 at ks={ks}, kb={kb}")
+    return p
 
 
 def split_bf16(t):
@@ -326,7 +385,8 @@ def dau_forward_fused(x, w, mu1, mu2, blur_filter, ks: int,
 
     On a CUDA tensor this launches the sm_90a tensor-core kernel (one launch
     per call, counted in `dau_forward_fused.launches`; any odd ks and kb
-    with a `fused_plan`, whose bands of tap rows take the tiers 33 and 65);
+    with a `fused_plan`, whose bands of tap rows take the tiers 33 and 65
+    and whose column strips take planes of any width);
     on a CPU tensor it computes the plain twin. Other devices raise.
     """
     _check(x, w, mu1, mu2, blur_filter, ks)
@@ -342,7 +402,7 @@ def dau_forward_fused(x, w, mu1, mu2, blur_filter, ks: int,
     f = w.shape[-1]
     kb = blur_filter.shape[-1]
     code = _DTYPE_CODE[x.dtype]
-    plan = fused_plan(h, wd, ks, kb, x.dtype)  # raises, naming the limit, where none fits
+    plan = fused_plan(h, wd, ks, kb, x.dtype, n)  # raises, naming the limit, where none fits
     lib = _library("dau_forward_fused")
     if lib.dau_forward_fused_smem_bytes(h, wd, ks, kb, code) != plan["smem"]:
         raise RuntimeError("dau_forward_fused: the plan disagrees with the kernel's")
@@ -371,7 +431,8 @@ def aggregate_forward(x_blur, w, mu1, mu2, ks: int,
     On a CUDA tensor this launches the sm_90a tensor-core kernel (one
     launch per call, counted in `aggregate_forward.launches`; any odd ks
     with an `aggregate_plan`, whose bands of tap rows take the tiers 33 and
-    65); on a CPU tensor it computes the plain twin. Other devices raise.
+    65 and whose column strips take planes of any width); on a CPU tensor
+    it computes the plain twin. Other devices raise.
     """
     _check(x_blur, w, mu1, mu2, None, ks)
     if x_blur.device.type == "cpu":
@@ -381,7 +442,7 @@ def aggregate_forward(x_blur, w, mu1, mu2, ks: int,
 
     n, _, h, wd = x_blur.shape
     f = w.shape[-1]
-    plan = aggregate_plan(h, wd, ks)  # raises, naming the limit, where none fits
+    plan = aggregate_plan(h, wd, ks, n)  # raises, naming the limit, where none fits
     lib = _library("dau_aggregate")
     if lib.dau_aggregate_smem_bytes(h, wd, ks) != plan["smem"]:
         raise RuntimeError("aggregate_forward: the plan disagrees with the kernel's")

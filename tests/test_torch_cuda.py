@@ -771,9 +771,64 @@ def test_band_plans_equal_the_kernels(cuda_device, ks, h):
 
 @pytest.mark.cuda
 def test_aggregate_kernel_rejects_a_window_too_large(cuda_device):
+    # ks = 257: a padded row wider than a TMA box even for a strip of one column
     args = _agg_inputs(1, 3, 2, 4, 4, 3, cuda_device, w_cols=300)
     with pytest.raises(ValueError, match="window"):
-        tk.aggregate_forward(*args, 3)
+        tk.aggregate_forward(*args, 257)
+
+
+# planes wider than a TMA box side (256 pixels): column strips. (N, S, F,
+# H): F past one 64-channel tile (K5 runs its F-tile pair as a cluster)
+WIDE = (1, 9, 70, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ks", [3, 9, 33])
+@pytest.mark.parametrize("w", [300, 640])
+def test_aggregate_kernel_on_a_wide_plane_matches_twin(cuda_device, w, ks):
+    n, s, f, h = WIDE
+    assert tk.aggregate_plan(h, w, ks)["strips"] > 1
+    _check_aggregate(_agg_inputs(n, s, 2, f, h, ks, cuda_device, seed=w + ks, w_cols=w), ks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,ks", [(3, 257, 9), (40, 300, 3), (300, 9, 9)])
+def test_band_and_strip_plans_equal_the_kernels_on_wide_planes(cuda_device, h, w, ks):
+    assert tk._library("dau_aggregate").dau_aggregate_smem_bytes(h, w, ks) == \
+        tk.aggregate_plan(h, w, ks)["smem"]
+    lib = tk._library("dau_forward_fused")
+    for dtype, code in tk._DTYPE_CODE.items():
+        assert lib.dau_forward_fused_smem_bytes(h, w, ks, 9, code) == \
+            tk.fused_plan(h, w, ks, 9, dtype)["smem"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["pallas", "pallas_fused"])
+def test_layer_on_a_wide_plane_matches_xla_engine(cuda_device, engine):
+    # 2x32x24x300: K4 or K5 in column strips, forward and dx pass, and K6.
+    # sigma is left untrained, as in the models: its gradient, one sum over
+    # the whole plane, carries K6's f32 hi/lo split (~2**-17 per product)
+    # beyond 1e-4 of its value at this size, strips or not
+    out = {}
+    for eng in (engine, "xla"):
+        layer = DAUConv2d(32, 40, (2, 1), 9, engine=eng, device=cuda_device,
+                          generator=torch.Generator().manual_seed(0))
+        x = torch.rand((2, 32, 24, 300), generator=torch.Generator().manual_seed(1))
+        x = x.to(cuda_device).requires_grad_()
+        err = torch.randn((2, 40, 24, 300), generator=torch.Generator().manual_seed(2))
+        before = (tk.aggregate_forward.launches, tk.dau_forward_fused.launches)
+        y = layer(x)
+        (y * err.to(cuda_device)).sum().backward()
+        torch.cuda.synchronize()
+        if eng != "xla":
+            kernel = 0 if eng == "pallas" else 1
+            after = (tk.aggregate_forward.launches, tk.dau_forward_fused.launches)
+            assert after[kernel] == before[kernel] + 2  # the forward and the dx pass
+        out[eng] = {"y": y.detach(), "x": x.grad,
+                    **{k: p.grad for k, p in layer.named_parameters()}}
+    for name, want in out["xla"].items():
+        got = out[engine][name]
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
 
 
 # K5 on the tensor cores: the raw input blurred in f32 into K4's staged
@@ -833,10 +888,22 @@ def test_fused_kernel_past_ks17_at_layer_shapes_matches_twin(cuda_device, ks, na
 
 @pytest.mark.cuda
 def test_fused_kernel_rejects_a_window_too_large(cuda_device):
+    # ks + kb - 1 = 257: a raw row wider than a TMA box even for a strip of
+    # one column
     args = _agg_inputs(1, 3, 2, 4, 4, 3, cuda_device, w_cols=300)
     filt = gaussian_filters(0.5, size=9, device=cuda_device)["w"]
     with pytest.raises(ValueError, match="does not fit"):
-        tk.dau_forward_fused(*args, filt, 3)
+        tk.dau_forward_fused(*args, filt, 249)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ks", [3, 9, 33])
+@pytest.mark.parametrize("w", [300, 640])
+def test_fused_kernel_on_a_wide_plane_matches_twin(cuda_device, w, ks):
+    n, s, f, h = WIDE
+    assert tk.fused_plan(h, w, ks, 9, torch.bfloat16)["strips"] > 1
+    args = _agg_inputs(n, s, 2, f, h, ks, cuda_device, seed=w + ks, w_cols=w)
+    _check_fused(args, gaussian_filters(0.5, size=9, device=cuda_device)["w"], ks)
 
 
 @pytest.mark.cuda
