@@ -14,7 +14,9 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    tensor-core instructions (HGMMA, HMMA) and TMA loads (UTMALDG) in the
    SASS of the K5, K4, K6, K7 and K1/K2/K8 libraries (`cuobjdump -sass`) and
    fail if any has none of either, and the HGMMA of each K8 instance, failing
-   if one has none;
+   if one has none, and the HGMMA and UTMALDG of each instance of K2's dx
+   kernel (`spectral_dx_kernel`, its B operand comes by TMA), failing if one
+   has none of either;
 2. kernel vs twin: `dau_forward_fused` against `dau_forward_fused_plain` at
    the four AlexNet-DAU layer shapes (N=4) in f32 (TF32 off, bound
    1e-4*max|y|) and bf16 (twin in f32 on the same bf16 values, bound
@@ -82,7 +84,11 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    phi-cached, pallas_fused) and whole bf16 steps (Fourier, Fourier with
    fused_dx, both Pallas engines), the device time by kernel of both
    Pallas steps and both Fourier steps (`torch.profiler`) and the Fourier
-   step's peak memory;
+   step's peak memory; per layer and over conv3-conv5 (K2's 3 launches), K2's
+   dx kernel alone: its device time, its bytes bound, its plain twin
+   (`_dx_spectra_plain` on prebuilt phase factors) and one bf16 `torch.bmm`
+   of (B, 2N, 2F) . (B, 2F, S) on prebuilt operands (the contraction alone,
+   V built beforehand);
 14. K8 vs twin: `fused_spectral_grads(gather="factored")` without and with
    the dx operands against `fused_factored_grads_plain` at the four layer
    shapes (N=4), bounds as in phase 10;
@@ -109,7 +115,8 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
 18. timing: per layer at N=32 bf16, K8 and K8 dx against their twin, K1
    and the unfused torch path, and K8's device time (`torch.profiler`: the
    kernel alone, and with its operand kernel and sum), also summed over the
-   layers; K7 against its twin and one bf16 matmul of the stacked operands,
+   layers; the dx kernel as in phase 13 at the four layers (K8 dx's 4
+   launches); K7 against its twin and one bf16 matmul of the stacked operands,
    also summed over the layers; K3 against its twin and the unfused chain,
    and its closing launch (K7's kernel on f32 spectra) alone; K4's and K5's
    kernels alone at ks=9 (device time over the 8 launches of a step, forward
@@ -122,7 +129,15 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    1e-2*max|y|, as in phase 6); their times at ks 33 and 65 (N=32 bf16,
    forward and dx shapes, with the wrapper and as device time); then 3 bf16
    SGD steps at max_kernel_size=33 on 'pallas' (8 K4 + 4 K6 per step) and on
-   'pallas_fused' (8 K5 + 4 K6), with the checks of phase 7.
+   'pallas_fused' (8 K5 + 4 K6), with the checks of phase 7;
+20. planes wider than a TMA box side (256 pixels), which K4 and K5 cut into
+   column strips: both against their twins at W = 300 and 640 (H = 5, N=2,
+   S=9, F=70; ks 3, 9 and 33; f32 1e-4*max|y|, bf16 1e-2*max|y|); their
+   times at N=8, S=64, F=128, ks 9 on 24x300 and 24x640 beside a plane of
+   the same pixel count with one strip (48x150, 96x160); then one SGD step
+   each on 'pallas' and 'pallas_fused' of a small net (conv, two DAU layers,
+   pool, linear) on 2x32x24x300, its launch counts (2 forward + 2 dx K4 or
+   K5, 2 K6), a finite loss and finite gradients.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -176,6 +191,8 @@ KERNEL_K8 = dict(name="fused_spectral_grads gather=factored (K8)", route="cuda",
                  source="dau_convnet_tpu_torch/kernels/csrc/dau_spectral_grads.cu",
                  replaces="dau_convnet_tpu/kernels/fused_bwd.py:763")
 KERNEL_K8_DX = dict(KERNEL_K8, name="fused_spectral_grads gather=factored with dx (K8 dx)")
+KERNEL_DX = dict(KERNEL_K1, name="spectral_dx_kernel (K2's and K8 dx's dx contraction: TMA + "
+                 "wgmma)")
 KERNEL_K7 = dict(name="partial_idft (K7)", route="cuda",
                  source="dau_convnet_tpu_torch/kernels/csrc/dau_partial_idft.cu",
                  replaces="dau_convnet_tpu/kernels/spectral.py:73")
@@ -220,12 +237,15 @@ def _device_ms(fn, fragment: str, iters: int = 5):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3 / iters) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):  # a trace that recorded no kernel at all is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3 / iters) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if rows:
+            break
     return sum(ms for k, ms in rows if fragment in k), sum(ms for _, ms in rows)
 
 
@@ -567,10 +587,10 @@ def compare_spectral(gen, dev, gather="phi"):
                 f"{names[0]} {tag} B={kw['p1b'] * kw['rbb']}", got, want, bound))
             got = kfb.fused_spectral_grads(*args, **kw, **dx, gather=gather)
             want = _spectral_twin(*args, **kw, **dx, gather=gather)
-            worst[keys[1]] = max(worst[keys[1]],
-                                 _check_err(f"{names[1]} grads {tag}", got[0], want[0], bound),
-                                 _check_err(f"{names[1]} dx spectra {tag}", got[1], want[1],
-                                            bound))
+            err_dx = _check_err(f"{names[1]} dx spectra {tag}", got[1], want[1], bound)
+            worst[keys[1]] = max(worst[keys[1]], err_dx,
+                                 _check_err(f"{names[1]} grads {tag}", got[0], want[0], bound))
+            worst["dx"] = max(worst.get("dx", 0.0), err_dx)
     return worst
 
 
@@ -610,6 +630,40 @@ def serve_fourier(dev, seed, requests, card):
     return model, cached
 
 
+def time_dx(args, kw, dx, name, card, total):
+    """K2's dx kernel alone at one layer (N=32, bf16): its device time
+    (`torch.profiler`), its bound (operations: the contraction's 8N per
+    (k, s, f) at the bf16 peak; bytes: esb, the output and the units' tap
+    records, each once), its plain twin (`_dx_spectra_plain` on phase
+    factors built beforehand) and one bf16 `torch.bmm` of (B, 2N, 2F) .
+    (B, 2F, S) on prebuilt operands (the contraction alone, V built
+    beforehand); adds them into `total` [device, bound, plain, bmm] and
+    prints them."""
+    xs, es, t1, t2, a1, a2 = args
+    esb, wg = dx["esb"], dx["wg"]
+    b, n2, f = esb.shape
+    s, g = xs.shape[3], a1.shape[1]
+    d_dx = _device_ms(lambda: kfb.fused_spectral_grads(*args, **kw, **dx), "spectral_dx_kernel")[0]
+    phire, phiim = kfb._phase_factors(t1, t2, a1, a2, kw["p1b"], kw["rbb"], xs.dtype)
+    wgf = wg.float()
+    t_p = _cuda_ms(lambda: kfb._dx_spectra_plain(esb, phire, phiim, wgf, kw["n_img"]), iters=3,
+                   warmup=1)
+    del phire, phiim
+    lhs = torch.randn((b, n2, 2 * f), device=esb.device).to(torch.bfloat16)
+    rhs = torch.randn((b, 2 * f, s), device=esb.device).to(torch.bfloat16)
+    t_l = _cuda_ms(lambda: torch.bmm(lhs, rhs))
+    del lhs, rhs
+    ops = 4 * n2 * b * s * f
+    nbytes = _nbytes(esb) + b * n2 * s * 4 + 3 * 4 * g * s * f
+    bd, by = _bound(ops, nbytes)
+    print(f"layer {name} dx kernel N={n2 // 2} B={b} bf16: device time {d_dx:.4f} ms, bound "
+          f"{bd:.4f} ms ({by}), plain twin {t_p:.3f} ms, one bf16 bmm of the contraction alone "
+          f"(V built beforehand) {t_l:.4f} ms [{card}]")
+    for i, v in enumerate((d_dx, bd, t_p, t_l)):
+        total[i] += v
+    return total
+
+
 def time_spectral(gen, dev, card, worst):
     """Per-layer times (N=32, bf16) of K1 and K2 against their twin and the
     unfused torch path, after checking both against the twin at N=32
@@ -617,6 +671,7 @@ def time_spectral(gen, dev, card, worst):
     the sums over conv3-conv5 (where the op runs the kernel) with their
     bounds."""
     out = {k: 0.0 for k in ("k1", "k1_plain", "k2", "k2_plain", "k1_kernel", "k1_device")}
+    out["dx"] = [0.0] * 4  # the dx kernel over conv3-conv5: device, bound, plain, bmm
     b1, b2 = Bounds(), Bounds()
     for name, s, f, hw in LAYERS:
         args, kw, dx, (xb, err, mu1, mu2) = _spectral_inputs(
@@ -651,8 +706,16 @@ def time_spectral(gen, dev, card, worst):
         if main:
             for k, v in zip(out, (t_k1, t_p1, t_k2, t_p2, d_k1, d_all)):
                 out[k] += v
+        time_dx(args, kw, dx, name, card, out["dx"] if main else [0.0] * 4)
     print(f"K1 over conv3-conv5 N={BATCH} bf16: {_k1_line(out, b1)} [{card}]")
+    print(f"dx kernel over conv3-conv5 (K2's 3 launches) N={BATCH} bf16: {_dx_line(out['dx'])} "
+          f"[{card}]")
     return out, b1, b2
+
+
+def _dx_line(t):
+    return (f"device time {t[0]:.4f} ms, bound {t[1]:.4f} ms, plain twin {t[2]:.3f} ms, one bf16 "
+            f"bmm of the contraction alone (V built beforehand) {t[3]:.4f} ms")
 
 
 def _k1_line(out, bound):
@@ -718,6 +781,31 @@ def _hgmma_per_instance(lib, marker, kernel):
             raise AssertionError(f"{kernel} instance {name}: no HGMMA in its SASS")
     if len(counts) != 16:
         raise AssertionError(f"{lib}: {len(counts)} {kernel} functions in the SASS, expected 16")
+
+
+def _dx_sass():
+    """Print the HGMMA and UTMALDG count of each instance of K2's dx kernel
+    (`spectral_dx_kernel`) in its own SASS; raise if one has no HGMMA or no
+    UTMALDG (its B operand comes by TMA)."""
+    counts, name = {}, None
+    for line in disassemble("dau_spectral_grads").splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1) if "spectral_dx_kernel" in found.group(1) else None
+            if name:
+                counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += len(re.findall(r"\bHGMMA\.", line))
+            counts[name][1] += line.count("UTMALDG")
+    for name, (hgmma, tma) in sorted(counts.items()):
+        g = re.search(r"ILi(\d+)E", name)
+        print(f"  dau_spectral_grads dx kernel {_instance(name)} G={g and g.group(1)}: {hgmma} "
+              f"HGMMA, {tma} UTMALDG")
+        if not hgmma or not tma:
+            raise AssertionError(f"dx kernel instance {name}: {hgmma} HGMMA, {tma} UTMALDG")
+    if len(counts) != 8:
+        raise AssertionError(f"{len(counts)} dx kernel functions in the SASS, expected 8 "
+                             "(f32/bf16 x G 1-4)")
 
 
 def _tensor_core_count(lib):
@@ -984,6 +1072,7 @@ def time_new_kernels(gen, dev, card, worst):
     # K8's device time summed over the layers: the kernel alone, with its
     # operand kernel and the wrapper's sum, and the dx kernel of K8 dx
     out["k8dev"] = [0.0, 0.0, 0.0]
+    out["dx"] = [0.0] * 4  # the dx kernel over the four layers: device, bound, plain, bmm
     for name, s, f, hw in LAYERS:
         tag = f"{name} bfloat16 N={BATCH}"
         args, kw, dx, (xb, err, mu1, mu2) = _spectral_inputs(
@@ -1016,6 +1105,7 @@ def time_new_kernels(gen, dev, card, worst):
             out[k][0] += a
             out[k][1] += b
         out["k8dev"] = [a + b for a, b in zip(out["k8dev"], (d_k, d_all, d_dx))]
+        time_dx(args, kw, dx, name, card, out["dx"])
         del args, dx, xb
 
         ops, _ = _idft_inputs(gen, BATCH, s, f, hw, torch.bfloat16, dev)
@@ -1105,6 +1195,7 @@ def main(argv=None) -> int:
                 "dau_spectral_grads"):
         _tensor_core_count(lib)
     _hgmma_per_instance("dau_spectral_grads", "FactoredGather", "K8")
+    _dx_sass()
 
     # 2. kernel vs twin
     gen = torch.Generator().manual_seed(args.seed)
@@ -1343,6 +1434,8 @@ def main(argv=None) -> int:
         print(f"{what} over the four layers N={BATCH} bf16: kernel with its wrapper {ms:.3f} "
               f"ms ({dev_ms}), bound {bound.ms:.4f} ms ({bound.bound_by}), twin {plain:.3f} "
               f"ms [{card}]")
+    print(f"dx kernel over the four layers (K8 dx's 4 launches) N={BATCH} bf16: "
+          f"{_dx_line(new['dx'])} [{card}]")
     time_aggregation(gen, dev, card, ks)
     for key, what in (("k7", "K7"), ("k3", "K3 (both directions)")):
         ms, plain, lib, bound = new[key]
@@ -1368,6 +1461,14 @@ def main(argv=None) -> int:
         time_aggregation(gen, dev, card, tier)
     for engine in ("pallas ks33", "pallas_fused ks33"):
         _train_run(engine, dev, args.seed, batches, labels)
+
+    # 20. planes wider than a TMA box: K4 and K5 in column strips
+    for kernel in ("K4", "K5"):
+        worst_bwd["k4" if kernel == "K4" else "k5dx"] = max(
+            worst_bwd["k4" if kernel == "K4" else "k5dx"], compare_wide(gen, dev, kernel))
+    time_wide(gen, dev, card)
+    for engine in ("pallas", "pallas_fused"):
+        wide_step(engine, dev, args.seed)
 
     launches_k5 = launches + runs["pallas_fused"][1][0]
     launches_k4 = runs["pallas"][1][1]
@@ -1398,7 +1499,14 @@ def main(argv=None) -> int:
           for entry, key, n_launch in ((KERNEL_K8, "k8", launches_k8),
                                        (KERNEL_K8_DX, "k8dx", launches_k8dx),
                                        (KERNEL_K7, "k7", k7_path[7]),
-                                       (KERNEL_K3, "k3", k3_path[8])))]}))
+                                       (KERNEL_K3, "k3", k3_path[8]))),
+        # the dx kernel alone over the four layers (K8 dx's launches), its
+        # launches those of K2 and K8 dx on their steps; the bmm of its
+        # contraction alone as the library call
+        dict(KERNEL_DX, launches=launches_k2 + launches_k8dx,
+             max_abs_err=max(worst_spec["dx"], worst_fac["dx"]), ms=new["dx"][0],
+             plain_ms=new["dx"][2], bound_ms=new["dx"][1], bound_by="bytes",
+             library_ms=new["dx"][3])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -1464,6 +1572,93 @@ def time_aggregation(gen, dev, card, ks):
               f"N={BATCH} bf16: with its wrapper {ms:.3f} ms, the kernel alone {dev_ms:.4f} ms "
               f"device time (conv2's plan: {plan[kernel == 'K5']['bands']} bands of "
               f"{plan[kernel == 'K5']['kyb']} tap rows) [{card}]")
+
+
+# phase 20: (N, S, F, H) of the wide-plane checks, and the timed planes
+WIDE = (2, 9, 70, 5)
+WIDE_TIMED = ((24, 300, 48, 150), (24, 640, 96, 160))
+
+
+def compare_wide(gen, dev, kernel):
+    """Phase 20: K4 or K5 on planes wider than a TMA box (column strips)
+    against its twin at W = 300 and 640, ks 3, 9 and 33, f32 and bf16;
+    returns the largest |error|."""
+    n, s, f, h = WIDE
+    filt = gaussian_filters(0.5, size=9, device=dev)["w"]
+    worst = 0.0
+    for w in (300, 640):
+        for ks in (3, 9, 33):
+            for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+                x = torch.rand((n, s, h, w), generator=gen).to(dev, dtype)
+                wt = (torch.randn((s, G, f), generator=gen) * 0.1).to(dev, dtype)
+                lim = ks // 2 - 0.01
+                mu1, mu2 = (torch.rand((2, s, G, f), generator=gen) * 2 * lim - lim).to(dev, dtype)
+                if kernel == "K4":
+                    plan = kfwd.aggregate_plan(h, w, ks)
+                    got = kfwd.aggregate_forward(x, wt, mu1, mu2, ks)
+                    want = kfwd.aggregate_forward_plain(x.float(), wt, mu1, mu2, ks)
+                else:
+                    plan = kfwd.fused_plan(h, w, ks, 9, dtype)
+                    got = kfwd.dau_forward_fused(x, wt, mu1, mu2, filt, ks)
+                    want = kfwd.dau_forward_fused_plain(x.float(), wt, mu1, mu2, filt, ks)
+                if got.dtype != dtype or plan["strips"] < 2:
+                    raise AssertionError(f"{kernel} W={w} ks={ks}: {got.dtype}, {plan['strips']} "
+                                         "strips")
+                worst = max(worst, _check_err(
+                    f"{kernel} {h}x{w} ks={ks} ({plan['strips']} strips of {plan['wc']} "
+                    f"columns, {plan['bands']} bands) {str(dtype)[6:]}", got, want, bound))
+    return worst
+
+
+def time_wide(gen, dev, card):
+    """Phase 20: K4's and K5's kernel times (device time, `torch.profiler`)
+    at N=8, S=64, F=128, ks 9, bf16 on the wide planes and on planes of the
+    same pixel count with one strip."""
+    filt = gaussian_filters(0.5, size=9, device=dev)["w"]
+    for plane in WIDE_TIMED:
+        cols = []
+        for h, w in (plane[:2], plane[2:]):
+            x, wt, mu1, mu2 = _layer_inputs(gen, 8, 64, 128, 1, torch.bfloat16, dev)
+            x = torch.rand((8, 64, h, w), generator=gen).to(dev, torch.bfloat16)
+            for kernel, fn, frag, plan in (
+                    ("K4", lambda: kfwd.aggregate_forward(x, wt, mu1, mu2, 9), "aggregate_kernel",
+                     kfwd.aggregate_plan(h, w, 9)),
+                    ("K5", lambda: kfwd.dau_forward_fused(x, wt, mu1, mu2, filt, 9),
+                     "fused_forward_kernel", kfwd.fused_plan(h, w, 9, 9, torch.bfloat16))):
+                d = _device_ms(fn, frag)[0]
+                cols.append(f"{kernel} {h}x{w} ({plan['strips']} strips, {plan['bands']} bands) "
+                            f"{d:.4f} ms")
+        print(f"wide plane N=8 S=64 F=128 ks=9 bf16, kernel device time: {'; '.join(cols)} "
+              f"[{card}]")
+
+
+def wide_step(engine, dev, seed):
+    """Phase 20: one SGD step of a small net (3x3 conv, two DAU layers,
+    pool, linear) on 2x32x24x300 through `make_train_step` on `engine`:
+    2 forward and 2 dx launches of K4 ('pallas') or K5 ('pallas_fused') and
+    2 K6; a finite loss and a finite gradient for every parameter."""
+    from dau_convnet_tpu_torch.nn import DAUConv2d
+    gen = torch.Generator().manual_seed(seed)
+    torch.manual_seed(seed)
+    model = torch.nn.Sequential(
+        torch.nn.Conv2d(32, 32, 3, padding=1), torch.nn.ReLU(),
+        DAUConv2d(32, 32, (2, 1), 9, engine=engine, device=dev, generator=gen), torch.nn.ReLU(),
+        DAUConv2d(32, 16, (2, 1), 9, engine=engine, device=dev, generator=gen),
+        torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(), torch.nn.Linear(16, 10)).to(dev)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=LR))
+    x = torch.rand((2, 32, 24, 300), generator=gen).to(dev)
+    kernel = 0 if engine == "pallas_fused" else 1
+    want = tuple((4 if i == kernel else 2 if i == 2 else 0) for i in range(9))
+    loss = []
+    got = path_counts(f"wide step {engine} 2x32x24x300",
+                      lambda: loss.append(step(x, torch.tensor([1, 7], device=dev))), want)
+    if not torch.isfinite(loss[0]):
+        raise AssertionError(f"wide step {engine}: loss {float(loss[0])}")
+    for name, p in model.named_parameters():
+        if not name.endswith(".sigma") and (p.grad is None or not torch.isfinite(p.grad).all()):
+            raise AssertionError(f"wide step {engine}: {name} has no finite gradient")
+    print(f"wide step {engine}: loss {float(loss[0]):.5f}, every gradient finite")
+    return got
 
 
 def _train_run(engine, dev, seed, batches, labels):

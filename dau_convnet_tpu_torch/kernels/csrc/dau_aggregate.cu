@@ -124,8 +124,8 @@ aggregate_kernel(const __grid_constant__ CUtensorMap k_map,
     }
     return;
   }
-  consume<Tout>(a, xb, window, plane, ring, xfull, xempty, out, F, S8, H, W, ks, kyb, bands, wp,
-                nxb, f0, q0, n, off, c0, min(wc, W - c0));
+  consume<Tout>(a, xb, window, plane, ring, xfull, xempty, out + c0, F, S8, H, W, ks, kyb, bands,
+                wp, nxb, f0, q0, n, off, min(wc, W - c0));
 }
 
 template <typename Tout>

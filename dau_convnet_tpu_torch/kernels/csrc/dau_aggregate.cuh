@@ -137,8 +137,8 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
 // band's taps against the K ring and free it; then store the block's
 // outputs. `xb` is the first window slot, `window` the (128-rounded) bytes
 // between slots; q0 is the block's first flat position, off its pixel in
-// the window; c0 is the strip's first output column, wv its output columns
-// (min(Wc, W - c0)). kPeer: another block of the cluster may write this
+// the window; `out` points at the strip's first output column, wv is its
+// output columns (min(Wc, W - c0)). kPeer: another block of the cluster may write this
 // block's windows too (K5), so the window barriers are waited on at cluster
 // scope, and where peer_xempty (a shared::cluster address of the peer
 // block's xempty) is not 0 each window is also freed there.
@@ -147,7 +147,7 @@ __device__ __forceinline__ void consume(uint8_t* a, uint8_t* xb, uint32_t window
                                         Ring<STAGES>& ring, uint64_t* xfull, uint64_t* xempty,
                                         Tout* __restrict__ out, int F, int S8, int H, int W,
                                         int ks, int kyb, int bands, int wp, int nxb, int f0,
-                                        int q0, int n, int off, int c0, int wv,
+                                        int q0, int n, int off, int wv,
                                         uint32_t peer_xempty = 0) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -231,7 +231,7 @@ __device__ __forceinline__ void consume(uint8_t* a, uint8_t* xb, uint32_t window
       for (int h = 0; h < 2; ++h) {
         const int f = frow + 8 * h;
         if (f < F)
-          store_out(out + (((size_t)n * F + f) * H + i) * W + c0 + jj, sum[4 * j + 2 * h + e]);
+          store_out(out + (((size_t)n * F + f) * H + i) * W + jj, sum[4 * j + 2 * h + e]);
       }
     }
   }

@@ -264,8 +264,8 @@ fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
     return;
   }
   if (warp < 4 * CONSUMERS) {
-    consume<T, true>(a, xb, window, plane, ring, xfull, xempty, out, F, S8, H, W, ks, kyb, bands,
-                     wp, nxb, f0, q0, n, off, c0, min(wc, W - c0),
+    consume<T, true>(a, xb, window, plane, ring, xfull, xempty, out + c0, F, S8, H, W, ks, kyb,
+                     bands, wp, nxb, f0, q0, n, off, min(wc, W - c0),
                      csize > 1 ? cluster_map(xempty, peer) : 0);
     return;
   }

@@ -365,9 +365,11 @@ __device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da, uint64
 }
 
 // D (64 x 64, f32) += A (64 x 16) * B (16 x 64), both bf16 in shared memory;
-// TA / TB = 1: the operand is MN-major (M or N contiguous).
+// TA / TB = 1: the operand is MN-major (M or N contiguous); accumulate = 0:
+// D = A * B, the sums in d ignored (a chain restarts without writing d).
 template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -378,7 +380,7 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // D (64 x 136, f32) += A (64 x 16) * B (16 x 136), both bf16 in shared memory;

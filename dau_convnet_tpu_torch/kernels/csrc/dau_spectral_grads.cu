@@ -85,10 +85,7 @@
 
 namespace {
 
-constexpr int THREADS = 128;  // threads of the dx kernel
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int NJ_MAX = 64;  // largest exponent table width
 
 // a value rounded to T and widened back
 __device__ __forceinline__ float round_as(float v, float) { return v; }
@@ -534,7 +531,14 @@ int ranges(int B, int S, int F, int unit, size_t smem) {
 //     multiple of 8): (B, M, K, S8) bf16, for T = float the parts stacked as
 //     [x1, x1, x2, x1, x2, x3], zero past S;
 //   - the table quads (c[j], c[j+1], s[j], s[j+1]) of t1 then t2, rounded to
-//     T: (P1 + RB, NJ-1, 4) f32.
+//     T: (P1 + RB, NJ-1, 4) f32;
+//   - with esb (B, 2N, F) and wg (G, S, F) in T, any strides, the dx
+//     kernel's operands (`fused_bwd.dx_operands`): its B, the interleaved
+//     error copy eb_t (B, KT, NC) bf16, row (step c, segment q, 2f' + h) of
+//     bin b for f = 16c + f' holding [Ere | Eim] (h = 0) or [Eim | -Ere]
+//     (h = 1) over the first 2N of NC = 2N rounded up to 8 columns, zero
+//     past F and 2N, for T = float part [1, 2, 1, 3, 2, 1][q] of the split;
+//     and each unit's record, (PLANES, G, F, S) u32 (`dx::load_tap`).
 namespace prep {
 
 constexpr int THREADS = 256;
@@ -551,6 +555,8 @@ __device__ __forceinline__ __nv_bfloat16 split_part(float v, int q) {
 
 __device__ __forceinline__ __nv_bfloat16 to_bf16(float v, int q) { return split_part(v, q); }
 __device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v, int) { return v; }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // which part segment q of the K stack holds: X [1, 1, 2, 1, 2, 3], ES [1,
 // 2, 1, 3, 2, 1]; bf16 spectra have one segment
@@ -560,6 +566,9 @@ __device__ __forceinline__ int e_part(int q) { return q == 0 || q == 2 || q == 5
 struct Args {
   const void* xs;
   const void* es;
+  const void* esb;               // null: no dx operands
+  const void* wg;
+  long long esb_st[3], wg_st[3];  // element strides of (B, 2N, F) and (G, S, F)
   const float* a1;
   const float* a2;
   long long a1_st[4], a2_st[4];  // element strides of (nj, G, S, F)
@@ -570,6 +579,8 @@ struct Args {
   __nv_bfloat16* xs_t;  // null: xs is read as it is
   __nv_bfloat16* es_t;
   float* tq;
+  __nv_bfloat16* eb_t;  // the dx kernel's B: (B, KT, NC)
+  uint32_t* rec;        // the dx kernel's tap records: (PLANES, G, F, S)
   int M, G, B, N, S, F, P1, RB, NJ;
 };
 
@@ -604,7 +615,12 @@ operands_kernel(const __grid_constant__ Args a) {
   const long long n_es = (long long)a.B * C8 * K;
   const long long n_xs = a.xs_t ? (long long)a.B * a.M * K * (S8 / 8) : 0;
   const long long n_tq = (long long)(a.P1 + a.RB) * Q;
-  const long long total = n_units + n_es + n_xs + n_tq;
+  // the dx kernel's B: per bin KT = ceil(F/16) * segs * 32 rows (16 f per
+  // step, the segments stacked within it) of NC = 2N rounded up to 8 columns
+  const int NC = (N2 + 7) / 8 * 8;
+  const int KT = (a.F + 15) / 16 * segs * 32;
+  const long long n_eb = a.esb ? (long long)a.B * KT * (NC / 8) : 0;
+  const long long total = n_units + n_es + n_xs + n_tq + n_eb;
   const T* xs = static_cast<const T*>(a.xs);
   const T* es = static_cast<const T*>(a.es);
   const size_t GSF = (size_t)n_units;
@@ -623,6 +639,21 @@ operands_kernel(const __grid_constant__ Args a) {
       a.idx[GSF + i] = j2;
 #pragma unroll
       for (int q = 0; q < 4; ++q) a.wts[q * GSF + i] = w[q];
+      if (a.esb) {  // the unit's dx record at (g, f, s)
+        const float wv =
+            to_f32(static_cast<const T*>(a.wg)[g * a.wg_st[0] + s * a.wg_st[1] + f * a.wg_st[2]]);
+        uint32_t* rec = a.rec + ((size_t)g * a.F + f) * a.S + s;
+        if (kF32) {
+          const float v[5] = {w[0], w[1], w[2], w[3], wv};
+          rec[0] = (uint32_t)j1 | ((uint32_t)j2 << 16);
+#pragma unroll
+          for (int q = 0; q < 5; ++q) rec[(q + 1) * GSF] = __float_as_uint(v[q]);
+        } else {
+          rec[0] = (__float_as_uint(wv) >> 16) | ((uint32_t)j1 << 16) | ((uint32_t)j2 << 24);
+          rec[GSF] = (__float_as_uint(w[0]) >> 16) | (__float_as_uint(w[1]) & 0xffff0000u);
+          rec[2 * GSF] = (__float_as_uint(w[2]) >> 16) | (__float_as_uint(w[3]) & 0xffff0000u);
+        }
+      }
       continue;
     }
     long long r = i - n_units;
@@ -674,6 +705,34 @@ operands_kernel(const __grid_constant__ Args a) {
       continue;
     }
     r -= n_xs;
+    if (r >= n_tq) {  // the dx kernel's B: 8 columns of one (b, row) of the
+                      // interleaved error copy, columns fastest
+      r -= n_tq;
+      const int c = (int)(r % (NC / 8));
+      const int row = (int)((r / (NC / 8)) % KT);
+      const int b = (int)(r / ((long long)KT * (NC / 8)));
+      const int q = (row / 32) % segs;
+      const int f = row / (32 * segs) * 16 + (row % 32) / 2;
+      const bool odd = row % 2 == 1;  // row 2f + 1: [Eim | -Ere]; 2f: [Ere | Eim]
+      const T* eb = static_cast<const T*>(a.esb) + b * a.esb_st[0] + f * a.esb_st[2];
+      __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        const int col = 8 * c + l;
+        if (f >= a.F || col >= N2) {
+          v[l] = __float2bfloat16_rn(0.f);
+          continue;
+        }
+        const bool im = col >= a.N;  // the dXim half of the columns
+        const int n = im ? col - a.N : col;
+        const int src = (odd != im) ? a.N + n : n;  // Eim where exactly one holds
+        const __nv_bfloat16 p = to_bf16(eb[src * a.esb_st[1]], kF32 ? e_part(q) : 1);
+        v[l] = odd && im ? __hneg(p) : p;
+      }
+      *reinterpret_cast<uint4*>(a.eb_t + (((size_t)b * KT + row) * NC + 8 * c)) =
+          *reinterpret_cast<const uint4*>(v);
+      continue;
+    }
     {  // one table quad: row k of t1 (k < P1) or of t2
       const int j = (int)(r % Q);
       const int k = (int)(r / Q);
@@ -699,123 +758,375 @@ operands_kernel(const __grid_constant__ Args a) {
 
 // ------------------------------------------------------------------ K2's dx
 
-constexpr int DX_T = 32;              // s, f and n tile of the dx kernel
-constexpr int NJ_MAX = 64;            // largest exponent table width (dx kernel)
+// K2's input-gradient spectra (the dx kernel; K8 dx takes it too): per bin
+// k = k1*RB + k2 one GEMM on the tensor cores,
+//
+//   D[s, c] = sum_kk A[s, kk] * Bk[kk, c],   A[s, 2f] = Vr[s, f], A[s, 2f+1] = Vi[s, f],
+//   Bk[2f] = [Ere | Eim],  Bk[2f+1] = [Eim | -Ere]   (N columns each),
+//
+// V[k,s,f] = sum_g w[g,s,f] * phiU[k,g,s,f], so column n < N of D is dXre[k,
+// n, s] and column N + n is dXim: D^T is the bin's slice of dxs (B, 2N, S),
+// [dXre; dXim] rows.
+//   - the wgmma M is 64 s, its N 64 of the 2N columns (ragged 2N through
+//     TMA's zeros), its K the 32 rows of 16 f per step: B (the "interleaved
+//     error copy" Bk, built with K1's operands in the same launch) comes by
+//     TMA, 128-byte swizzled MN-major, through a ring of DX_RING stages;
+//   - A is built on the FP32 units per step from the units' tap records
+//     (one compact record per (g, f, s), s innermost, so a warp's loads are
+//     coalesced) and the bins' staged table quads, rounded to bf16 once per
+//     (s, f) (f32 spectra: split in three, stacked along K against the
+//     error's parts as K1 stacks them, six products), and written to a
+//     no-swizzle K-major tile that the wgmmas read; two A buffers, so the
+//     next step's A is built while this step's wgmmas run;
+//   - a block owns 64 s, 64 columns and a range of groups of DX_NB bins;
+//     each tap record it loads feeds the A tiles of the group's DX_NB bins,
+//     each bin with its own 32 f32 sums per thread, summed over all F and
+//     then stored: each dX element is written by one block, in one order;
+//   - the ranges of groups are chosen so the grid fills the card in whole
+//     waves (as `tc::ranges`).
+namespace dx {
 
-// K2's input-gradient spectra: dxs (B, 2N, S) f32, [dXre; dXim] rows.
-// One block per (32 s, bin); thread (sg, ng) owns s = sg*4 + [0, 4) and
-// n = ng*2 + [0, 2) of each 32-image chunk.
+using namespace dau_hopper;
+
+constexpr int ST = 64;         // s per block: the wgmma M
+constexpr int NT = 64;         // columns of 2N per block: the wgmma N
+constexpr int FC = 16;         // f per step: 32 K rows per stacked segment
+constexpr int DX_NB = 3;       // bins per group
+constexpr int DX_THREADS = 128;
+constexpr int TILE = ST * 2 * FC * 2;  // bytes of one 64 x 32 bf16 tile (A or B)
+constexpr int DX_MAX_RANGES = 4096;
+
+// per operand dtype: the stacked segments of B (the parts of A they meet:
+// `prep::x_part`), the parts of A, the planes of a tap record, the ring
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-spectral_dx_kernel(const T* __restrict__ esb, const float* __restrict__ t1,
-                   const float* __restrict__ t2, const int* __restrict__ idx,
-                   const float* __restrict__ wts, const float* __restrict__ wg,
-                   float* __restrict__ dxs, int B, int N, int S, int F, int G, int P1,
-                   int RB, int NJ) {
-  __shared__ float tab[4][NJ_MAX];                 // t1 cos, t1 sin rows k1; t2 rows k2
-  __shared__ float pr[DX_T][DX_T + 1], pi[DX_T][DX_T + 1];   // [s][f]
-  __shared__ float eb[2][DX_T][DX_T + 1];                    // [re/im][n][f]
+struct Fmt {
+  static constexpr int SEGS = 1, PARTS = 1, PLANES = 3, DX_RING = 3;
+};
+template <>
+struct Fmt<float> {
+  static constexpr int SEGS = 6, PARTS = 3, PLANES = 6, DX_RING = 2;
+};
 
-  const int tid = threadIdx.x;
-  const int sg = tid % 8;
-  const int ng = tid / 8;
-  const int s0 = blockIdx.x * DX_T;
-  const int k = blockIdx.y;
-  const int k1 = k / RB;
-  const int k2 = k - k1 * RB;
-  const int N2 = 2 * N;
-  const size_t SF = (size_t)S * F;
-  const size_t GSF = (size_t)G * SF;
+// Shared memory: B stages, A buffers, the group's table quads, the ring.
+struct DxLayout {
+  int b, a, tab, ring, bytes;
+};
 
-  for (int i = tid; i < NJ; i += THREADS) {
-    tab[0][i] = t1[k1 * NJ + i];
-    tab[1][i] = t1[(P1 + k1) * NJ + i];
-    tab[2][i] = t2[k2 * NJ + i];
-    tab[3][i] = t2[(RB + k2) * NJ + i];
+template <typename T>
+__host__ __device__ inline DxLayout dx_layout(int NJ) {
+  using Q = Fmt<T>;
+  DxLayout l;
+  l.b = 0;                                          // [RING][NB][SEGS][32 kk][64 c] bf16, swizzled
+  l.a = l.b + Q::DX_RING * DX_NB * Q::SEGS * TILE;  // [2][NB][PARTS][4 k8][64 s][8 kk] bf16
+  l.tab = l.a + 2 * DX_NB * Q::PARTS * TILE;        // [NB][2][NJ-1] float4 (t1 row, t2 row)
+  l.ring = l.tab + DX_NB * 2 * (NJ - 1) * 16;
+  l.bytes = 1024 + l.ring + (int)sizeof(Ring<Q::DX_RING>);
+  return l;
+}
+
+// A unit's record at (g, f, s): bf16 operands, three planes of u32 (w | j1
+// << 16 | j2 << 24; a0 | a1 << 16; b0 | b1 << 16, bf16 bits); f32, six (j1
+// | j2 << 16; a0; a1; b0; b1; w). j1 and a are mu1's taps (into t2), j2
+// and b mu2's (into t1); the weights are rounded to the operand dtype.
+struct Tap {
+  int j1, j2;
+  float a0, a1, b0, b1, w;
+};
+
+__device__ __forceinline__ Tap load_tap(const uint32_t* rec, size_t plane, size_t at,
+                                        __nv_bfloat16) {
+  const uint32_t u0 = __ldg(rec + at), u1 = __ldg(rec + plane + at),
+                 u2 = __ldg(rec + 2 * plane + at);
+  Tap t;
+  t.w = __uint_as_float(u0 << 16);
+  t.j1 = (u0 >> 16) & 0xff;
+  t.j2 = u0 >> 24;
+  t.a0 = __uint_as_float(u1 << 16);
+  t.a1 = __uint_as_float(u1 & 0xffff0000u);
+  t.b0 = __uint_as_float(u2 << 16);
+  t.b1 = __uint_as_float(u2 & 0xffff0000u);
+  return t;
+}
+
+__device__ __forceinline__ Tap load_tap(const uint32_t* rec, size_t plane, size_t at, float) {
+  const uint32_t u0 = __ldg(rec + at);
+  Tap t;
+  t.j1 = u0 & 0xffff;
+  t.j2 = u0 >> 16;
+  t.a0 = __uint_as_float(__ldg(rec + plane + at));
+  t.a1 = __uint_as_float(__ldg(rec + 2 * plane + at));
+  t.b0 = __uint_as_float(__ldg(rec + 3 * plane + at));
+  t.b1 = __uint_as_float(__ldg(rec + 4 * plane + at));
+  t.w = __uint_as_float(__ldg(rec + 5 * plane + at));
+  return t;
+}
+
+// (re, im) rounded to bf16 as one word (re in the low half), or the f32
+// split's part `part` (0, 1, 2) of each
+__device__ __forceinline__ uint32_t pack_part(float re, float im, int part) {
+  if (part > 0) {
+    float r = re - __bfloat162float(__float2bfloat16_rn(re));
+    float q = im - __bfloat162float(__float2bfloat16_rn(im));
+    if (part > 1) {
+      r -= __bfloat162float(__float2bfloat16_rn(r));
+      q -= __bfloat162float(__float2bfloat16_rn(q));
+    }
+    re = r;
+    im = q;
   }
+  const __nv_bfloat162 h = __floats2bfloat162_rn(re, im);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 
-  for (int n0 = 0; n0 < N; n0 += DX_T) {
-    const int nc = min(DX_T, N - n0);
-    float dre[2][4], dim[2][4];
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) dre[a][b] = dim[a][b] = 0.f;
+__device__ __forceinline__ void st_shared_v4(uint8_t* p, uint32_t a, uint32_t b, uint32_t c,
+                                             uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(smem_u32(p)), "r"(a), "r"(b),
+               "r"(c), "r"(d)
+               : "memory");
+}
 
-    for (int fc0 = 0; fc0 < F; fc0 += DX_T) {
-      __syncthreads();  // the previous chunk's reads are done (and tab is in)
-      // sum_g w * phiU over this chunk's (s, f)
-      for (int i = tid; i < DX_T * DX_T; i += THREADS) {
-        const int s = i / DX_T;
-        const int f = i % DX_T;
-        float vr = 0.f, vi = 0.f;
-        if (s0 + s < S && fc0 + f < F) {
-          for (int g = 0; g < G; ++g) {
-            const size_t gi = g * SF + (size_t)(s0 + s) * F + fc0 + f;
-            const int j1 = idx[gi];
-            const int j2 = idx[GSF + gi];
-            const float a0 = wts[gi], a1 = wts[GSF + gi];
-            const float b0 = wts[2 * GSF + gi], b1 = wts[3 * GSF + gi];
-            const float pyre = fmaf(tab[0][j2 + 1], b1, tab[0][j2] * b0);
-            const float pyim = fmaf(tab[1][j2 + 1], b1, tab[1][j2] * b0);
-            const float pxre = fmaf(tab[2][j1 + 1], a1, tab[2][j1] * a0);
-            const float pxim = fmaf(tab[3][j1 + 1], a1, tab[3][j1] * a0);
-            const float w = wg[gi];
-            vr = fmaf(pyre * pxre - pyim * pxim, w, vr);
-            vi = fmaf(pyre * pxim + pyim * pxre, w, vi);
-          }
-        }
-        pr[s][f] = vr;
-        pi[s][f] = vi;
-      }
-      for (int i = tid; i < 2 * DX_T * DX_T; i += THREADS) {
-        const int f = i % DX_T;
-        const int r = (i / DX_T) % DX_T;
-        const int h = i / (DX_T * DX_T);
-        float v = 0.f;
-        if (r < nc && fc0 + f < F)
-          v = to_f32(esb[((size_t)k * N2 + h * N + n0 + r) * F + fc0 + f]);
-        eb[h][r][f] = v;
+// eb_map: eb_t (B, KT, NC) bf16, KT = ceil(F/16) * SEGS * 32 rows, NC =
+// 2N rounded up to 8 columns; rec (PLANES, G, F, S) u32; tq (P1 + RB, NJ-1)
+// float4 quads of t1 then t2, rounded to T; dxs (B, 2N, S) f32. Group u
+// holds bins u*NB .. u*NB + NB - 1 (fewer in the last); the block walks
+// groups z*per .. z*per + per - 1.
+template <typename T, int G>
+__global__ void __launch_bounds__(DX_THREADS)
+spectral_dx_kernel(const __grid_constant__ CUtensorMap eb_map, const uint32_t* __restrict__ rec,
+                   const float4* __restrict__ tq, float* __restrict__ dxs, int B, int N2, int S,
+                   int F, int P1, int RB, int NJ, int per) {
+  using Q = Fmt<T>;
+  constexpr int SEGS = Q::SEGS, PARTS = Q::PARTS, RING = Q::DX_RING;
+  const DxLayout lay = dx_layout<T>(NJ);
+  const int q = NJ - 1;  // quads per table row
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float4* tab = reinterpret_cast<float4*>(base + lay.tab);
+  Ring<RING>& ring = *reinterpret_cast<Ring<RING>*>(base + lay.ring);
+
+  const int s0 = blockIdx.x * ST;
+  const int c0 = blockIdx.y * NT;
+  const int groups = (B + DX_NB - 1) / DX_NB;
+  const int gbeg = blockIdx.z * per;
+  const int gend = min(groups, gbeg + per);
+  const int chunks = (F + FC - 1) / FC;
+  const int steps = (gend - gbeg) * chunks;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  // this thread builds A row r (s = s0 + r), f = 8*half .. 8*half + 7 of
+  // each step's 16: pieces 2*half and 2*half + 1 of 8 K rows (4 f)
+  const int r = tid % ST;
+  const int half = tid / ST;
+  const int s = s0 + r;
+  const size_t plane = (size_t)G * F * S;
+
+  RingPos<RING> ahead;
+  auto issue = [&](int i) {
+    const int k0 = (gbeg + i / chunks) * DX_NB;
+    const int nb = min(DX_NB, B - k0);
+    uint64_t* full = ahead.acquire(ring, nb * SEGS * TILE);
+#pragma unroll
+    for (int b = 0; b < DX_NB; ++b)
+      if (b < nb)
+        tma_load_3d(base + lay.b + ((ahead.stage * DX_NB + b) * SEGS) * TILE, &eb_map, full, c0,
+                    (i % chunks) * SEGS * 32, k0 + b);
+    ahead.next();
+  };
+  if (tid == 0) {
+    ring.init(DX_THREADS);
+    for (int i = 0; i < RING - 1 && i < steps; ++i) issue(i);
+  }
+  __syncthreads();
+
+  // the sums of the group's bins: zeroed once here, and each group's first
+  // wgmma restarts them (no other instruction writes them inside the
+  // pipeline, so ptxas need not serialize the wgmmas)
+  float acc[DX_NB][NT / 2];
+#pragma unroll
+  for (int b = 0; b < DX_NB; ++b)
+#pragma unroll
+    for (int v = 0; v < NT / 2; ++v) acc[b][v] = 0.f;
+  RingPos<RING> pos;
+  int pending = -1;  // the stage of the previous step, if its wgmmas may still read it
+  for (int i = 0; i < steps; ++i) {
+    const int c = i % chunks;
+    const int k0 = (gbeg + i / chunks) * DX_NB;
+    const int nb = min(DX_NB, B - k0);
+    if (c == 0) {
+      // the group's table rows: t1 row k1 and t2 row k2 of each bin (every
+      // read of the previous group's rows was before the last step's barrier)
+      for (int e = tid; e < DX_NB * 2 * q; e += DX_THREADS) {
+        const int b = e / (2 * q);
+        const int t = (e / q) % 2;
+        const int k = min(k0 + b, B - 1);
+        tab[e] = tq[(t == 0 ? k / RB : P1 + k % RB) * q + e % q];
       }
       __syncthreads();
-
-#pragma unroll 4
-      for (int f = 0; f < DX_T; ++f) {
-        float er[2], ei[2], vr[4], vi[4];
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          er[a] = eb[0][ng * 2 + a][f];
-          ei[a] = eb[1][ng * 2 + a][f];
-        }
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          vr[b] = pr[sg * 4 + b][f];
-          vi[b] = pi[sg * 4 + b][f];
-        }
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            dre[a][b] = fmaf(er[a], vr[b], fmaf(ei[a], vi[b], dre[a][b]));
-            dim[a][b] = fmaf(ei[a], vr[b], fmaf(-er[a], vi[b], dim[a][b]));
-          }
-      }
     }
 
+    // A of this step: V[s, f] of each bin for the thread's 8 f, rounded to
+    // bf16 (or split in three) and written as two 16-byte pieces per bin
+    // and part
+    uint8_t* abuf = base + lay.a + (i % 2) * DX_NB * PARTS * TILE;
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int n = n0 + ng * 2 + a;
-      if (ng * 2 + a >= nc) continue;
+    for (int pp = 0; pp < 2; ++pp) {
+      // the piece's 4 f x G records, all loads issued before any is used
+      // (clamped addresses, w = 0 past S and F, so no branch holds them)
+      Tap taps[4][G];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int s = s0 + sg * 4 + b;
-        if (s >= S) continue;
-        dxs[((size_t)k * N2 + n) * S + s] = dre[a][b];
-        dxs[((size_t)k * N2 + N + n) * S + s] = dim[a][b];
+      for (int e = 0; e < 4; ++e) {
+        const int f = c * FC + 8 * half + 4 * pp + e;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          taps[e][g] =
+              load_tap(rec, plane, ((size_t)g * F + min(f, F - 1)) * S + min(s, S - 1), T());
+          if (s >= S || f >= F) taps[e][g].w = 0.f;
+        }
+      }
+      float vr[DX_NB][4], vi[DX_NB][4];
+#pragma unroll
+      for (int b = 0; b < DX_NB; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) vr[b][e] = vi[b][e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const Tap& t = taps[e][g];
+#pragma unroll
+          for (int b = 0; b < DX_NB; ++b) {
+            if (b >= nb) break;
+            const float4 y = tab[(2 * b) * q + t.j2];      // t1 quad at mu2's tap
+            const float4 x = tab[(2 * b + 1) * q + t.j1];  // t2 quad at mu1's tap
+            const float pyre = fmaf(y.y, t.b1, y.x * t.b0);
+            const float pyim = fmaf(y.w, t.b1, y.z * t.b0);
+            const float pxre = fmaf(x.y, t.a1, x.x * t.a0);
+            const float pxim = fmaf(x.w, t.a1, x.z * t.a0);
+            vr[b][e] = fmaf(pyre * pxre - pyim * pxim, t.w, vr[b][e]);
+            vi[b][e] = fmaf(pyre * pxim + pyim * pxre, t.w, vi[b][e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < DX_NB; ++b) {
+        if (b >= nb) break;
+#pragma unroll
+        for (int part = 0; part < PARTS; ++part)
+          st_shared_v4(abuf + (b * PARTS + part) * TILE + (2 * half + pp) * 1024 + r * 16,
+                       pack_part(vr[b][0], vi[b][0], part), pack_part(vr[b][1], vi[b][1], part),
+                       pack_part(vr[b][2], vi[b][2], part), pack_part(vr[b][3], vi[b][3], part));
+      }
+    }
+    // the A tiles, written by the generic proxy, to the wgmmas (async proxy)
+    asm volatile("fence.proxy.async;" ::: "memory");
+    __syncthreads();
+
+    pos.wait_full(ring);
+#pragma unroll
+    for (int b = 0; b < DX_NB; ++b) fence_regs(acc[b]);
+    wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < DX_NB; ++b) {
+      if (b >= nb) break;
+      const uint8_t* bt = base + lay.b + ((pos.stage * DX_NB + b) * SEGS) * TILE;
+#pragma unroll
+      for (int seg = 0; seg < SEGS; ++seg) {
+        const int part = SEGS == 1 ? 0 : prep::x_part(seg) - 1;
+        // A: K-major, no swizzle, K halves 1024 bytes apart, 8-row groups 128
+        const uint64_t da = make_desc(abuf + (b * PARTS + part) * TILE, 1024, 128, kNoSwizzle);
+        // B: MN-major, 128-byte swizzled, 8-row K groups 1024 bytes apart
+        const uint64_t db = make_desc(bt + seg * TILE, TILE, 1024, kSwizzle128);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma_m64n64<0, 1>(acc[b], desc_advance(da, 2048 * kk), desc_advance(db, 2048 * kk),
+                             c > 0 || seg > 0 || kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's wgmmas are done
+#pragma unroll
+    for (int b = 0; b < DX_NB; ++b) fence_regs(acc[b]);
+    if (pending >= 0) mbar_arrive(&ring.empty[pending]);
+    pending = pos.stage;
+    if (tid == 0 && i + RING - 1 < steps) issue(i + RING - 1);
+    __syncwarp();  // reconverge warp 0 for the .aligned wgmma wait below
+    pos.next();
+
+    if (c + 1 == chunks) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < DX_NB; ++b) fence_regs(acc[b]);
+      mbar_arrive(&ring.empty[pending]);
+      pending = -1;
+      // acc[b][4j + 2h + e]: s = s0 + 16*warp + lane/4 + 8h, column c0 + 8j +
+      // 2*(lane%4) + e; dxs[k, column, s]
+#pragma unroll
+      for (int b = 0; b < DX_NB; ++b) {
+        if (b >= nb) break;
+        float* out = dxs + (size_t)(k0 + b) * N2 * S;
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int so = s0 + 16 * warp + lane / 4 + 8 * h;
+              const int co = c0 + 8 * j + 2 * (lane % 4) + e;
+              if (so < S && co < N2) out[(size_t)co * S + so] = acc[b][4 * j + 2 * h + e];
+            }
       }
     }
   }
 }
+
+template <typename T, int G>
+cudaError_t dx_launch(const CUtensorMap& map, const uint32_t* rec, const float4* tq, float* dxs,
+                      int B, int N2, int S, int F, int P1, int RB, int NJ, int R,
+                      cudaStream_t stream) {
+  const size_t smem = dx_layout<T>(NJ).bytes;
+  cudaError_t e = set_smem(spectral_dx_kernel<T, G>, smem);
+  if (e != cudaSuccess) return e;
+  const int groups = (B + DX_NB - 1) / DX_NB;
+  const int per = (groups + R - 1) / R;
+  const dim3 grid((S + ST - 1) / ST, (N2 + NT - 1) / NT, (groups + per - 1) / per);
+  spectral_dx_kernel<T, G><<<grid, DX_THREADS, smem, stream>>>(map, rec, tq, dxs, B, N2, S, F,
+                                                               P1, RB, NJ, per);
+  return cudaGetLastError();
+}
+
+// Ranges of groups that fill the card in whole waves: the fewest groups
+// per block times waves, one group's worth added per wave for the block's
+// set-up (as tc::ranges). Returns R, or -cudaError.
+template <typename T, int G>
+int dx_ranges(int B, int N2, int S, int NJ) {
+  const size_t smem = dx_layout<T>(NJ).bytes;
+  int per_sm = 0, sms = 0;
+  cudaError_t e = set_smem(spectral_dx_kernel<T, G>, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, spectral_dx_kernel<T, G>,
+                                                      DX_THREADS, smem);
+  if (e == cudaSuccess) e = sm_count(&sms);
+  if (e != cudaSuccess) return -(int)e;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)((S + ST - 1) / ST) * ((N2 + NT - 1) / NT);
+  const long long slots = (long long)per_sm * sms;
+  const int groups = (B + DX_NB - 1) / DX_NB;
+  int best = 1;
+  long long best_cost = -1;
+  for (int r = 1; r <= DX_MAX_RANGES && r <= groups; ++r) {
+    const int per = (groups + r - 1) / r;
+    const int rr = (groups + per - 1) / per;
+    const long long cost = (tiles * rr + slots - 1) / slots * (per + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = rr;
+    }
+  }
+  return best;
+}
+
+}  // namespace dx
 
 // f(T, M, G) instantiated for T in {float, bf16}, M in {3, 4}, G in {1..4}
 #define DAU_MG_DISPATCH(CALL)                                           \
@@ -898,6 +1209,32 @@ int launch_of(const void* xs_t, const void* es_t, const void* t1q, const void* t
   return -r;
 }
 
+// f(T, G) instantiated for G in {1..4} (the dx kernel)
+#define DAU_G_DISPATCH(CALL)                  \
+  switch (G) {                                \
+    case 1: return CALL(1);                   \
+    case 2: return CALL(2);                   \
+    case 3: return CALL(3);                   \
+    case 4: return CALL(4);                   \
+    default: return -(int)cudaErrorInvalidValue; \
+  }
+
+template <typename T>
+int dx_ranges_of(int G, int B, int N2, int S, int NJ) {
+#define DAU_DX_RANGES(GG) dx::dx_ranges<T, GG>(B, N2, S, NJ)
+  DAU_G_DISPATCH(DAU_DX_RANGES)
+#undef DAU_DX_RANGES
+}
+
+template <typename T>
+int dx_launch_of(int G, const CUtensorMap& map, const uint32_t* rec, const float4* tq, float* dxs,
+                 int B, int N2, int S, int F, int P1, int RB, int NJ, int R, cudaStream_t st) {
+#define DAU_DX_LAUNCH(GG) \
+  -(int)dx::dx_launch<T, GG>(map, rec, tq, dxs, B, N2, S, F, P1, RB, NJ, R, st)
+  DAU_G_DISPATCH(DAU_DX_LAUNCH)
+#undef DAU_DX_LAUNCH
+}
+
 }  // namespace
 
 extern "C" {
@@ -967,23 +1304,35 @@ int dau_factored_grads_launch(const void* xs_t, const void* es_t, const void* t1
 // element strides a_strides[0..3] and [4..7]; t1 (2*P1, NJ), t2 (2*RB, NJ)
 // f32. Writes idx (2, G, S, F) int32, wts (4, G, S, F) f32, es_t (B, C8, K,
 // 8) bf16, tq (P1 + RB, NJ-1, 4) f32 and, where xs_t is not null, xs_t (B,
-// M, K, S8) bf16. Returns a cudaError_t.
+// M, K, S8) bf16. Where esb is not null, also the dx kernel's operands from
+// esb (B, 2N, F) and wg (G, S, F) in dtype with element strides
+// dx_strides[0..2] and [3..5]: eb_t (B, KT, NC) bf16 and rec (PLANES, G,
+// F, S) u32 (KT = ceil(F/16)*32 for bf16, *192 for f32; NC = 2N rounded up
+// to 8; PLANES 3 for bf16, 6 for f32). Returns a cudaError_t.
 int dau_spectral_operands_launch(const void* xs, const void* es, const void* a1, const void* a2,
                                  const long long* a_strides, const void* t1, const void* t2,
                                  void* idx, void* wts, void* xs_t, void* es_t, void* tq,
-                                 int dtype, int M, int G, int B, int N, int S, int F, int P1,
-                                 int RB, int NJ, void* stream) {
+                                 const void* esb, const void* wg, const long long* dx_strides,
+                                 void* eb_t, void* rec, int dtype, int M, int G, int B, int N,
+                                 int S, int F, int P1, int RB, int NJ, void* stream) {
   if (NJ < 2 || NJ > NJ_MAX || (dtype == 0 && xs_t == nullptr) ||
-      (dtype == 1 && (S % 8 != 0) != (xs_t != nullptr)))
+      (dtype == 1 && (S % 8 != 0) != (xs_t != nullptr)) ||
+      (esb != nullptr && (wg == nullptr || eb_t == nullptr || rec == nullptr)))
     return (int)cudaErrorInvalidValue;
   prep::Args a;
   a.xs = xs;
   a.es = es;
+  a.esb = esb;
+  a.wg = wg;
   a.a1 = static_cast<const float*>(a1);
   a.a2 = static_cast<const float*>(a2);
   for (int i = 0; i < 4; ++i) {
     a.a1_st[i] = a_strides[i];
     a.a2_st[i] = a_strides[4 + i];
+  }
+  for (int i = 0; i < 3; ++i) {
+    a.esb_st[i] = esb ? dx_strides[i] : 0;
+    a.wg_st[i] = esb ? dx_strides[3 + i] : 0;
   }
   a.t1 = static_cast<const float*>(t1);
   a.t2 = static_cast<const float*>(t2);
@@ -992,12 +1341,15 @@ int dau_spectral_operands_launch(const void* xs, const void* es, const void* a1,
   a.xs_t = static_cast<__nv_bfloat16*>(xs_t);
   a.es_t = static_cast<__nv_bfloat16*>(es_t);
   a.tq = static_cast<float*>(tq);
+  a.eb_t = static_cast<__nv_bfloat16*>(eb_t);
+  a.rec = static_cast<uint32_t*>(rec);
   a.M = M, a.G = G, a.B = B, a.N = N, a.S = S, a.F = F, a.P1 = P1, a.RB = RB, a.NJ = NJ;
   const long long segs = dtype == 0 ? 6 : 1;
   const long long k = segs * 2 * N;
-  const long long total = (long long)G * S * F + (long long)B * ((2 * F + 7) / 8) * k +
-                          (xs_t ? (long long)B * M * k * ((S + 7) / 8) : 0) +
-                          (long long)(P1 + RB) * (NJ - 1);
+  const long long total =
+      (long long)G * S * F + (long long)B * ((2 * F + 7) / 8) * k +
+      (xs_t ? (long long)B * M * k * ((S + 7) / 8) : 0) + (long long)(P1 + RB) * (NJ - 1) +
+      (esb ? (long long)B * ((F + 15) / 16 * segs * 32) * ((2 * N + 7) / 8) : 0);
   int sms = 0;
   cudaError_t e = dau_hopper::sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
@@ -1013,30 +1365,53 @@ int dau_spectral_operands_launch(const void* xs, const void* es, const void* a1,
   return (int)cudaGetLastError();
 }
 
-// K2's dx kernel: esb (B, 2N, F) in dtype; wg (G, S, F) f32; dxs (B, 2N, S)
-// f32. NJ <= 64. Returns a cudaError_t.
-int dau_spectral_dx_launch(const void* esb, const void* t1, const void* t2, const void* idx,
-                           const void* wts, const void* wg, void* dxs, int dtype, int G, int B,
-                           int N, int S, int F, int P1, int RB, int NJ, void* stream) {
-  if (NJ > NJ_MAX) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((S + DX_T - 1) / DX_T, B);
-  const float* ft1 = static_cast<const float*>(t1);
-  const float* ft2 = static_cast<const float*>(t2);
-  const int* ii = static_cast<const int*>(idx);
-  const float* fw = static_cast<const float*>(wts);
-  const float* fg = static_cast<const float*>(wg);
-  float* fo = static_cast<float*>(dxs);
-  if (dtype == 0)
-    spectral_dx_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(esb), ft1, ft2, ii, fw, fg, fo, B, N, S, F, G, P1, RB, NJ);
-  else if (dtype == 1)
-    spectral_dx_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(esb), ft1, ft2, ii, fw, fg, fo, B, N, S, F, G, P1,
-        RB, NJ);
-  else
+// The dx kernel's dynamic shared memory at NJ exponents, or -1 where dtype
+// or NJ has no instance.
+long long dau_spectral_dx_smem_bytes(int dtype, int NJ) {
+  if (NJ < 2 || NJ > NJ_MAX) return -1;
+  if (dtype == 0) return dx::dx_layout<float>(NJ).bytes;
+  if (dtype == 1) return dx::dx_layout<__nv_bfloat16>(NJ).bytes;
+  return -1;
+}
+
+// Ranges of the dx kernel's groups of bins so its grid fills the card in
+// whole waves. Returns the count (>= 1), or -cudaError.
+int dau_spectral_dx_ranges(int dtype, int G, int B, int N, int S, int NJ) {
+  if (B <= 0 || N <= 0 || S <= 0 || NJ < 2 || NJ > NJ_MAX) return -(int)cudaErrorInvalidValue;
+  if (dtype == 0) return dx_ranges_of<float>(G, B, 2 * N, S, NJ);
+  if (dtype == 1) return dx_ranges_of<__nv_bfloat16>(G, B, 2 * N, S, NJ);
+  return -(int)cudaErrorInvalidValue;
+}
+
+// K2's dx kernel (K8 dx takes it too): eb_t (B, KT, NC) bf16 and rec
+// (PLANES, G, F, S) u32 from the operand kernel, tq its (P1 + RB, NJ-1, 4)
+// f32 table quads; dxs (B, 2N, S) f32, [dXre; dXim] rows; R ranges of
+// groups of bins (dau_spectral_dx_ranges). Returns a cudaError_t.
+int dau_spectral_dx_launch(const void* eb_t, const void* rec, const void* tq, void* dxs,
+                           int dtype, int G, int B, int N, int S, int F, int P1, int RB, int NJ,
+                           int R, void* stream) {
+  if (B <= 0 || N <= 0 || S <= 0 || F <= 0 || P1 <= 0 || RB <= 0 || B != P1 * RB || NJ < 2 ||
+      NJ > NJ_MAX || R < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const int segs = dtype == 0 ? 6 : 1;
+  const cuuint64_t nc = (cuuint64_t)(2 * N + 7) / 8 * 8;
+  const cuuint64_t kt = (cuuint64_t)(F + 15) / 16 * segs * 32;
+  const cuuint64_t dims[3] = {nc, kt, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {nc * 2, nc * 2 * kt};
+  const cuuint32_t box[3] = {(cuuint32_t)dx::NT, (cuuint32_t)segs * 32, 1};
+  CUtensorMap map;
+  cudaError_t e = dau_hopper::make_map(&map, eb_t, 3, dims, strides, box,
+                                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* rr = static_cast<const uint32_t*>(rec);
+  const float4* q = static_cast<const float4*>(tq);
+  float* out = static_cast<float*>(dxs);
+  const int r = dtype == 0
+                    ? dx_launch_of<float>(G, map, rr, q, out, B, 2 * N, S, F, P1, RB, NJ, R, st)
+                    : dx_launch_of<__nv_bfloat16>(G, map, rr, q, out, B, 2 * N, S, F, P1, RB,
+                                                  NJ, R, st);
+  return -r;
 }
 
 }  // extern "C"

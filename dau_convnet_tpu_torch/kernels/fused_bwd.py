@@ -46,13 +46,14 @@ from .forward import _DTYPE_CODE, _MAX_SMEM, split_bf16_3
 
 __all__ = ["FusedPlanError", "spectral_plan", "factored_plan", "fused_spectral_grads",
            "fused_spectral_grads_plain", "fused_factored_grads_plain", "spectral_operands",
-           "spectral_table_quads", "bin_ranges", "row_ranges"]
+           "spectral_table_quads", "bin_ranges", "row_ranges", "dx_operands", "dx_groups"]
 
 # (M, G) pairs the kernels are instantiated for: the f32 sums each thread
 # keeps in registers spill beyond G = 4
 _FILTERS = (3, 4)
 _MAX_UNITS = 4
-_MAX_EXPONENTS = 64  # table width the dx kernel stages
+_MAX_EXPONENTS = 64  # table width the operand and dx kernels take
+_DX_BINS = 3         # bins per group of the dx kernel (`dx::DX_NB`)
 _K1_STAGES = 2       # the ring of K1 and K8 (csrc/dau_spectral_grads.cu)
 _K1_ROWS = 64        # K rows per stage
 _K1_WARPGROUPS = 2   # warpgroups, each on its own f of a block
@@ -170,6 +171,65 @@ def row_ranges(p1b: int, rbb: int, r: int):
     them."""
     per = -(-p1b // r)
     return [(z * rbb, min(p1b, z + per) * rbb) for z in range(0, p1b, per)]
+
+
+def _bits16(t):
+    """The bf16 bits of t (bf16-exact values) as int32 in [0, 65536)."""
+    return t.to(torch.bfloat16).view(torch.int16).int() & 0xFFFF
+
+
+def dx_operands(esb, wg, a1, a2, n_img: int):
+    """The dx kernel's operands, as K1's operand kernel builds them beside
+    K1's: (eb_t, rec), for esb (B, 2N, F) and wg (G, S, F) in the spectra's
+    dtype cdt and the one-hots a1, a2 (nj, G, S, F).
+
+    eb_t (B, KT, NC) bf16 is the GEMM's B, the interleaved error copy: for
+    f = 16c + f', row (c, segment q, 2f' + h) holds [Ere | Eim] (h = 0) or
+    [Eim | -Ere] (h = 1) over the first 2N of NC = 2N rounded up to 8
+    columns, zero past F and 2N; KT = ceil(F / 16) * segs * 32. bf16: one
+    segment, esb as it is; f32: segs = 6, esb split in three
+    (`split_bf16_3`) and stacked per step as [e1, e2, e1, e3, e2, e1]
+    against A's [V1, V1, V2, V1, V2, V3]: the six products of K1 and K4.
+
+    rec (PLANES, G, F, S) int32 holds each unit's taps (`_taps`, rounded to
+    cdt) and weight w = wg, s innermost: bf16, three planes (w | j1 << 16 |
+    j2 << 24; a0 | a1 << 16; b0 | b1 << 16, bf16 bits); f32, six (j1 | j2 <<
+    16; a0; a1; b0; b1; w as f32 bits). j1, a are mu1's taps (into t2), j2,
+    b mu2's (into t1)."""
+    cdt = esb.dtype
+    b, n2, f = esb.shape
+    n = n_img
+    f32 = cdt == torch.float32
+    f16, nc = -(-f // 16) * 16, -(-n2 // 8) * 8
+    ere, eim = esb[:, :n], esb[:, n:]
+    rows = torch.stack([torch.cat([ere, eim], dim=1), torch.cat([eim, -ere], dim=1)], dim=1)
+    rows = rows.transpose(2, 3)                                  # (B, 2 h, F, 2N)
+    parts = split_bf16_3(rows) if f32 else (rows.to(torch.bfloat16),)
+    segs = [parts[i] for i in ((0, 1, 0, 2, 1, 0) if f32 else (0,))]
+    e = torch.stack(segs, dim=1)                                 # (B, segs, 2, F, 2N)
+    e = torch.nn.functional.pad(e, (0, nc - n2, 0, f16 - f))
+    e = e.reshape(b, len(segs), 2, f16 // 16, 16, nc).permute(0, 3, 1, 4, 2, 5)
+    eb_t = e.reshape(b, -1, nc).contiguous()                     # (B, KT, NC)
+    j1, a0, a1w = _taps(a1, cdt)
+    j2, b0, b1w = _taps(a2, cdt)
+    w = wg.to(cdt).float()
+    if f32:
+        planes = [j1 | (j2 << 16)] + [t.view(torch.int32) for t in (a0, a1w, b0, b1w, w)]
+    else:
+        planes = [_bits16(w) | (j1 << 16) | (j2 << 24), _bits16(a0) | (_bits16(a1w) << 16),
+                  _bits16(b0) | (_bits16(b1w) << 16)]
+    rec = torch.stack(planes).transpose(2, 3).contiguous()      # (PLANES, G, F, S)
+    return eb_t, rec
+
+
+def dx_groups(b: int, r: int):
+    """The dx kernel's ranges [(begin, end)] of bins, r of them at most: the
+    bins go in groups of 3, and blocks of range z take groups [z*per,
+    min(G, (z+1)*per)), per = ceil(G / r) of the G = ceil(b / 3) groups, as
+    the kernel's launch cuts them."""
+    groups = -(-b // _DX_BINS)
+    per = -(-groups // r)
+    return [(z * _DX_BINS, min(b, (z + per) * _DX_BINS)) for z in range(0, groups, per)]
 
 
 def _dx_spectra_plain(esb, phire, phiim, wg, n_img: int):
@@ -303,12 +363,15 @@ def _taps(a, cdt):
     return j.int(), w.gather(0, j[None])[0], w.gather(0, (j + 1)[None])[0]
 
 
-def _spectral_operands_cuda(lib, xs, es, a1, a2, t1, t2, n_img: int, p1b: int, rbb: int):
+def _spectral_operands_cuda(lib, xs, es, a1, a2, t1, t2, n_img: int, p1b: int, rbb: int,
+                            esb=None, wg=None):
     """K1's operands on the card, from one launch of the library's operand
     kernel: (xs_t, es_t, tq, idx, wts) as `spectral_operands`,
     `spectral_table_quads` (t1's rows, then t2's, rounded to xs's dtype) and
     `_taps` build them (the card tests hold them equal bit for bit). xs_t is
-    xs itself where it can be read as it is (bf16, S a multiple of 8)."""
+    xs itself where it can be read as it is (bf16, S a multiple of 8). With
+    esb and wg (any strides), also the dx kernel's (eb_t, rec), as
+    `dx_operands` builds them, from the same launch."""
     b, m, _, s = xs.shape
     f = es.shape[2]
     nj, g = a1.shape[0], a1.shape[1]
@@ -325,14 +388,24 @@ def _spectral_operands_cuda(lib, xs, es, a1, a2, t1, t2, n_img: int, p1b: int, r
     idx = torch.empty((2, g, s, f), dtype=torch.int32, device=dev)
     wts = torch.empty((4, g, s, f), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 8)(*a1.stride(), *a2.stride())
+    dx = ()
+    dx_ptrs = (None, None, None, None, None)
+    if esb is not None:
+        esb, wg = esb.to(xs.dtype), wg.to(xs.dtype)  # no copies where they are in it
+        kt = -(-f // 16) * (6 if f32 else 1) * 32
+        dx = (torch.empty((b, kt, -(-2 * n_img // 8) * 8), dtype=torch.bfloat16, device=dev),
+              torch.empty((6 if f32 else 3, g, f, s), dtype=torch.int32, device=dev))
+        dx_ptrs = (esb.data_ptr(), wg.data_ptr(),
+                   (ctypes.c_longlong * 6)(*esb.stride(), *wg.stride()), dx[0].data_ptr(),
+                   dx[1].data_ptr())
     err = lib.dau_spectral_operands_launch(
         xs.data_ptr(), es.data_ptr(), a1.data_ptr(), a2.data_ptr(), strides, t1.data_ptr(),
         t2.data_ptr(), idx.data_ptr(), wts.data_ptr(), xs_t.data_ptr() if copy_xs else None,
-        es_t.data_ptr(), tq.data_ptr(), _DTYPE_CODE[xs.dtype], m, g, b, n_img, s, f, p1b, rbb,
-        nj, torch.cuda.current_stream(dev).cuda_stream)
+        es_t.data_ptr(), tq.data_ptr(), *dx_ptrs, _DTYPE_CODE[xs.dtype], m, g, b, n_img, s, f,
+        p1b, rbb, nj, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_spectral_grads operand launch failed: cudaError {err}")
-    return xs_t, es_t, tq, idx, wts
+    return (xs_t, es_t, tq, idx, wts) + dx
 
 
 def fused_spectral_grads(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int, rbb: int,
@@ -383,8 +456,8 @@ def fused_spectral_grads(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int, rbb: i
     if getattr(lib, f"{name}_smem_bytes")(m, g, p1b, rbb, nj) != plan["smem"]:
         raise RuntimeError(f"fused_spectral_grads ({gather}): the plan disagrees with the "
                            "kernel's")
-    xs_t, es_t, tq, idx, wts = _spectral_operands_cuda(lib, xs, es, a1, a2, t1, t2, n_img, p1b,
-                                                       rbb)
+    xs_t, es_t, tq, idx, wts, *dx_ops = _spectral_operands_cuda(
+        lib, xs, es, a1, a2, t1, t2, n_img, p1b, rbb, esb, wg)
     r = _ranges(name, code, m, g, b, s, f, p1b, rbb, nj)
     out = torch.empty((r, m, s, g, f), dtype=torch.float32, device=xs.device)
     counts = fused_spectral_grads
@@ -403,15 +476,13 @@ def fused_spectral_grads(xs, es, t1, t2, a1, a2, *, n_img: int, p1b: int, rbb: i
             else:
                 counts.launches_k1 += 1
             return grads
-        # the dx spectra: the same function under either gather, K2's kernel
-        esb = esb.to(cdt).contiguous()
-        wg = wg.to(cdt).float().contiguous()
-        t1r = t1.to(cdt).float().contiguous()  # the tables rounded to cdt
-        t2r = t2.to(cdt).float().contiguous()
+        # the dx spectra: the same function under either gather, K2's dx
+        # kernel on the operands built beside K1's
+        eb_t, rec = dx_ops
         dxs = torch.empty((b, 2 * n_img, s), dtype=torch.float32, device=xs.device)
         err = lib.dau_spectral_dx_launch(
-            esb.data_ptr(), t1r.data_ptr(), t2r.data_ptr(), idx.data_ptr(), wts.data_ptr(),
-            wg.data_ptr(), dxs.data_ptr(), code, g, b, n_img, s, f, p1b, rbb, nj, stream)
+            eb_t.data_ptr(), rec.data_ptr(), tq.data_ptr(), dxs.data_ptr(), code, g, b, n_img, s,
+            f, p1b, rbb, nj, _dx_ranges(code, g, b, n_img, s, nj), stream)
     if err != 0:
         raise RuntimeError(f"fused_spectral_grads dx launch failed: cudaError {err}")
     if factored:
@@ -439,6 +510,16 @@ def _ranges(name, code, m, g, b, s, f, p1b, rbb, nj) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def _dx_ranges(code, g, b, n_img, s, nj) -> int:
+    """The dx kernel's ranges of groups of bins (the grid fills the card in
+    whole waves)."""
+    r = _library("dau_spectral_grads").dau_spectral_dx_ranges(code, g, b, n_img, s, nj)
+    if r < 1:
+        raise RuntimeError(f"the dx kernel's occupancy query failed: cudaError {-r}")
+    return r
+
+
+@functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     """The built kernel library `name` (dau_spectral_grads: K1, K8, their
     operand kernel and the dx kernel) with every C signature declared."""
@@ -451,9 +532,14 @@ def _library(name: str) -> ctypes.CDLL:
         getattr(lib, f"{entry}_ranges").restype = c_int
         getattr(lib, f"{entry}_launch").argtypes = [c_ptr] * 7 + [c_int] * 11 + [c_ll, c_ptr]
         getattr(lib, f"{entry}_launch").restype = c_int
-    lib.dau_spectral_dx_launch.argtypes = [c_ptr] * 7 + [c_int] * 9 + [c_ptr]
+    lib.dau_spectral_dx_smem_bytes.argtypes = [c_int] * 2
+    lib.dau_spectral_dx_smem_bytes.restype = c_ll
+    lib.dau_spectral_dx_ranges.argtypes = [c_int] * 6
+    lib.dau_spectral_dx_ranges.restype = c_int
+    lib.dau_spectral_dx_launch.argtypes = [c_ptr] * 4 + [c_int] * 10 + [c_ptr]
     lib.dau_spectral_dx_launch.restype = c_int
     lib.dau_spectral_operands_launch.argtypes = (
-        [c_ptr] * 4 + [ctypes.POINTER(c_ll)] + [c_ptr] * 7 + [c_int] * 10 + [c_ptr])
+        [c_ptr] * 4 + [ctypes.POINTER(c_ll)] + [c_ptr] * 9 + [ctypes.POINTER(c_ll)]
+        + [c_ptr] * 2 + [c_int] * 10 + [c_ptr])
     lib.dau_spectral_operands_launch.restype = c_int
     return lib

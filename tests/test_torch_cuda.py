@@ -405,6 +405,59 @@ def test_spectral_operand_kernel_matches_the_torch_operands(cuda_device, name, d
     assert torch.equal(wts, torch.stack([a1lo, a1hi, a2lo, a2hi]))
 
 
+# K2's dx kernel on the tensor cores: the four AlexNet-DAU layer shapes
+# (M, N, S, G, F, H) at N = 4, and ragged cases: S not a multiple of 64, F
+# off the 16-f step, N from 1 to 48 (2N past one 64-column tile), every G
+DX_LAYERS = {"conv2": (3, 4, 96, 2, 256, 27), "conv3": (3, 4, 256, 2, 384, 13),
+             "conv4": (3, 4, 384, 2, 384, 13), "conv5": (3, 4, 384, 2, 256, 13)}
+DX_RAGGED = {"n1_g1": (3, 1, 70, 1, 40, 9), "n4_g2": (3, 4, 37, 2, 24, 13),
+             "n32_g3": (3, 32, 100, 3, 48, 9), "n48_g4": (4, 48, 70, 4, 33, 9)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("name", sorted(DX_LAYERS) + sorted(DX_RAGGED))
+def test_dx_kernel_matches_the_plain_contraction(cuda_device, name, dtype, bound):
+    case = DX_LAYERS.get(name) or DX_RAGGED[name]
+    args, kw, (esb, wg) = _spectral_case(case, cuda_device, dtype, seed=len(name))
+    got = tfb.fused_spectral_grads(*args, **kw, esb=esb, wg=wg)[1]
+    torch.cuda.synchronize()
+    # `_dx_spectra_plain` on the twin's phase factors (its own dx)
+    want = tfb.fused_spectral_grads_plain(*args, **kw, esb=esb, wg=wg)[1]
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= bound * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", ["phi", "factored"])
+def test_dx_kernel_is_bitwise_repeatable(cuda_device, gather):
+    # each dX element is summed by one block in one order: no atomics
+    args, kw, (esb, wg) = _spectral_case(DX_LAYERS["conv3"], cuda_device, torch.bfloat16, seed=7)
+    first = tfb.fused_spectral_grads(*args, **kw, esb=esb, wg=wg, gather=gather)[1]
+    second = tfb.fused_spectral_grads(*args, **kw, esb=esb, wg=wg, gather=gather)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["n4_g2", "n48_g4"])
+def test_dx_operands_of_the_operand_kernel_match_the_torch_operands(cuda_device, name, dtype):
+    # the operand kernel builds the dx kernel's B and tap records, bit for
+    # bit, as `dx_operands` does in torch (the CPU tests hold those against
+    # the JAX kernel); esb and wg strided, as the op hands them over
+    (xs, es, t1, t2, a1, a2), kw, (esb, wg) = _spectral_case(DX_RAGGED[name], cuda_device,
+                                                             dtype, seed=5)
+    esb = esb.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+    wg = wg.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+    n, p1, rb = kw["n_img"], kw["p1b"], kw["rbb"]
+    lib = tfb._library("dau_spectral_grads")
+    *_, eb_t, rec = tfb._spectral_operands_cuda(lib, xs, es, a1, a2, t1, t2, n, p1, rb, esb, wg)
+    torch.cuda.synchronize()
+    want_eb, want_rec = tfb.dx_operands(esb, wg, a1, a2, n)
+    assert torch.equal(eb_t, want_eb) and torch.equal(rec, want_rec)
+
+
 @pytest.mark.cuda
 def test_spectral_grads_kernel_raises_without_a_plan(cuda_device):
     args, kw, _ = _spectral_case("small", cuda_device, torch.float32)
@@ -825,7 +878,8 @@ def test_layer_on_a_wide_plane_matches_xla_engine(cuda_device, engine):
             after = (tk.aggregate_forward.launches, tk.dau_forward_fused.launches)
             assert after[kernel] == before[kernel] + 2  # the forward and the dx pass
         out[eng] = {"y": y.detach(), "x": x.grad,
-                    **{k: p.grad for k, p in layer.named_parameters()}}
+                    **{k: p.grad for k, p in layer.named_parameters() if p.grad is not None}}
+    assert len(out["xla"]) == 6  # y, x and the gradients of w, mu1, mu2 and the bias
     for name, want in out["xla"].items():
         got = out[engine][name]
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
