@@ -729,8 +729,10 @@ def _instance(entry):
     dtype, M and G, and the spectral kernel's gather policy."""
     kind = "bf16" if "bfloat16" in entry else "f32" if re.search(r"If[LE]", entry) else ""
     mg = re.search(r"Li(\d+)ELi(\d+)E", entry)
+    g = re.search(r"Li(\d+)EEEv", entry)  # the dx kernel's one int argument, G
     gather = next((g for g in ("PhiGather", "FactoredGather") if g in entry), "")
-    return " ".join(p for p in (kind, mg and f"M={mg.group(1)} G={mg.group(2)}", gather) if p)
+    return " ".join(p for p in (kind, mg and f"M={mg.group(1)} G={mg.group(2)}",
+                                not mg and g and f"G={g.group(1)}", gather) if p)
 
 
 def _ptxas(lib, markers):
@@ -762,9 +764,10 @@ def _spectral_instances(gather, kernel, spill_free):
             raise AssertionError(f"{kernel} instance {entry} spills: {info}")
 
 
-def _hgmma_per_instance(lib, marker, kernel):
+def _hgmma_per_instance(lib, marker, kernel, instances=16, tma=False):
     """Print the HGMMA and UTMALDG count of each function of the library's
-    SASS whose name holds `marker`; raise if one has no HGMMA."""
+    SASS whose name holds `marker`; raise if one has no HGMMA (or, with
+    `tma`, no UTMALDG), or if there are not `instances` of them."""
     counts, name = {}, None
     for line in disassemble(lib).splitlines():
         found = re.search(r"Function : (\S+)", line)
@@ -775,37 +778,13 @@ def _hgmma_per_instance(lib, marker, kernel):
         elif name:
             counts[name][0] += len(re.findall(r"\bHGMMA\.", line))
             counts[name][1] += line.count("UTMALDG")
-    for name, (hgmma, tma) in sorted(counts.items()):
-        print(f"  {lib} {kernel} {_instance(name)}: {hgmma} HGMMA, {tma} UTMALDG")
-        if not hgmma:
-            raise AssertionError(f"{kernel} instance {name}: no HGMMA in its SASS")
-    if len(counts) != 16:
-        raise AssertionError(f"{lib}: {len(counts)} {kernel} functions in the SASS, expected 16")
-
-
-def _dx_sass():
-    """Print the HGMMA and UTMALDG count of each instance of K2's dx kernel
-    (`spectral_dx_kernel`) in its own SASS; raise if one has no HGMMA or no
-    UTMALDG (its B operand comes by TMA)."""
-    counts, name = {}, None
-    for line in disassemble("dau_spectral_grads").splitlines():
-        found = re.search(r"Function : (\S+)", line)
-        if found:
-            name = found.group(1) if "spectral_dx_kernel" in found.group(1) else None
-            if name:
-                counts[name] = [0, 0]
-        elif name:
-            counts[name][0] += len(re.findall(r"\bHGMMA\.", line))
-            counts[name][1] += line.count("UTMALDG")
-    for name, (hgmma, tma) in sorted(counts.items()):
-        g = re.search(r"ILi(\d+)E", name)
-        print(f"  dau_spectral_grads dx kernel {_instance(name)} G={g and g.group(1)}: {hgmma} "
-              f"HGMMA, {tma} UTMALDG")
-        if not hgmma or not tma:
-            raise AssertionError(f"dx kernel instance {name}: {hgmma} HGMMA, {tma} UTMALDG")
-    if len(counts) != 8:
-        raise AssertionError(f"{len(counts)} dx kernel functions in the SASS, expected 8 "
-                             "(f32/bf16 x G 1-4)")
+    for name, (hgmma, loads) in sorted(counts.items()):
+        print(f"  {lib} {kernel} {_instance(name)}: {hgmma} HGMMA, {loads} UTMALDG")
+        if not hgmma or (tma and not loads):
+            raise AssertionError(f"{kernel} instance {name}: {hgmma} HGMMA, {loads} UTMALDG")
+    if len(counts) != instances:
+        raise AssertionError(f"{lib}: {len(counts)} {kernel} functions in the SASS, expected "
+                             f"{instances}")
 
 
 def _tensor_core_count(lib):
@@ -1195,7 +1174,8 @@ def main(argv=None) -> int:
                 "dau_spectral_grads"):
         _tensor_core_count(lib)
     _hgmma_per_instance("dau_spectral_grads", "FactoredGather", "K8")
-    _dx_sass()
+    # K2's dx kernel: f32/bf16 x G 1-4, its B operand by TMA
+    _hgmma_per_instance("dau_spectral_grads", "spectral_dx_kernel", "dx kernel", 8, tma=True)
 
     # 2. kernel vs twin
     gen = torch.Generator().manual_seed(args.seed)

@@ -77,9 +77,9 @@
 // the stage's table rows. Its dx spectra are K2's function: the wrapper
 // takes them from K2's dx kernel.
 // K2's dx contracts over F, which the F-tiled K1 block does not own: a second
-// kernel (`spectral_dx_kernel`, FP32 FMAs), one block per (bin, 32 s), loops
-// over F in chunks of 32, builds sum_g w*phiU for the chunk in shared memory
-// and accumulates a (32 n x 32 s) complex tile, 4 FMAs per (n, s, f).
+// kernel (`dx::spectral_dx_kernel`, below), one bf16 wgmma GEMM per bin over
+// all F, its A built on the FP32 units and its B streamed by TMA; K1's
+// operand kernel builds B and the units' tap records in its launch.
 
 #include "dau_hopper_gemm.cuh"
 
@@ -784,6 +784,12 @@ operands_kernel(const __grid_constant__ Args a) {
 //     then stored: each dX element is written by one block, in one order;
 //   - the ranges of groups are chosen so the grid fills the card in whole
 //     waves (as `tc::ranges`).
+// What paces it (variants of this source timed on an H100 at N = 32, bf16,
+// conv3-conv5): not the tap records' bytes, the table quads' shared-memory
+// reads, the ring's depth, the proxy fence or the barrier per step, but
+// the warps in flight to hide each step's dependent chain (load a record,
+// read its quads, build V): two bins per group at three blocks per SM
+// (<= 170 registers) beat three bins at two by 21%, one bin at four tied.
 namespace dx {
 
 using namespace dau_hopper;
@@ -791,20 +797,19 @@ using namespace dau_hopper;
 constexpr int ST = 64;         // s per block: the wgmma M
 constexpr int NT = 64;         // columns of 2N per block: the wgmma N
 constexpr int FC = 16;         // f per step: 32 K rows per stacked segment
-constexpr int DX_NB = 3;       // bins per group
+constexpr int DX_NB = 2;       // bins per group
 constexpr int DX_THREADS = 128;
 constexpr int TILE = ST * 2 * FC * 2;  // bytes of one 64 x 32 bf16 tile (A or B)
-constexpr int DX_MAX_RANGES = 4096;
 
 // per operand dtype: the stacked segments of B (the parts of A they meet:
-// `prep::x_part`), the parts of A, the planes of a tap record, the ring
+// `prep::x_part`), the parts of A, the stages of B's ring
 template <typename T>
 struct Fmt {
-  static constexpr int SEGS = 1, PARTS = 1, PLANES = 3, DX_RING = 3;
+  static constexpr int SEGS = 1, PARTS = 1, DX_RING = 3;
 };
 template <>
 struct Fmt<float> {
-  static constexpr int SEGS = 6, PARTS = 3, PLANES = 6, DX_RING = 2;
+  static constexpr int SEGS = 6, PARTS = 3, DX_RING = 2;
 };
 
 // Shared memory: B stages, A buffers, the group's table quads, the ring.
@@ -891,7 +896,7 @@ __device__ __forceinline__ void st_shared_v4(uint8_t* p, uint32_t a, uint32_t b,
 // holds bins u*NB .. u*NB + NB - 1 (fewer in the last); the block walks
 // groups z*per .. z*per + per - 1.
 template <typename T, int G>
-__global__ void __launch_bounds__(DX_THREADS)
+__global__ void __launch_bounds__(DX_THREADS, 3)
 spectral_dx_kernel(const __grid_constant__ CUtensorMap eb_map, const uint32_t* __restrict__ rec,
                    const float4* __restrict__ tq, float* __restrict__ dxs, int B, int N2, int S,
                    int F, int P1, int RB, int NJ, int per) {
@@ -1114,7 +1119,7 @@ int dx_ranges(int B, int N2, int S, int NJ) {
   const int groups = (B + DX_NB - 1) / DX_NB;
   int best = 1;
   long long best_cost = -1;
-  for (int r = 1; r <= DX_MAX_RANGES && r <= groups; ++r) {
+  for (int r = 1; r <= groups; ++r) {
     const int per = (groups + r - 1) / r;
     const int rr = (groups + per - 1) / per;
     const long long cost = (tiles * rr + slots - 1) / slots * (per + 1);

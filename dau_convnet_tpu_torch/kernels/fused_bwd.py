@@ -46,14 +46,13 @@ from .forward import _DTYPE_CODE, _MAX_SMEM, split_bf16_3
 
 __all__ = ["FusedPlanError", "spectral_plan", "factored_plan", "fused_spectral_grads",
            "fused_spectral_grads_plain", "fused_factored_grads_plain", "spectral_operands",
-           "spectral_table_quads", "bin_ranges", "row_ranges", "dx_operands", "dx_groups"]
+           "spectral_table_quads", "bin_ranges", "row_ranges", "dx_operands"]
 
 # (M, G) pairs the kernels are instantiated for: the f32 sums each thread
 # keeps in registers spill beyond G = 4
 _FILTERS = (3, 4)
 _MAX_UNITS = 4
 _MAX_EXPONENTS = 64  # table width the operand and dx kernels take
-_DX_BINS = 3         # bins per group of the dx kernel (`dx::DX_NB`)
 _K1_STAGES = 2       # the ring of K1 and K8 (csrc/dau_spectral_grads.cu)
 _K1_ROWS = 64        # K rows per stage
 _K1_WARPGROUPS = 2   # warpgroups, each on its own f of a block
@@ -220,16 +219,6 @@ def dx_operands(esb, wg, a1, a2, n_img: int):
                   _bits16(b0) | (_bits16(b1w) << 16)]
     rec = torch.stack(planes).transpose(2, 3).contiguous()      # (PLANES, G, F, S)
     return eb_t, rec
-
-
-def dx_groups(b: int, r: int):
-    """The dx kernel's ranges [(begin, end)] of bins, r of them at most: the
-    bins go in groups of 3, and blocks of range z take groups [z*per,
-    min(G, (z+1)*per)), per = ceil(G / r) of the G = ceil(b / 3) groups, as
-    the kernel's launch cuts them."""
-    groups = -(-b // _DX_BINS)
-    per = -(-groups // r)
-    return [(z * _DX_BINS, min(b, (z + per) * _DX_BINS)) for z in range(0, groups, per)]
 
 
 def _dx_spectra_plain(esb, phire, phiim, wg, n_img: int):

@@ -1,6 +1,6 @@
 """Time variants of K1's kernel source on the card, to see what paces it.
 
-    python -m dau_convnet_tpu_torch.tools.k1_variants [--seed N]
+    python -m dau_convnet_tpu_torch.tools.k1_variants [--seed N] [--dx]
 
 Each variant is `kernels/csrc/dau_spectral_grads.cu` with one part of K1's
 kernel (`spectral_grads_kernel` under `PhiGather`) changed by a text edit
@@ -9,8 +9,10 @@ kernel (`spectral_grads_kernel` under `PhiGather`) changed by a text edit
 layer shapes (N=32, bf16, M=3, G=2, spectra and offsets from --seed). One
 line per variant gives the kernel's device time per layer (`torch.profiler`,
 the mean of 5 calls after one warm-up), beside the card's name and power
-limit. Variants that drop work compute wrong gradients; they only time.
-Needs one CUDA card and nvcc.
+limit. With --dx the variants are of K2's dx kernel (`dx::spectral_dx_kernel`,
+`DX_VARIANTS`), timed through `fused_spectral_grads` with the dx operands.
+Variants that drop work compute wrong results; they only time. Needs one
+CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -69,6 +71,30 @@ VARIANTS = {
 }
 
 
+_DX_LOADS = ("          taps[e][g] =\n"
+             "              load_tap(rec, plane, ((size_t)g * F + min(f, F - 1)) * S + "
+             "min(s, S - 1), T());")
+_DX_BINS = "constexpr int DX_NB = 2;       // bins per group"
+_DX_BOUNDS = "__global__ void __launch_bounds__(DX_THREADS, 3)\nspectral_dx_kernel"
+_DX_FENCE = '    asm volatile("fence.proxy.async;" ::: "memory");\n    __syncthreads();\n'
+
+# the dx kernel's variants, as VARIANTS
+DX_VARIANTS = {
+    "as built (2 bins a group, 3 blocks per SM)": [],
+    "3 bins a group, 2 blocks per SM": [
+        (_DX_BINS, "constexpr int DX_NB = 3;       // bins per group"),
+        (_DX_BOUNDS, "__global__ void __launch_bounds__(DX_THREADS)\nspectral_dx_kernel")],
+    "1 bin a group, 4 blocks per SM": [
+        (_DX_BINS, "constexpr int DX_NB = 1;       // bins per group"),
+        (_DX_BOUNDS, "__global__ void __launch_bounds__(DX_THREADS, 4)\nspectral_dx_kernel")],
+    "no tap record loads": [
+        (_DX_LOADS, "          taps[e][g] = Tap{(f + g) % 9, (s + g) % 9, 0.5f, 0.25f, 0.5f, "
+                    "0.25f, 1.f};")],
+    "no proxy fence, no barrier per step": [(_DX_FENCE, "")],
+    "ring of 6": [("SEGS = 1, PARTS = 1, DX_RING = 3;", "SEGS = 1, PARTS = 1, DX_RING = 6;")],
+}
+
+
 def _variant_source(edits) -> str:
     src = (_build._CSRC / "dau_spectral_grads.cu").read_text()
     for text, repl in edits:
@@ -94,7 +120,7 @@ def _compile(tag: str, src: str) -> ctypes.CDLL:
     ref = kfb._library("dau_spectral_grads")
     for fn in ("dau_spectral_grads_smem_bytes", "dau_spectral_grads_ranges",
                "dau_spectral_grads_launch", "dau_spectral_operands_launch",
-               "dau_spectral_dx_launch"):
+               "dau_spectral_dx_ranges", "dau_spectral_dx_launch"):
         getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
         getattr(lib, fn).restype = getattr(ref, fn).restype
     return lib
@@ -115,10 +141,12 @@ def _inputs(gen, s, f, hw, dev):
     a2 = fe._phase_onehot(mu2, span, True).permute(0, 2, 1, 3)
     t1 = fe._phase_table(p1, p1, span, torch.float32, dev)
     t2 = fe._phase_table(p2, rb, span, torch.float32, dev, coef_p1=p1)
-    return (xs, es, t1, t2, a1, a2), dict(n_img=N, p1b=p1, rbb=rb)
+    esb = torch.randn((p1 * rb, 2 * N, f), generator=gen).to(dev, torch.bfloat16)
+    wg = (torch.randn((G, s, f), generator=gen) * 0.1).to(dev, torch.bfloat16)
+    return (xs, es, t1, t2, a1, a2), dict(n_img=N, p1b=p1, rbb=rb), dict(esb=esb, wg=wg)
 
 
-def _kernel_ms(call, iters: int = 5) -> float:
+def _kernel_ms(call, fragment: str, iters: int = 5) -> float:
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -128,12 +156,13 @@ def _kernel_ms(call, iters: int = 5) -> float:
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and "spectral_grads_kernel" in e.key) / 1e3 / iters
+               and fragment in e.key) / 1e3 / iters
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--dx", action="store_true", help="time the dx kernel's variants")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_variants: no CUDA device", file=sys.stderr)
@@ -144,7 +173,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
     inputs = [_inputs(gen, s, f, hw, dev) for _, s, f, hw in LAYERS]
-    sources = {name: _variant_source(edits) for name, edits in VARIANTS.items()}
+    variants = DX_VARIANTS if args.dx else VARIANTS
+    sources = {name: _variant_source(edits) for name, edits in variants.items()}
     kfb._library("dau_spectral_grads")  # built once, before the variants copy its signatures
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(sources)) as pool:
         libs = dict(zip(sources, pool.map(_compile, [str(i) for i in range(len(sources))],
@@ -154,15 +184,21 @@ def main(argv=None) -> int:
         for name, lib in libs.items():
             kfb._library = lambda _name, lib=lib: lib
             kfb._ranges.cache_clear()
-            kfb._K1_STAGES = 3 if "ring of 3" in name else stages
-            times = [_kernel_ms(lambda: kfb.fused_spectral_grads(*ops, **kw))
-                     for ops, kw in inputs]
+            kfb._dx_ranges.cache_clear()
+            kfb._K1_STAGES = 3 if "ring of 3" in name and not args.dx else stages
+            if args.dx:
+                times = [_kernel_ms(lambda: kfb.fused_spectral_grads(*ops, **kw, **dx),
+                                    "spectral_dx_kernel") for ops, kw, dx in inputs]
+            else:
+                times = [_kernel_ms(lambda: kfb.fused_spectral_grads(*ops, **kw),
+                                    "spectral_grads_kernel") for ops, kw, _ in inputs]
             cols = " | ".join(f"{lname} {t:.4f}" for (lname, *_), t in zip(LAYERS, times))
-            print(f"K1 variant '{name}', N={N} bf16, kernel ms: {cols} | conv3-conv5 "
-                  f"{sum(times[1:]):.4f} [{card}]")
+            print(f"{'dx' if args.dx else 'K1'} variant '{name}', N={N} bf16, kernel ms: {cols} "
+                  f"| conv3-conv5 {sum(times[1:]):.4f} [{card}]")
     finally:
         kfb._library, kfb._K1_STAGES = library, stages
         kfb._ranges.cache_clear()
+        kfb._dx_ranges.cache_clear()
     return 0
 
 

@@ -108,8 +108,8 @@ def _dx_from_operands(t, kw):
 
 
 # (N, S, F, G, H=W): a ragged N (2N = 10 columns of the 64) and F off the
-# 16-f step, G = 4, 13x13's 153 bins in 51 groups of 3 (JAX's interpret mode
-# takes S and F in multiples of 8)
+# 16-f step, G = 4, 13x13's 153 bins (JAX's interpret mode takes S and F in
+# multiples of 8)
 CASES = {
     "n2_g2_9px": (2, 8, 16, 2, 9),
     "ragged_n5_f24": (5, 24, 24, 2, 9),
@@ -172,12 +172,3 @@ def test_tap_records_hold_the_units_taps_and_weights(dtype):
         assert torch.equal(got[1], lo.double().transpose(1, 2))
         assert torch.equal(got[2], hi.double().transpose(1, 2))
     assert torch.equal(w, t["wg"].to(cdt).double().transpose(1, 2))
-
-
-@pytest.mark.parametrize("b,r", [(153, 1), (153, 17), (153, 51), (496, 40), (5, 8)])
-def test_dx_groups_cover_every_bin_once(b, r):
-    ranges = tfb.dx_groups(b, r)
-    assert 1 <= len(ranges) <= r
-    assert ranges[0][0] == 0 and ranges[-1][1] == b
-    assert all(lo < hi and lo % 3 == 0 for lo, hi in ranges)
-    assert all(x[1] == y[0] for x, y in zip(ranges, ranges[1:]))
