@@ -895,8 +895,10 @@ __device__ __forceinline__ void st_shared_v4(uint8_t* p, uint32_t a, uint32_t b,
 // float4 quads of t1 then t2, rounded to T; dxs (B, 2N, S) f32. Group u
 // holds bins u*NB .. u*NB + NB - 1 (fewer in the last); the block walks
 // groups z*per .. z*per + per - 1.
+// Three blocks per SM (<= 170 registers) where that costs no spill: bf16
+// operands, G <= 2 (f32's shared memory holds one block an SM anyway).
 template <typename T, int G>
-__global__ void __launch_bounds__(DX_THREADS, 3)
+__global__ void __launch_bounds__(DX_THREADS, sizeof(T) == 2 && G <= 2 ? 3 : 1)
 spectral_dx_kernel(const __grid_constant__ CUtensorMap eb_map, const uint32_t* __restrict__ rec,
                    const float4* __restrict__ tq, float* __restrict__ dxs, int B, int N2, int S,
                    int F, int P1, int RB, int NJ, int per) {

@@ -75,7 +75,7 @@ _DX_LOADS = ("          taps[e][g] =\n"
              "              load_tap(rec, plane, ((size_t)g * F + min(f, F - 1)) * S + "
              "min(s, S - 1), T());")
 _DX_BINS = "constexpr int DX_NB = 2;       // bins per group"
-_DX_BOUNDS = "__global__ void __launch_bounds__(DX_THREADS, 3)\nspectral_dx_kernel"
+_DX_BOUNDS = "__launch_bounds__(DX_THREADS, sizeof(T) == 2 && G <= 2 ? 3 : 1)"
 _DX_FENCE = '    asm volatile("fence.proxy.async;" ::: "memory");\n    __syncthreads();\n'
 
 # the dx kernel's variants, as VARIANTS
@@ -83,10 +83,10 @@ DX_VARIANTS = {
     "as built (2 bins a group, 3 blocks per SM)": [],
     "3 bins a group, 2 blocks per SM": [
         (_DX_BINS, "constexpr int DX_NB = 3;       // bins per group"),
-        (_DX_BOUNDS, "__global__ void __launch_bounds__(DX_THREADS)\nspectral_dx_kernel")],
+        (_DX_BOUNDS, "__launch_bounds__(DX_THREADS)")],
     "1 bin a group, 4 blocks per SM": [
         (_DX_BINS, "constexpr int DX_NB = 1;       // bins per group"),
-        (_DX_BOUNDS, "__global__ void __launch_bounds__(DX_THREADS, 4)\nspectral_dx_kernel")],
+        (_DX_BOUNDS, "__launch_bounds__(DX_THREADS, 4)")],
     "no tap record loads": [
         (_DX_LOADS, "          taps[e][g] = Tap{(f + g) % 9, (s + g) % 9, 0.5f, 0.25f, 0.5f, "
                     "0.25f, 1.f};")],
