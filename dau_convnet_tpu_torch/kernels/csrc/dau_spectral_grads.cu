@@ -784,12 +784,12 @@ operands_kernel(const __grid_constant__ Args a) {
 //     then stored: each dX element is written by one block, in one order;
 //   - the ranges of groups are chosen so the grid fills the card in whole
 //     waves (as `tc::ranges`).
-// What paces it (variants of this source timed on an H100 at N = 32, bf16,
-// conv3-conv5): not the tap records' bytes, the table quads' shared-memory
-// reads, the ring's depth, the proxy fence or the barrier per step, but
-// the warps in flight to hide each step's dependent chain (load a record,
-// read its quads, build V): two bins per group at three blocks per SM
-// (<= 170 registers) beat three bins at two by 21%, one bin at four tied.
+// What paces it (`tools/k1_variants.py --dx` on an H100, N = 32, bf16,
+// conv3-conv5): the warps in flight to hide each step's dependent chain
+// (load a record, read its quads, build V). Two bins a group at three
+// blocks per SM (<= 170 registers) beat three bins at two by 21%, one bin
+// at four tied; without the records' loads it takes a third less; a
+// deeper ring, or no proxy fence and barrier per step, change nothing.
 namespace dx {
 
 using namespace dau_hopper;
