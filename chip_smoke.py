@@ -10,13 +10,16 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    K1/K2 and K8 the fused spectral gradients, one kernel under two gather
    policies, K7 the partial iDFT, K3 the fused apply-phi), and print their
    registers and spills (ks=9; K1 and K8 at every (dtype, M, G) instance,
-   failing if K1 spills at M=3, G=2 or K8 at any instance); count the
+   failing if K1 spills at M=3, G=2 or K8 at any instance; K2's dx kernel
+   and K3's products kernel, which share a mainloop, at every instance,
+   failing if the bf16 G=2 one of either spills); count the
    tensor-core instructions (HGMMA, HMMA) and TMA loads (UTMALDG) in the
-   SASS of the K5, K4, K6, K7 and K1/K2/K8 libraries (`cuobjdump -sass`) and
-   fail if any has none of either, and the HGMMA of each K8 instance, failing
-   if one has none, and the HGMMA and UTMALDG of each instance of K2's dx
-   kernel (`spectral_dx_kernel`, its B operand comes by TMA), failing if one
-   has none of either;
+   SASS of the K5, K4, K6, K7, K1/K2/K8 and K3 libraries (`cuobjdump -sass`)
+   and fail if any has none of either, and the HGMMA of each K8 instance,
+   failing if one has none, and the HGMMA and UTMALDG of each instance of
+   K2's dx kernel (`spectral_dx_kernel`) and of K3's products kernel
+   (`apply_phi_gemm_kernel`; the B operand of both comes by TMA), failing if
+   one has none of either;
 2. kernel vs twin: `dau_forward_fused` against `dau_forward_fused_plain` at
    the four AlexNet-DAU layer shapes (N=4) in f32 (TF32 off, bound
    1e-4*max|y|) and bf16 (twin in f32 on the same bf16 values, bound
@@ -110,7 +113,9 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
 17. K3 vs twin, forward and contract_f, at the four layers (N=4), f32
    (1e-4*max|ref|) and bf16 (1e-2); `fourier_apply_phi_fused` against
    `fourier_forward` and `fourier_input_grad` within 1e-4 (f32) / 1e-2
-   (bf16) * max|y|; then the path `fourier_apply_phi_fused` in both
+   (bf16) * max|y|; K3 at ks 33 and 65 (36 and 68 exponents) on a small
+   plane (N=4, S=16, F=24, 7x7) against its twin in both directions and
+   dtypes, bounds as above; then the path `fourier_apply_phi_fused` in both
    directions at the four layers (N=32, bf16), 8 K3 calls;
 18. timing: per layer at N=32 bf16, K8 and K8 dx against their twin, K1
    and the unfused torch path, and K8's device time (`torch.profiler`: the
@@ -118,7 +123,11 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    layers; the dx kernel as in phase 13 at the four layers (K8 dx's 4
    launches); K7 against its twin and one bf16 matmul of the stacked operands,
    also summed over the layers; K3 against its twin and the unfused chain,
-   and its closing launch (K7's kernel on f32 spectra) alone; K4's and K5's
+   its closing launch (the split of f32 Y and K7's kernel) alone, its
+   device time (`torch.profiler`: the products kernel, the operand
+   building, the closing launch, the whole call) and one bf16 `torch.bmm`
+   of its per-bin products alone (Phi built beforehand), also summed over
+   the layers and directions; K4's and K5's
    kernels alone at ks=9 (device time over the 8 launches of a step, forward
    and dx shapes); the factored steps (and the phi-gather Fourier step
    beside them) as medians of 5 runs with min and max, and the device time
@@ -199,6 +208,8 @@ KERNEL_K7 = dict(name="partial_idft (K7)", route="cuda",
 KERNEL_K3 = dict(name="fused_apply_phi (K3)", route="cuda",
                  source="dau_convnet_tpu_torch/kernels/csrc/dau_apply_phi.cu",
                  replaces="dau_convnet_tpu/kernels/fused_fwd.py:225")
+# the name fragment of K3's products kernel (its device time in phase 18)
+K3_PRODUCTS = "apply_phi_gemm_kernel"
 LIBRARIES = ("dau_forward_fused", "dau_aggregate", "dau_grad_tables", "dau_spectral_grads",
              "dau_partial_idft", "dau_apply_phi")
 # the card's peaks for the bounds (H100 SXM data sheet, dense, at 700 W):
@@ -729,10 +740,12 @@ def _instance(entry):
     dtype, M and G, and the spectral kernel's gather policy."""
     kind = "bf16" if "bfloat16" in entry else "f32" if re.search(r"If[LE]", entry) else ""
     mg = re.search(r"Li(\d+)ELi(\d+)E", entry)
-    g = re.search(r"Li(\d+)EEEv", entry)  # the dx kernel's one int argument, G
+    # the dx kernel's one int argument, G; K3's G and whether it is chunked
+    g = re.search(r"Li(\d+)E(Lb([01])E)?EEv", entry)
     gather = next((g for g in ("PhiGather", "FactoredGather") if g in entry), "")
+    chunked = g and g.group(3) == "1" and "chunked"
     return " ".join(p for p in (kind, mg and f"M={mg.group(1)} G={mg.group(2)}",
-                                not mg and g and f"G={g.group(1)}", gather) if p)
+                                not mg and g and f"G={g.group(1)}", chunked, gather) if p)
 
 
 def _ptxas(lib, markers):
@@ -748,15 +761,15 @@ def _ptxas(lib, markers):
     return found
 
 
-def _spectral_instances(gather, kernel, spill_free):
-    """Print registers and spills of every (dtype, M, G) instance of the
-    spectral kernel under `gather` (PhiGather: K1, FactoredGather: K8);
-    raise if one is missing or one whose mangled name holds a marker of
-    `spill_free` spills (K1: M=3, G=2; K8: every instance)."""
-    found = _ptxas("dau_spectral_grads", ["spectral_grads_kernel", gather])
-    if len(found) != 16:
-        raise AssertionError(f"dau_spectral_grads: {len(found)} {kernel} instances in the "
-                             "build log, expected 16 (f32/bf16 x M 3, 4 x G 1-4)")
+def _instances(lib, markers, kernel, count, spill_free):
+    """Print registers and spills of every instance of a kernel (the
+    library's entries whose mangled name holds every marker); raise if
+    there are not `count` of them or one whose mangled name holds a marker
+    of `spill_free` spills."""
+    found = _ptxas(lib, markers)
+    if len(found) != count:
+        raise AssertionError(f"{lib}: {len(found)} {kernel} instances in the build log, "
+                             f"expected {count}")
     for entry, info in found.items():
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
         if any(mk in entry for mk in spill_free) and (
@@ -961,15 +974,17 @@ def compare_idft(gen, dev):
     return worst
 
 
-def _apply_phi_inputs(gen, n, s, f, hw, contract_f, dtype, dev):
+def _apply_phi_inputs(gen, n, s, f, hw, contract_f, dtype, dev, ks=9):
     """K3's operands at a layer shape as `fourier_apply_phi_fused` makes
-    them (forward: CI=S, CO=F; contract_f: CI=F, CO=S); and the image, w,
-    mu1, mu2 behind them."""
-    p1, p2, rb = fe.plan_bins(hw, hw, 9)
-    span = 5
+    them (forward: CI=S, CO=F; contract_f: CI=F, CO=S) at kernel size ks
+    (nj = 2*(ks//2 + 1) + 2 exponents); and the image, w, mu1, mu2 behind
+    them (|mu| up to ks//2 - 0.01)."""
+    p1, p2, rb = fe.plan_bins(hw, hw, ks)
+    span = ks // 2 + 1
+    lim = ks // 2 - 0.01
     x = torch.rand((n, f if contract_f else s, hw, hw), generator=gen).to(dev, dtype)
     w = (torch.randn((s, G, f), generator=gen) * 0.1).to(dev, dtype)
-    mu1, mu2 = (torch.rand((2, s, G, f), generator=gen) * 7.98 - 3.99).to(dev, dtype)
+    mu1, mu2 = ((torch.rand((2, s, G, f), generator=gen) * 2 - 1) * lim).to(dev, dtype)
     xre, xim = fe._rdft2(x, p1, p2, rb)
     order = (0, 2, 3, 1) if contract_f else (0, 2, 1, 3)
     aw = fe._phase_onehot(mu2, span, True) * w.float()[None]
@@ -1007,9 +1022,19 @@ def compare_apply_phi(gen, dev):
     """Phase 17: K3 vs its twin, forward and contract_f, at each layer
     shape (N=4), f32 (bound 1e-4*max|ref|) and bf16 (Phi rounded to bf16 in
     both: 1e-2); and `fourier_apply_phi_fused` against the unfused chain
-    within 1e-4 (f32) / 1e-2 (bf16) * max|y|. Returns the largest |error|
-    of K3."""
+    within 1e-4 (f32) / 1e-2 (bf16) * max|y|; then K3 at ks 33 and 65 (nj
+    36 and 68) on a small plane (N=4, S=16, F=24, 7x7) against its twin,
+    bounds as above. Returns the largest |error| of K3."""
     worst = 0.0
+    for ks in (33, 65):
+        for contract_f in (False, True):
+            for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+                tag = f"ks{ks} {'contract_f' if contract_f else 'forward'} {str(dtype)[6:]}"
+                ops, kw, _ = _apply_phi_inputs(gen, 4, 16, 24, 7, contract_f, dtype, dev, ks)
+                worst = max(worst, _check_err(
+                    f"K3 {tag} nj={ops['aw'].shape[0]} B={ops['xs'].shape[0]}",
+                    kff.fused_apply_phi(**ops, **kw), kff.fused_apply_phi_plain(**ops, **kw),
+                    bound))
     for name, s, f, hw in LAYERS:
         for contract_f in (False, True):
             for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
@@ -1047,7 +1072,10 @@ def time_new_kernels(gen, dev, card, worst):
     Returns {kernel: (ms, plain_ms, library_ms or None, Bounds)} summed over
     the layers."""
     out = {k: [0.0, 0.0, None, Bounds()] for k in ("k8", "k8dx", "k7", "k3")}
-    out["k7"][2] = 0.0
+    out["k7"][2] = out["k3"][2] = 0.0
+    # K3's device time over the layers and directions: the products kernel,
+    # the operand building, the closing launch, the whole call
+    out["k3dev"] = [0.0] * 4
     # K8's device time summed over the layers: the kernel alone, with its
     # operand kernel and the wrapper's sum, and the dx kernel of K8 dx
     out["k8dev"] = [0.0, 0.0, 0.0]
@@ -1119,18 +1147,47 @@ def time_new_kernels(gen, dev, card, worst):
             t_f = _cuda_ms(lambda: fe.fourier_apply_phi_fused(x, w, mu1, mu2, 9,
                                                               contract_f=contract_f))
             t_u = _cuda_ms(lambda: _unfused_apply(x, w, mu1, mu2, contract_f))
-            # its closing launch alone: K7's kernel on f32 spectra of this shape
+            # its closing launch alone: the split of f32 Y of this shape into
+            # bf16 hi/lo parts, and K7's kernel on them
             dct, dst = ops["dct"], ops["dst"]
-            y = torch.randn((2, dct.shape[1], BATCH * ops["aw"].shape[-1]), generator=gen).to(dev)
-            t_c = _cuda_ms(lambda: ksp.idft_launch(dct.t(), dst.t(), y[0], y[1], torch.float32,
-                                                   mat_dtype=torch.bfloat16))
+            co = ops["aw"].shape[-1]
+            y = torch.randn((dct.shape[1], 2 * BATCH, co), generator=gen).to(dev)
+
+            def close():
+                parts = kff._split_cuda(kff._library(), y, BATCH)
+                return ksp.idft_launch_split(dct.t(), dst.t(), parts, BATCH * co, torch.float32,
+                                             mat_dtype=torch.bfloat16)
+
+            t_c = _cuda_ms(close)
+            # device time: the products kernel alone, the whole call, the
+            # closing launch alone; the operand building is the rest
+            d_k, d_all = _device_ms(lambda: kff.fused_apply_phi(**ops, **kw), K3_PRODUCTS)
+            d_op = _device_ms(lambda: kff.fused_apply_phi(**ops, **kw),
+                              "apply_phi_operands_kernel")[0]
+            d_c = _device_ms(close, "")[1]
+            d_o = d_all - d_k - d_c
+            del y
+            # the yardstick: one bf16 bmm of the per-bin products alone, Phi
+            # built beforehand: [Xre | Xim] (B, N, 2CI) . [[Phre, Phim];
+            # [-Phim, Phre]] (B, 2CI, 2CO)
+            b, n2, ci = ops["xs"].shape
+            lhs = torch.randn((b, n2 // 2, 2 * ci), device=dev).to(torch.bfloat16)
+            rhs = torch.randn((b, 2 * ci, 2 * co), device=dev).to(torch.bfloat16)
+            t_l = _cuda_ms(lambda: torch.bmm(lhs, rhs))
+            del lhs, rhs
             bd = out["k3"][3].add(*_apply_phi_work(ops, kw))
             print(f"layer {name} K3 {way} N={BATCH} bf16: kernel {t_k:.3f} ms (bound "
-                  f"{bd:.4f}; its closing launch alone {t_c:.3f} ms), twin {t_p:.3f} ms; from "
-                  f"the image: fourier_apply_phi_fused {t_f:.3f} ms, unfused chain {t_u:.3f} ms "
+                  f"{bd:.4f}; its closing launch alone {t_c:.3f} ms; device time: the products "
+                  f"kernel {d_k:.4f} ms, the operand building {d_o:.4f} ms (its operand kernel "
+                  f"{d_op:.4f} ms), the closing launch "
+                  f"{d_c:.4f} ms, the whole call {d_all:.4f} ms), twin {t_p:.3f} ms, one bf16 "
+                  f"bmm of the products alone (Phi built beforehand) {t_l:.4f} ms; from the "
+                  f"image: fourier_apply_phi_fused {t_f:.3f} ms, unfused chain {t_u:.3f} ms "
                   f"[{card}]")
             out["k3"][0] += t_k
             out["k3"][1] += t_p
+            out["k3"][2] += t_l
+            out["k3dev"] = [a + b for a, b in zip(out["k3dev"], (d_k, d_o, d_c, d_all))]
     return out
 
 
@@ -1165,17 +1222,29 @@ def main(argv=None) -> int:
     _ptxas("dau_forward_fused", ["fused_forward_kernel"])
     _ptxas("dau_aggregate", ["aggregate_kernel"])
     _ptxas("dau_grad_tables", ["grad_tables_kernel"])
-    _spectral_instances("PhiGather", "K1", ("Li3ELi2E",))
-    _spectral_instances("FactoredGather", "K8", ("FactoredGather",))
-    _ptxas("dau_spectral_grads", ["spectral_dx_kernel"])
+    # K1 and K8: f32/bf16 x M 3, 4 x G 1-4; K1 spill-free at M=3, G=2, K8
+    # everywhere
+    _instances("dau_spectral_grads", ["spectral_grads_kernel", "PhiGather"], "K1", 16,
+               ("Li3ELi2E",))
+    _instances("dau_spectral_grads", ["spectral_grads_kernel", "FactoredGather"], "K8", 16,
+               ("FactoredGather",))
+    # K2's dx kernel: f32/bf16 x G 1-4, spill-free at bf16, G = 2
+    _instances("dau_spectral_grads", ["spectral_dx_kernel"], "dx kernel", 8,
+               ("I13__nv_bfloat16Li2EEEv",))
     _ptxas("dau_partial_idft", ["partial_idft_kernel"])
-    _ptxas("dau_apply_phi", ["apply_phi_kernel"])
+    # K3's products kernel: f32/bf16 x G 1-4, and the chunked G = 4;
+    # spill-free at bf16, G = 2 (the AlexNet-DAU path's)
+    _instances("dau_apply_phi", [K3_PRODUCTS], "K3 products kernel", 10,
+               ("I13__nv_bfloat16Li2ELb0E",))
+    _ptxas("dau_apply_phi", ["apply_phi_operands_kernel"])
     for lib in ("dau_forward_fused", "dau_aggregate", "dau_grad_tables", "dau_partial_idft",
-                "dau_spectral_grads"):
+                "dau_spectral_grads", "dau_apply_phi"):
         _tensor_core_count(lib)
     _hgmma_per_instance("dau_spectral_grads", "FactoredGather", "K8")
     # K2's dx kernel: f32/bf16 x G 1-4, its B operand by TMA
     _hgmma_per_instance("dau_spectral_grads", "spectral_dx_kernel", "dx kernel", 8, tma=True)
+    # K3's products kernel: f32/bf16 x (G 1-4, and chunked G 4), B by TMA
+    _hgmma_per_instance("dau_apply_phi", K3_PRODUCTS, "K3 products kernel", 10, tma=True)
 
     # 2. kernel vs twin
     gen = torch.Generator().manual_seed(args.seed)
@@ -1417,12 +1486,17 @@ def main(argv=None) -> int:
     print(f"dx kernel over the four layers (K8 dx's 4 launches) N={BATCH} bf16: "
           f"{_dx_line(new['dx'])} [{card}]")
     time_aggregation(gen, dev, card, ks)
-    for key, what in (("k7", "K7"), ("k3", "K3 (both directions)")):
+    for key, what, lib_what in (("k7", "K7", "one matmul"),
+                                ("k3", "K3 (both directions)",
+                                 "one bf16 bmm of the products alone (Phi built beforehand)")):
         ms, plain, lib, bound = new[key]
         print(f"{what} over the four layers N={BATCH} bf16: kernel {ms:.3f} ms, bound "
-              f"{bound.ms:.4f} ms ({bound.bound_by}), "
-              + (f"one matmul {lib:.3f} ms, " if lib is not None else "")
-              + f"twin {plain:.3f} ms [{card}]")
+              f"{bound.ms:.4f} ms ({bound.bound_by}), {lib_what} {lib:.4f} ms, twin "
+              f"{plain:.3f} ms [{card}]")
+    d = new["k3dev"]
+    print(f"K3 over the four layers, both directions (8 calls) N={BATCH} bf16, device time: "
+          f"the products kernel {d[0]:.4f} ms, the operand building {d[1]:.4f} ms, the closing "
+          f"launch {d[2]:.4f} ms, the whole calls {d[3]:.4f} ms [{card}]")
     for engine in ("fourier factored", "fourier factored fused_dx", "fourier"):
         step = runs[engine][0]
         t_k = _spread(lambda: step(batches[0], labels), iters=3)

@@ -81,17 +81,13 @@
 // all F, its A built on the FP32 units and its B streamed by TMA; K1's
 // operand kernel builds B and the units' tap records in its launch.
 
-#include "dau_hopper_gemm.cuh"
+#include "dau_tap_gemm.cuh"
 
 namespace {
 
 constexpr int NJ_MAX = 64;  // largest exponent table width
 
-// a value rounded to T and widened back
-__device__ __forceinline__ float round_as(float v, float) { return v; }
-__device__ __forceinline__ float round_as(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+using tapgemm::round_as;
 
 // ------------------------------------------------------------------ K1, K8
 
@@ -538,30 +534,18 @@ int ranges(int B, int S, int F, int unit, size_t smem) {
 //     bin b for f = 16c + f' holding [Ere | Eim] (h = 0) or [Eim | -Ere]
 //     (h = 1) over the first 2N of NC = 2N rounded up to 8 columns, zero
 //     past F and 2N, for T = float part [1, 2, 1, 3, 2, 1][q] of the split;
-//     and each unit's record, (PLANES, G, F, S) u32 (`dx::load_tap`).
+//     and each unit's record, (PLANES, G, F, S) u32 (`tapgemm::load_tap`).
 namespace prep {
 
 constexpr int THREADS = 256;
 
-// part q (1, 2, 3) of v's three-way bf16 split (`forward.split_bf16_3`)
-__device__ __forceinline__ __nv_bfloat16 split_part(float v, int q) {
-  const __nv_bfloat16 p1 = __float2bfloat16_rn(v);
-  if (q == 1) return p1;
-  const float r = v - __bfloat162float(p1);
-  const __nv_bfloat16 p2 = __float2bfloat16_rn(r);
-  if (q == 2) return p2;
-  return __float2bfloat16_rn(r - __bfloat162float(p2));
-}
-
-__device__ __forceinline__ __nv_bfloat16 to_bf16(float v, int q) { return split_part(v, q); }
-__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v, int) { return v; }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// which part segment q of the K stack holds: X [1, 1, 2, 1, 2, 3], ES [1,
-// 2, 1, 3, 2, 1]; bf16 spectra have one segment
-__device__ __forceinline__ int x_part(int q) { return q < 2 ? 1 : (q == 2 || q == 4 ? 2 : (q == 3 ? 1 : 3)); }
-__device__ __forceinline__ int e_part(int q) { return q == 0 || q == 2 || q == 5 ? 1 : (q == 3 ? 3 : 2); }
+using tapgemm::e_part;
+using tapgemm::interleaved8;
+using tapgemm::table_quad;
+using tapgemm::taps;
+using tapgemm::to_bf16;
+using tapgemm::to_f32;
+using tapgemm::x_part;
 
 struct Args {
   const void* xs;
@@ -583,23 +567,6 @@ struct Args {
   uint32_t* rec;        // the dx kernel's tap records: (PLANES, G, F, S)
   int M, G, B, N, S, F, P1, RB, NJ;
 };
-
-__device__ __forceinline__ void taps(const float* a, const long long* st, int g, int s, int f,
-                                     int NJ, int& j, float& w0, float& w1, bool bf16) {
-  const float* col = a + g * st[1] + s * st[2] + f * st[3];
-  // every entry read (no early exit), so the loads are all in flight
-  j = NJ;
-#pragma unroll 4
-  for (int i = NJ - 1; i >= 0; --i)
-    if (col[i * st[0]] != 0.f) j = i;
-  j = min(j == NJ ? 0 : j, NJ - 2);
-  w0 = col[j * st[0]];
-  w1 = col[(j + 1) * st[0]];
-  if (bf16) {
-    w0 = __bfloat162float(__float2bfloat16_rn(w0));
-    w1 = __bfloat162float(__float2bfloat16_rn(w1));
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -633,8 +600,10 @@ operands_kernel(const __grid_constant__ Args a) {
       const int g = (int)(i / ((long long)a.F * a.S));
       int j1, j2;
       float w[4];
-      taps(a.a1, a.a1_st, g, s, f, a.NJ, j1, w[0], w[1], !kF32);
-      taps(a.a2, a.a2_st, g, s, f, a.NJ, j2, w[2], w[3], !kF32);
+      taps(a.a1 + g * a.a1_st[1] + s * a.a1_st[2] + f * a.a1_st[3], a.a1_st[0], a.NJ, j1, w[0],
+           w[1], !kF32);
+      taps(a.a2 + g * a.a2_st[1] + s * a.a2_st[2] + f * a.a2_st[3], a.a2_st[0], a.NJ, j2, w[2],
+           w[3], !kF32);
       a.idx[i] = j1;
       a.idx[GSF + i] = j2;
 #pragma unroll
@@ -706,49 +675,23 @@ operands_kernel(const __grid_constant__ Args a) {
     }
     r -= n_xs;
     if (r >= n_tq) {  // the dx kernel's B: 8 columns of one (b, row) of the
-                      // interleaved error copy, columns fastest
+                      // interleaved error copy ([Ere | Eim], [Eim | -Ere]),
+                      // columns fastest
       r -= n_tq;
       const int c = (int)(r % (NC / 8));
       const int row = (int)((r / (NC / 8)) % KT);
       const int b = (int)(r / ((long long)KT * (NC / 8)));
-      const int q = (row / 32) % segs;
-      const int f = row / (32 * segs) * 16 + (row % 32) / 2;
-      const bool odd = row % 2 == 1;  // row 2f + 1: [Eim | -Ere]; 2f: [Ere | Eim]
-      const T* eb = static_cast<const T*>(a.esb) + b * a.esb_st[0] + f * a.esb_st[2];
-      __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-      for (int l = 0; l < 8; ++l) {
-        const int col = 8 * c + l;
-        if (f >= a.F || col >= N2) {
-          v[l] = __float2bfloat16_rn(0.f);
-          continue;
-        }
-        const bool im = col >= a.N;  // the dXim half of the columns
-        const int n = im ? col - a.N : col;
-        const int src = (odd != im) ? a.N + n : n;  // Eim where exactly one holds
-        const __nv_bfloat16 p = to_bf16(eb[src * a.esb_st[1]], kF32 ? e_part(q) : 1);
-        v[l] = odd && im ? __hneg(p) : p;
-      }
+      const T* eb = static_cast<const T*>(a.esb) + b * a.esb_st[0];
       *reinterpret_cast<uint4*>(a.eb_t + (((size_t)b * KT + row) * NC + 8 * c)) =
-          *reinterpret_cast<const uint4*>(v);
+          interleaved8<T, false>(eb, a.esb_st[1], a.esb_st[2], row, c, segs, a.N, a.F);
       continue;
     }
     {  // one table quad: row k of t1 (k < P1) or of t2
       const int j = (int)(r % Q);
       const int k = (int)(r / Q);
       const bool first = k < a.P1;
-      const float* t = first ? a.t1 : a.t2;
-      const int rows = first ? a.P1 : a.RB;
-      const int kr = first ? k : k - a.P1;
-      const float* c = t + (size_t)kr * a.NJ;
-      const float* sn = t + (size_t)(rows + kr) * a.NJ;
-      float4 o = make_float4(c[j], c[j + 1], sn[j], sn[j + 1]);
-      if (!kF32) {
-        o.x = round_as(o.x, __nv_bfloat16());
-        o.y = round_as(o.y, __nv_bfloat16());
-        o.z = round_as(o.z, __nv_bfloat16());
-        o.w = round_as(o.w, __nv_bfloat16());
-      }
+      const float4 o = first ? table_quad<T>(a.t1, a.P1, k, j, a.NJ)
+                             : table_quad<T>(a.t2, a.RB, k - a.P1, j, a.NJ);
       reinterpret_cast<float4*>(a.tq)[r] = o;
     }
   }
@@ -759,378 +702,31 @@ operands_kernel(const __grid_constant__ Args a) {
 // ------------------------------------------------------------------ K2's dx
 
 // K2's input-gradient spectra (the dx kernel; K8 dx takes it too): per bin
-// k = k1*RB + k2 one GEMM on the tensor cores,
+// k = k1*RB + k2 one GEMM on the tensor cores (`tapgemm::tap_gemm`, shared
+// with K3),
 //
 //   D[s, c] = sum_kk A[s, kk] * Bk[kk, c],   A[s, 2f] = Vr[s, f], A[s, 2f+1] = Vi[s, f],
 //   Bk[2f] = [Ere | Eim],  Bk[2f+1] = [Eim | -Ere]   (N columns each),
 //
-// V[k,s,f] = sum_g w[g,s,f] * phiU[k,g,s,f], so column n < N of D is dXre[k,
-// n, s] and column N + n is dXim: D^T is the bin's slice of dxs (B, 2N, S),
-// [dXre; dXim] rows.
-//   - the wgmma M is 64 s, its N 64 of the 2N columns (ragged 2N through
-//     TMA's zeros), its K the 32 rows of 16 f per step: B (the "interleaved
-//     error copy" Bk, built with K1's operands in the same launch) comes by
-//     TMA, 128-byte swizzled MN-major, through a ring of DX_RING stages;
-//   - A is built on the FP32 units per step from the units' tap records
-//     (one compact record per (g, f, s), s innermost, so a warp's loads are
-//     coalesced) and the bins' staged table quads, rounded to bf16 once per
-//     (s, f) (f32 spectra: split in three, stacked along K against the
-//     error's parts as K1 stacks them, six products), and written to a
-//     no-swizzle K-major tile that the wgmmas read; two A buffers, so the
-//     next step's A is built while this step's wgmmas run;
-//   - a block owns 64 s, 64 columns and a range of groups of DX_NB bins;
-//     each tap record it loads feeds the A tiles of the group's DX_NB bins,
-//     each bin with its own 32 f32 sums per thread, summed over all F and
-//     then stored: each dX element is written by one block, in one order;
-//   - the ranges of groups are chosen so the grid fills the card in whole
-//     waves (as `tc::ranges`).
-// What paces it (`tools/k1_variants.py --dx` on an H100, N = 32, bf16,
-// conv3-conv5): the warps in flight to hide each step's dependent chain
-// (load a record, read its quads, build V). Two bins a group at three
-// blocks per SM (<= 170 registers) beat three bins at two by 21%, one bin
-// at four tied; without the records' loads it takes a third less; a
-// deeper ring, or no proxy fence and barrier per step, change nothing.
+// V[k,s,f] = sum_g w[g,s,f] * phiU[k,g,s,f] (`tapgemm::WeightedUnits`), so
+// column n < N of D is dXre[k, n, s] and column N + n is dXim: D^T is the
+// bin's slice of dxs (B, 2N, S), [dXre; dXim] rows. B (the "interleaved
+// error copy" Bk) and the units' tap records are built with K1's operands in
+// the same launch.
 namespace dx {
 
-using namespace dau_hopper;
-
-constexpr int ST = 64;         // s per block: the wgmma M
-constexpr int NT = 64;         // columns of 2N per block: the wgmma N
-constexpr int FC = 16;         // f per step: 32 K rows per stacked segment
-constexpr int DX_NB = 2;       // bins per group
-constexpr int DX_THREADS = 128;
-constexpr int TILE = ST * 2 * FC * 2;  // bytes of one 64 x 32 bf16 tile (A or B)
-
-// per operand dtype: the stacked segments of B (the parts of A they meet:
-// `prep::x_part`), the parts of A, the stages of B's ring
-template <typename T>
-struct Fmt {
-  static constexpr int SEGS = 1, PARTS = 1, DX_RING = 3;
-};
-template <>
-struct Fmt<float> {
-  static constexpr int SEGS = 6, PARTS = 3, DX_RING = 2;
-};
-
-// Shared memory: B stages, A buffers, the group's table quads, the ring.
-struct DxLayout {
-  int b, a, tab, ring, bytes;
-};
-
-template <typename T>
-__host__ __device__ inline DxLayout dx_layout(int NJ) {
-  using Q = Fmt<T>;
-  DxLayout l;
-  l.b = 0;                                          // [RING][NB][SEGS][32 kk][64 c] bf16, swizzled
-  l.a = l.b + Q::DX_RING * DX_NB * Q::SEGS * TILE;  // [2][NB][PARTS][4 k8][64 s][8 kk] bf16
-  l.tab = l.a + 2 * DX_NB * Q::PARTS * TILE;        // [NB][2][NJ-1] float4 (t1 row, t2 row)
-  l.ring = l.tab + DX_NB * 2 * (NJ - 1) * 16;
-  l.bytes = 1024 + l.ring + (int)sizeof(Ring<Q::DX_RING>);
-  return l;
-}
-
-// A unit's record at (g, f, s): bf16 operands, three planes of u32 (w | j1
-// << 16 | j2 << 24; a0 | a1 << 16; b0 | b1 << 16, bf16 bits); f32, six (j1
-// | j2 << 16; a0; a1; b0; b1; w). j1 and a are mu1's taps (into t2), j2
-// and b mu2's (into t1); the weights are rounded to the operand dtype.
-struct Tap {
-  int j1, j2;
-  float a0, a1, b0, b1, w;
-};
-
-__device__ __forceinline__ Tap load_tap(const uint32_t* rec, size_t plane, size_t at,
-                                        __nv_bfloat16) {
-  const uint32_t u0 = __ldg(rec + at), u1 = __ldg(rec + plane + at),
-                 u2 = __ldg(rec + 2 * plane + at);
-  Tap t;
-  t.w = __uint_as_float(u0 << 16);
-  t.j1 = (u0 >> 16) & 0xff;
-  t.j2 = u0 >> 24;
-  t.a0 = __uint_as_float(u1 << 16);
-  t.a1 = __uint_as_float(u1 & 0xffff0000u);
-  t.b0 = __uint_as_float(u2 << 16);
-  t.b1 = __uint_as_float(u2 & 0xffff0000u);
-  return t;
-}
-
-__device__ __forceinline__ Tap load_tap(const uint32_t* rec, size_t plane, size_t at, float) {
-  const uint32_t u0 = __ldg(rec + at);
-  Tap t;
-  t.j1 = u0 & 0xffff;
-  t.j2 = u0 >> 16;
-  t.a0 = __uint_as_float(__ldg(rec + plane + at));
-  t.a1 = __uint_as_float(__ldg(rec + 2 * plane + at));
-  t.b0 = __uint_as_float(__ldg(rec + 3 * plane + at));
-  t.b1 = __uint_as_float(__ldg(rec + 4 * plane + at));
-  t.w = __uint_as_float(__ldg(rec + 5 * plane + at));
-  return t;
-}
-
-// (re, im) rounded to bf16 as one word (re in the low half), or the f32
-// split's part `part` (0, 1, 2) of each
-__device__ __forceinline__ uint32_t pack_part(float re, float im, int part) {
-  if (part > 0) {
-    float r = re - __bfloat162float(__float2bfloat16_rn(re));
-    float q = im - __bfloat162float(__float2bfloat16_rn(im));
-    if (part > 1) {
-      r -= __bfloat162float(__float2bfloat16_rn(r));
-      q -= __bfloat162float(__float2bfloat16_rn(q));
-    }
-    re = r;
-    im = q;
-  }
-  const __nv_bfloat162 h = __floats2bfloat162_rn(re, im);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void st_shared_v4(uint8_t* p, uint32_t a, uint32_t b, uint32_t c,
-                                             uint32_t d) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(smem_u32(p)), "r"(a), "r"(b),
-               "r"(c), "r"(d)
-               : "memory");
-}
-
 // eb_map: eb_t (B, KT, NC) bf16, KT = ceil(F/16) * SEGS * 32 rows, NC =
-// 2N rounded up to 8 columns; rec (PLANES, G, F, S) u32; tq (P1 + RB, NJ-1)
-// float4 quads of t1 then t2, rounded to T; dxs (B, 2N, S) f32. Group u
-// holds bins u*NB .. u*NB + NB - 1 (fewer in the last); the block walks
-// groups z*per .. z*per + per - 1.
+// 2N rounded up to 8; rec (PLANES, G, F, S) u32; tq (P1 + RB, NJ-1) float4
+// quads of t1 then t2, rounded to T; dxs (B, 2N, S) f32.
 // Three blocks per SM (<= 170 registers) where that costs no spill: bf16
 // operands, G <= 2 (f32's shared memory holds one block an SM anyway).
 template <typename T, int G>
-__global__ void __launch_bounds__(DX_THREADS, sizeof(T) == 2 && G <= 2 ? 3 : 1)
+__global__ void __launch_bounds__(tapgemm::THREADS, sizeof(T) == 2 && G <= 2 ? 3 : 1)
 spectral_dx_kernel(const __grid_constant__ CUtensorMap eb_map, const uint32_t* __restrict__ rec,
                    const float4* __restrict__ tq, float* __restrict__ dxs, int B, int N2, int S,
                    int F, int P1, int RB, int NJ, int per) {
-  using Q = Fmt<T>;
-  constexpr int SEGS = Q::SEGS, PARTS = Q::PARTS, RING = Q::DX_RING;
-  const DxLayout lay = dx_layout<T>(NJ);
-  const int q = NJ - 1;  // quads per table row
-  extern __shared__ __align__(1024) uint8_t smem_raw[];
-  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  float4* tab = reinterpret_cast<float4*>(base + lay.tab);
-  Ring<RING>& ring = *reinterpret_cast<Ring<RING>*>(base + lay.ring);
-
-  const int s0 = blockIdx.x * ST;
-  const int c0 = blockIdx.y * NT;
-  const int groups = (B + DX_NB - 1) / DX_NB;
-  const int gbeg = blockIdx.z * per;
-  const int gend = min(groups, gbeg + per);
-  const int chunks = (F + FC - 1) / FC;
-  const int steps = (gend - gbeg) * chunks;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  // this thread builds A row r (s = s0 + r), f = 8*half .. 8*half + 7 of
-  // each step's 16: pieces 2*half and 2*half + 1 of 8 K rows (4 f)
-  const int r = tid % ST;
-  const int half = tid / ST;
-  const int s = s0 + r;
-  const size_t plane = (size_t)G * F * S;
-
-  RingPos<RING> ahead;
-  auto issue = [&](int i) {
-    const int k0 = (gbeg + i / chunks) * DX_NB;
-    const int nb = min(DX_NB, B - k0);
-    uint64_t* full = ahead.acquire(ring, nb * SEGS * TILE);
-#pragma unroll
-    for (int b = 0; b < DX_NB; ++b)
-      if (b < nb)
-        tma_load_3d(base + lay.b + ((ahead.stage * DX_NB + b) * SEGS) * TILE, &eb_map, full, c0,
-                    (i % chunks) * SEGS * 32, k0 + b);
-    ahead.next();
-  };
-  if (tid == 0) {
-    ring.init(DX_THREADS);
-    for (int i = 0; i < RING - 1 && i < steps; ++i) issue(i);
-  }
-  __syncthreads();
-
-  // the sums of the group's bins: zeroed once here, and each group's first
-  // wgmma restarts them (no other instruction writes them inside the
-  // pipeline, so ptxas need not serialize the wgmmas)
-  float acc[DX_NB][NT / 2];
-#pragma unroll
-  for (int b = 0; b < DX_NB; ++b)
-#pragma unroll
-    for (int v = 0; v < NT / 2; ++v) acc[b][v] = 0.f;
-  RingPos<RING> pos;
-  int pending = -1;  // the stage of the previous step, if its wgmmas may still read it
-  for (int i = 0; i < steps; ++i) {
-    const int c = i % chunks;
-    const int k0 = (gbeg + i / chunks) * DX_NB;
-    const int nb = min(DX_NB, B - k0);
-    if (c == 0) {
-      // the group's table rows: t1 row k1 and t2 row k2 of each bin (every
-      // read of the previous group's rows was before the last step's barrier)
-      for (int e = tid; e < DX_NB * 2 * q; e += DX_THREADS) {
-        const int b = e / (2 * q);
-        const int t = (e / q) % 2;
-        const int k = min(k0 + b, B - 1);
-        tab[e] = tq[(t == 0 ? k / RB : P1 + k % RB) * q + e % q];
-      }
-      __syncthreads();
-    }
-
-    // A of this step: V[s, f] of each bin for the thread's 8 f, rounded to
-    // bf16 (or split in three) and written as two 16-byte pieces per bin
-    // and part
-    uint8_t* abuf = base + lay.a + (i % 2) * DX_NB * PARTS * TILE;
-#pragma unroll
-    for (int pp = 0; pp < 2; ++pp) {
-      // the piece's 4 f x G records, all loads issued before any is used
-      // (clamped addresses, w = 0 past S and F, so no branch holds them)
-      Tap taps[4][G];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int f = c * FC + 8 * half + 4 * pp + e;
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          taps[e][g] =
-              load_tap(rec, plane, ((size_t)g * F + min(f, F - 1)) * S + min(s, S - 1), T());
-          if (s >= S || f >= F) taps[e][g].w = 0.f;
-        }
-      }
-      float vr[DX_NB][4], vi[DX_NB][4];
-#pragma unroll
-      for (int b = 0; b < DX_NB; ++b)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) vr[b][e] = vi[b][e] = 0.f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const Tap& t = taps[e][g];
-#pragma unroll
-          for (int b = 0; b < DX_NB; ++b) {
-            if (b >= nb) break;
-            const float4 y = tab[(2 * b) * q + t.j2];      // t1 quad at mu2's tap
-            const float4 x = tab[(2 * b + 1) * q + t.j1];  // t2 quad at mu1's tap
-            const float pyre = fmaf(y.y, t.b1, y.x * t.b0);
-            const float pyim = fmaf(y.w, t.b1, y.z * t.b0);
-            const float pxre = fmaf(x.y, t.a1, x.x * t.a0);
-            const float pxim = fmaf(x.w, t.a1, x.z * t.a0);
-            vr[b][e] = fmaf(pyre * pxre - pyim * pxim, t.w, vr[b][e]);
-            vi[b][e] = fmaf(pyre * pxim + pyim * pxre, t.w, vi[b][e]);
-          }
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < DX_NB; ++b) {
-        if (b >= nb) break;
-#pragma unroll
-        for (int part = 0; part < PARTS; ++part)
-          st_shared_v4(abuf + (b * PARTS + part) * TILE + (2 * half + pp) * 1024 + r * 16,
-                       pack_part(vr[b][0], vi[b][0], part), pack_part(vr[b][1], vi[b][1], part),
-                       pack_part(vr[b][2], vi[b][2], part), pack_part(vr[b][3], vi[b][3], part));
-      }
-    }
-    // the A tiles, written by the generic proxy, to the wgmmas (async proxy)
-    asm volatile("fence.proxy.async;" ::: "memory");
-    __syncthreads();
-
-    pos.wait_full(ring);
-#pragma unroll
-    for (int b = 0; b < DX_NB; ++b) fence_regs(acc[b]);
-    wgmma_fence();
-#pragma unroll
-    for (int b = 0; b < DX_NB; ++b) {
-      if (b >= nb) break;
-      const uint8_t* bt = base + lay.b + ((pos.stage * DX_NB + b) * SEGS) * TILE;
-#pragma unroll
-      for (int seg = 0; seg < SEGS; ++seg) {
-        const int part = SEGS == 1 ? 0 : prep::x_part(seg) - 1;
-        // A: K-major, no swizzle, K halves 1024 bytes apart, 8-row groups 128
-        const uint64_t da = make_desc(abuf + (b * PARTS + part) * TILE, 1024, 128, kNoSwizzle);
-        // B: MN-major, 128-byte swizzled, 8-row K groups 1024 bytes apart
-        const uint64_t db = make_desc(bt + seg * TILE, TILE, 1024, kSwizzle128);
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
-          wgmma_m64n64<0, 1>(acc[b], desc_advance(da, 2048 * kk), desc_advance(db, 2048 * kk),
-                             c > 0 || seg > 0 || kk > 0);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait<1>();  // the previous step's wgmmas are done
-#pragma unroll
-    for (int b = 0; b < DX_NB; ++b) fence_regs(acc[b]);
-    if (pending >= 0) mbar_arrive(&ring.empty[pending]);
-    pending = pos.stage;
-    if (tid == 0 && i + RING - 1 < steps) issue(i + RING - 1);
-    __syncwarp();  // reconverge warp 0 for the .aligned wgmma wait below
-    pos.next();
-
-    if (c + 1 == chunks) {
-      wgmma_wait<0>();
-#pragma unroll
-      for (int b = 0; b < DX_NB; ++b) fence_regs(acc[b]);
-      mbar_arrive(&ring.empty[pending]);
-      pending = -1;
-      // acc[b][4j + 2h + e]: s = s0 + 16*warp + lane/4 + 8h, column c0 + 8j +
-      // 2*(lane%4) + e; dxs[k, column, s]
-#pragma unroll
-      for (int b = 0; b < DX_NB; ++b) {
-        if (b >= nb) break;
-        float* out = dxs + (size_t)(k0 + b) * N2 * S;
-#pragma unroll
-        for (int j = 0; j < NT / 8; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int so = s0 + 16 * warp + lane / 4 + 8 * h;
-              const int co = c0 + 8 * j + 2 * (lane % 4) + e;
-              if (so < S && co < N2) out[(size_t)co * S + so] = acc[b][4 * j + 2 * h + e];
-            }
-      }
-    }
-  }
-}
-
-template <typename T, int G>
-cudaError_t dx_launch(const CUtensorMap& map, const uint32_t* rec, const float4* tq, float* dxs,
-                      int B, int N2, int S, int F, int P1, int RB, int NJ, int R,
-                      cudaStream_t stream) {
-  const size_t smem = dx_layout<T>(NJ).bytes;
-  cudaError_t e = set_smem(spectral_dx_kernel<T, G>, smem);
-  if (e != cudaSuccess) return e;
-  const int groups = (B + DX_NB - 1) / DX_NB;
-  const int per = (groups + R - 1) / R;
-  const dim3 grid((S + ST - 1) / ST, (N2 + NT - 1) / NT, (groups + per - 1) / per);
-  spectral_dx_kernel<T, G><<<grid, DX_THREADS, smem, stream>>>(map, rec, tq, dxs, B, N2, S, F,
-                                                               P1, RB, NJ, per);
-  return cudaGetLastError();
-}
-
-// Ranges of groups that fill the card in whole waves: the fewest groups
-// per block times waves, one group's worth added per wave for the block's
-// set-up (as tc::ranges). Returns R, or -cudaError.
-template <typename T, int G>
-int dx_ranges(int B, int N2, int S, int NJ) {
-  const size_t smem = dx_layout<T>(NJ).bytes;
-  int per_sm = 0, sms = 0;
-  cudaError_t e = set_smem(spectral_dx_kernel<T, G>, smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, spectral_dx_kernel<T, G>,
-                                                      DX_THREADS, smem);
-  if (e == cudaSuccess) e = sm_count(&sms);
-  if (e != cudaSuccess) return -(int)e;
-  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
-  const long long tiles = (long long)((S + ST - 1) / ST) * ((N2 + NT - 1) / NT);
-  const long long slots = (long long)per_sm * sms;
-  const int groups = (B + DX_NB - 1) / DX_NB;
-  int best = 1;
-  long long best_cost = -1;
-  for (int r = 1; r <= groups; ++r) {
-    const int per = (groups + r - 1) / r;
-    const int rr = (groups + per - 1) / per;
-    const long long cost = (tiles * rr + slots - 1) / slots * (per + 1);
-    if (best_cost < 0 || cost < best_cost) {
-      best_cost = cost;
-      best = rr;
-    }
-  }
-  return best;
+  tapgemm::tap_gemm<T, G, tapgemm::WeightedUnits>(&eb_map, rec, tq, dxs, B, N2, S, F, G, P1, RB,
+                                                  NJ, per);
 }
 
 }  // namespace dx
@@ -1228,7 +824,7 @@ int launch_of(const void* xs_t, const void* es_t, const void* t1q, const void* t
 
 template <typename T>
 int dx_ranges_of(int G, int B, int N2, int S, int NJ) {
-#define DAU_DX_RANGES(GG) dx::dx_ranges<T, GG>(B, N2, S, NJ)
+#define DAU_DX_RANGES(GG) tapgemm::ranges<T>(dx::spectral_dx_kernel<T, GG>, B, N2, S, NJ)
   DAU_G_DISPATCH(DAU_DX_RANGES)
 #undef DAU_DX_RANGES
 }
@@ -1236,8 +832,9 @@ int dx_ranges_of(int G, int B, int N2, int S, int NJ) {
 template <typename T>
 int dx_launch_of(int G, const CUtensorMap& map, const uint32_t* rec, const float4* tq, float* dxs,
                  int B, int N2, int S, int F, int P1, int RB, int NJ, int R, cudaStream_t st) {
-#define DAU_DX_LAUNCH(GG) \
-  -(int)dx::dx_launch<T, GG>(map, rec, tq, dxs, B, N2, S, F, P1, RB, NJ, R, st)
+#define DAU_DX_LAUNCH(GG)                                                                        \
+  -(int)tapgemm::launch<T>(dx::spectral_dx_kernel<T, GG>, B, N2, S, NJ, R, st, map, rec, tq, dxs, \
+                           B, N2, S, F, P1, RB, NJ)
   DAU_G_DISPATCH(DAU_DX_LAUNCH)
 #undef DAU_DX_LAUNCH
 }
@@ -1376,8 +973,8 @@ int dau_spectral_operands_launch(const void* xs, const void* es, const void* a1,
 // or NJ has no instance.
 long long dau_spectral_dx_smem_bytes(int dtype, int NJ) {
   if (NJ < 2 || NJ > NJ_MAX) return -1;
-  if (dtype == 0) return dx::dx_layout<float>(NJ).bytes;
-  if (dtype == 1) return dx::dx_layout<__nv_bfloat16>(NJ).bytes;
+  if (dtype == 0) return tapgemm::layout<float>(NJ).bytes;
+  if (dtype == 1) return tapgemm::layout<__nv_bfloat16>(NJ).bytes;
   return -1;
 }
 
@@ -1405,7 +1002,7 @@ int dau_spectral_dx_launch(const void* eb_t, const void* rec, const void* tq, vo
   const cuuint64_t kt = (cuuint64_t)(F + 15) / 16 * segs * 32;
   const cuuint64_t dims[3] = {nc, kt, (cuuint64_t)B};
   const cuuint64_t strides[2] = {nc * 2, nc * 2 * kt};
-  const cuuint32_t box[3] = {(cuuint32_t)dx::NT, (cuuint32_t)segs * 32, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)tapgemm::NT, (cuuint32_t)segs * 32, 1};
   CUtensorMap map;
   cudaError_t e = dau_hopper::make_map(&map, eb_t, 3, dims, strides, box,
                                        CU_TENSOR_MAP_SWIZZLE_128B);

@@ -46,7 +46,8 @@ from .forward import _DTYPE_CODE, _MAX_SMEM, split_bf16_3
 
 __all__ = ["FusedPlanError", "spectral_plan", "factored_plan", "fused_spectral_grads",
            "fused_spectral_grads_plain", "fused_factored_grads_plain", "spectral_operands",
-           "spectral_table_quads", "bin_ranges", "row_ranges", "dx_operands"]
+           "spectral_table_quads", "bin_ranges", "row_ranges", "dx_operands", "interleaved_b",
+           "tap_records"]
 
 # (M, G) pairs the kernels are instantiated for: the f32 sums each thread
 # keeps in registers spill beyond G = 4
@@ -196,29 +197,48 @@ def dx_operands(esb, wg, a1, a2, n_img: int):
     16; a0; a1; b0; b1; w as f32 bits). j1, a are mu1's taps (into t2), j2,
     b mu2's (into t1)."""
     cdt = esb.dtype
-    b, n2, f = esb.shape
     n = n_img
-    f32 = cdt == torch.float32
-    f16, nc = -(-f // 16) * 16, -(-n2 // 8) * 8
     ere, eim = esb[:, :n], esb[:, n:]
     rows = torch.stack([torch.cat([ere, eim], dim=1), torch.cat([eim, -ere], dim=1)], dim=1)
-    rows = rows.transpose(2, 3)                                  # (B, 2 h, F, 2N)
+    eb_t = interleaved_b(rows.transpose(2, 3))                  # rows (B, 2 h, F, 2N)
+    rec = tap_records(_taps(a1, cdt), _taps(a2, cdt), wg.to(cdt).float(), cdt)
+    return eb_t, rec.transpose(2, 3).contiguous()               # (PLANES, G, F, S)
+
+
+def interleaved_b(rows):
+    """The per-bin GEMM's B (B, KT, NC) bf16 from its rows (B, 2 h, F, 2N)
+    in the spectra's dtype: for f = 16c + f', row (c, segment q, 2f' + h)
+    holds rows[:, h, f], zero past F and 2N (NC = 2N rounded up to 8, KT =
+    ceil(F / 16) * segs * 32); bf16: one segment; f32: six, the rows split
+    in three (`split_bf16_3`) and stacked per step as [e1, e2, e1, e3, e2,
+    e1] against A's [V1, V1, V2, V1, V2, V3]. The dx kernel's and K3's."""
+    b, _, f, n2 = rows.shape
+    f16, nc = -(-f // 16) * 16, -(-n2 // 8) * 8
+    f32 = rows.dtype == torch.float32
     parts = split_bf16_3(rows) if f32 else (rows.to(torch.bfloat16),)
     segs = [parts[i] for i in ((0, 1, 0, 2, 1, 0) if f32 else (0,))]
     e = torch.stack(segs, dim=1)                                 # (B, segs, 2, F, 2N)
     e = torch.nn.functional.pad(e, (0, nc - n2, 0, f16 - f))
     e = e.reshape(b, len(segs), 2, f16 // 16, 16, nc).permute(0, 3, 1, 4, 2, 5)
-    eb_t = e.reshape(b, -1, nc).contiguous()                     # (B, KT, NC)
-    j1, a0, a1w = _taps(a1, cdt)
-    j2, b0, b1w = _taps(a2, cdt)
-    w = wg.to(cdt).float()
-    if f32:
-        planes = [j1 | (j2 << 16)] + [t.view(torch.int32) for t in (a0, a1w, b0, b1w, w)]
-    else:
-        planes = [_bits16(w) | (j1 << 16) | (j2 << 24), _bits16(a0) | (_bits16(a1w) << 16),
-                  _bits16(b0) | (_bits16(b1w) << 16)]
-    rec = torch.stack(planes).transpose(2, 3).contiguous()      # (PLANES, G, F, S)
-    return eb_t, rec
+    return e.reshape(b, -1, nc).contiguous()
+
+
+def tap_records(taps1, taps2, w, cdt):
+    """The units' tap records, (PLANES, ...) int32 over the units' shape,
+    from `_taps` of mu1's one-hot (j1, a0, a1: into t2) and of mu2's (j2,
+    b0, b1: into t1) and the weights w (None: the caller folded them into
+    mu2's taps). bf16, three planes (w | j1 << 16 | j2 << 24, w = 1.0 where
+    None; a0 | a1 << 16; b0 | b1 << 16, bf16 bits; j up to 255); f32, j1 |
+    j2 << 16 and the weights as f32 bits, w's plane only where given."""
+    (j1, a0, a1), (j2, b0, b1) = taps1, taps2
+    if cdt == torch.float32:
+        weights = (a0, a1, b0, b1) + (() if w is None else (w,))
+        return torch.stack([j1 | (j2 << 16)] + [t.view(torch.int32) for t in weights])
+    wbits = 0x3F80 if w is None else _bits16(w)
+    word = wbits | (j1.long() << 16) | (j2.long() << 24)
+    word = word - ((word >> 31) << 32)  # j2 past 127 sets the sign bit
+    return torch.stack([word.int(), _bits16(a0) | (_bits16(a1) << 16),
+                        _bits16(b0) | (_bits16(b1) << 16)])
 
 
 def _dx_spectra_plain(esb, phire, phiim, wg, n_img: int):

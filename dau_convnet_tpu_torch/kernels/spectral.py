@@ -12,7 +12,7 @@ Both compute
 
 with the (B, P) iDFT matrices C and S rounded to the spectra's dtype first,
 f32 sums, and the (P, C) table in `out_dtype`. The fused apply-phi (K3,
-`fused_fwd.py`) closes with the same kernel, through `idft_launch`.
+`fused_fwd.py`) closes with the same kernel, through `idft_launch_split`.
 
 The kernel is one bf16 GEMM on the tensor cores, A @ [tre; tim], with A the
 (P, 2B) matrix [C^T, -S^T]. `idft_operands` prepares it in torch: A in
@@ -152,28 +152,50 @@ def idft_operands(cmat, smat, tre, tim, mat_dtype=None):
     if tre.dtype == torch.bfloat16:
         return a, [_spectra(tre), _spectra(tim)], [(0, 0), (1, per * bp)], bp
     spectra = [_spectra(x) for t in (tre, tim) for x in split_bf16(t)]  # re hi, lo; im hi, lo
+    return a, spectra, _split_segments(per, bp), bp
+
+
+def _split_segments(per: int, bp: int):
+    """The segments of f32 spectra split in bf16 hi/lo parts, spectra [re
+    hi, re lo, im hi, im lo], against A's blocks per matrix (`per`: hi, and
+    lo where the matrices are f32)."""
     segments = []
     for half in (0, 1):
         hi, col = 2 * half, half * per * bp
         segments += [(hi, col), (hi + 1, col)]          # t_hi . A_hi + t_lo . A_hi
         if per == 2:
             segments.append((hi, col + bp))             # + t_hi . A_lo
-    return a, spectra, segments, bp
+    return segments
 
 
 def idft_launch(cmat, smat, tre, tim, out_dtype, mat_dtype=None):
-    """One launch of the kernel on CUDA tensors, not counted: the shared
-    closing stage of K7 and K3. mat_dtype: what cmat and smat are rounded to
-    (default: the spectra's dtype)."""
-    b, p = cmat.shape
-    c = tre.shape[1]
+    """One launch of the kernel on CUDA tensors, not counted: the closing
+    stage of K7. mat_dtype: what cmat and smat are rounded to (default: the
+    spectra's dtype)."""
     a, spectra, segments, bp = idft_operands(cmat, smat, tre, tim, mat_dtype)
-    out = torch.empty((p, c), dtype=out_dtype, device=tre.device)
+    return _launch(cmat, a, spectra, segments, bp, tre.shape[1], out_dtype)
+
+
+def idft_launch_split(cmat, smat, parts, c: int, out_dtype, mat_dtype):
+    """One launch of the kernel on f32 spectra already split in bf16 hi/lo
+    parts, not counted: the closing stage of K3. parts: (4, B, C8) bf16,
+    `split_bf16` of tre then of tim, [re hi, re lo, im hi, im lo], C8 = c
+    rounded up to 8; the result is `idft_launch`'s on tre, tim."""
+    a = _a_matrix(cmat, smat, mat_dtype)
+    bp = -(-cmat.shape[0] // _BINS) * _BINS
+    per = 2 if mat_dtype == torch.float32 else 1
+    return _launch(cmat, a, list(parts), _split_segments(per, bp), bp, c, out_dtype)
+
+
+def _launch(cmat, a, spectra, segments, bp: int, c: int, out_dtype):
+    b, p = cmat.shape
+    dev = spectra[0].device
+    out = torch.empty((p, c), dtype=out_dtype, device=dev)
     ptrs = (ctypes.c_void_p * len(spectra))(*(t.data_ptr() for t in spectra))
     seg_idx = (ctypes.c_int * len(segments))(*(i for i, _ in segments))
     seg_col = (ctypes.c_int * len(segments))(*(col for _, col in segments))
-    with torch.cuda.device(tre.device):
-        stream = torch.cuda.current_stream(tre.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = _library().dau_partial_idft_launch(
             a.data_ptr(), a.shape[0], a.shape[1], ptrs, len(spectra), spectra[0].shape[1],
             seg_idx, seg_col, len(segments), bp, out.data_ptr(), _DTYPE_CODE[out_dtype], b, p,

@@ -10,7 +10,9 @@ layer shapes (N=32, bf16, M=3, G=2, spectra and offsets from --seed). One
 line per variant gives the kernel's device time per layer (`torch.profiler`,
 the mean of 5 calls after one warm-up), beside the card's name and power
 limit. With --dx the variants are of K2's dx kernel (`dx::spectral_dx_kernel`,
-`DX_VARIANTS`), timed through `fused_spectral_grads` with the dx operands.
+`DX_VARIANTS`; most edits fall in its mainloop `tapgemm::tap_gemm`, in
+`csrc/dau_tap_gemm.cuh`), timed through `fused_spectral_grads` with the dx
+operands.
 Variants that drop work compute wrong results; they only time. Needs one
 CUDA card and nvcc.
 """
@@ -71,46 +73,55 @@ VARIANTS = {
 }
 
 
-_DX_LOADS = ("          taps[e][g] =\n"
-             "              load_tap(rec, plane, ((size_t)g * F + min(f, F - 1)) * S + "
-             "min(s, S - 1), T());")
-_DX_BINS = "constexpr int DX_NB = 2;       // bins per group"
-_DX_BOUNDS = "__launch_bounds__(DX_THREADS, sizeof(T) == 2 && G <= 2 ? 3 : 1)"
+_DX_LOADS = ("            taps[e][g] = load_tap<A::kWeight>(\n"
+             "                rec, plane, ((size_t)gi * F + min(f, F - 1)) * S + min(s, S - 1), "
+             "T());")
+_DX_BINS = "constexpr int NB = 2;        // bins per group"
+_DX_BOUNDS = "__launch_bounds__(tapgemm::THREADS, sizeof(T) == 2 && G <= 2 ? 3 : 1)\nspectral_dx"
 _DX_FENCE = '    asm volatile("fence.proxy.async;" ::: "memory");\n    __syncthreads();\n'
 
 # the dx kernel's variants, as VARIANTS
 DX_VARIANTS = {
     "as built (2 bins a group, 3 blocks per SM)": [],
     "3 bins a group, 2 blocks per SM": [
-        (_DX_BINS, "constexpr int DX_NB = 3;       // bins per group"),
-        (_DX_BOUNDS, "__launch_bounds__(DX_THREADS)")],
+        (_DX_BINS, "constexpr int NB = 3;        // bins per group"),
+        (_DX_BOUNDS, "__launch_bounds__(tapgemm::THREADS)\nspectral_dx")],
     "1 bin a group, 4 blocks per SM": [
-        (_DX_BINS, "constexpr int DX_NB = 1;       // bins per group"),
-        (_DX_BOUNDS, "__launch_bounds__(DX_THREADS, 4)")],
+        (_DX_BINS, "constexpr int NB = 1;        // bins per group"),
+        (_DX_BOUNDS, "__launch_bounds__(tapgemm::THREADS, 4)\nspectral_dx")],
     "no tap record loads": [
         (_DX_LOADS, "          taps[e][g] = Tap{(f + g) % 9, (s + g) % 9, 0.5f, 0.25f, 0.5f, "
                     "0.25f, 1.f};")],
     "no proxy fence, no barrier per step": [(_DX_FENCE, "")],
-    "ring of 6": [("SEGS = 1, PARTS = 1, DX_RING = 3;", "SEGS = 1, PARTS = 1, DX_RING = 6;")],
+    "ring of 6": [("SEGS = 1, PARTS = 1, RING = 3;", "SEGS = 1, PARTS = 1, RING = 6;")],
 }
 
 
-def _variant_source(edits) -> str:
-    src = (_build._CSRC / "dau_spectral_grads.cu").read_text()
+# the sources a variant edits: the kernels' file and the dx kernel's mainloop
+_SOURCES = ("dau_spectral_grads.cu", "dau_tap_gemm.cuh")
+
+
+def _variant_source(edits) -> dict:
+    """{file name: text} of the sources with the edits applied, each to
+    the one source that holds its text."""
+    srcs = {name: (_build._CSRC / name).read_text() for name in _SOURCES}
     for text, repl in edits:
-        if text not in src:
+        name = next((n for n, src in srcs.items() if text in src), None)
+        if name is None:
             raise RuntimeError(f"variant edit does not apply: {text[:60]!r}")
-        src = src.replace(text, repl)
-    return src
+        srcs[name] = srcs[name].replace(text, repl)
+    return srcs
 
 
-def _compile(tag: str, src: str) -> ctypes.CDLL:
+def _compile(tag: str, srcs: dict) -> ctypes.CDLL:
     """Build one variant into kernels/build/ and declare its C signatures
     as `fused_bwd._library` declares the committed library's."""
-    _build._BUILD.mkdir(parents=True, exist_ok=True)
-    cu = _build._BUILD / f"k1_variant_{tag}.cu"
+    folder = _build._BUILD / f"k1_variant_{tag}"
+    folder.mkdir(parents=True, exist_ok=True)
+    for name, src in srcs.items():
+        (folder / name).write_text(src)
+    cu = folder / _SOURCES[0]
     so = cu.with_suffix(".so")
-    cu.write_text(src)
     cmd = [_build._tool("nvcc"), *_build.NVCC_FLAGS, "-I", str(_build._CSRC), "-o", str(so),
            str(cu)]
     proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -596,11 +596,6 @@ def test_kernels_raise_without_a_plan_and_compute_no_twin(cuda_device, monkeypat
     for gather in ("phi", "factored"):
         with pytest.raises(tfb.FusedPlanError):
             tfb.fused_spectral_grads(xs, *args[1:], **kw, gather=gather)
-    ops, kw = _apply_phi_case(2, 8, 2, 16, 9, False, cuda_device, torch.float32)
-    wide = {k: torch.cat([v] * 6, dim=-1 if k in ("t1", "t2") else 0)
-            for k, v in ops.items() if k in ("t1", "t2", "aw", "a")}  # 72 exponents
-    with pytest.raises(ValueError, match="plan"):
-        tff.fused_apply_phi(**dict(ops, **wide), **kw)
 
 
 # K7, the partial iDFT: (H, ks, C) with C not a multiple of 128 and P
@@ -673,17 +668,18 @@ def test_pmsf_tables_give_the_unit_grads_on_the_card(cuda_device):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
-# K3, the fused apply-phi: (N, S, G, F, H) with N above the 32 images of a
-# pass, CI and CO not multiples of the 32 tiles; both directions
+# K3, the fused apply-phi: (N, S, G, F, H) with 2N past one 64-column tile,
+# CI off the 16-ci step and CO off the 64-co tile; both directions
 
 
-def _apply_phi_case(n, s, g, f, h, contract_f, device, dtype, seed=0):
+def _apply_phi_case(n, s, g, f, h, contract_f, device, dtype, seed=0, ks=KS):
     gen = torch.Generator().manual_seed(seed)
-    p1, p2, rb = tfe.plan_bins(h, h, KS)
-    span = KS // 2 + 1
+    p1, p2, rb = tfe.plan_bins(h, h, ks)
+    span = ks // 2 + 1
     ci = f if contract_f else s
     w = torch.randn((s, g, f), generator=gen) * 0.1
-    mu1, mu2 = torch.rand((2, s, g, f), generator=gen) * 7.98 - 3.99
+    lim = ks // 2 - 0.01
+    mu1, mu2 = torch.rand((2, s, g, f), generator=gen) * (2 * lim) - lim
     order = (0, 2, 3, 1) if contract_f else (0, 2, 1, 3)
     aw = (tfe._phase_onehot(mu2, span, True) * w[None]).permute(order)
     a = tfe._phase_onehot(mu1, span, True).permute(order)
@@ -730,6 +726,117 @@ def test_apply_phi_fused_matches_the_unfused_chain(cuda_device, contract_f):
     else:
         want = tfe.fourier_forward(x, w, mu1, mu2, KS)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _apply_phi_wide(nj, contract_f, device, dtype):
+    """K3's operands with nj exponents: at ks 33 and 65 (nj 36 and 68) as
+    `fourier_apply_phi_fused` makes them on a small plane (N=3, S=16, F=24,
+    7x7); past 68, the ks-65 operands with nj - 68 exponents put in front
+    (random table columns, zero one-hot rows), so the taps lie at 4 .. nj-1."""
+    ops, kw = _apply_phi_case(3, 16, 2, 24, 7, contract_f, device, dtype, seed=nj,
+                              ks=33 if nj == 36 else 65)
+    extra = nj - ops["aw"].shape[0]
+    if extra:
+        gen = torch.Generator().manual_seed(11)
+        for key in ("t1", "t2"):
+            cols = torch.rand((ops[key].shape[0], extra), generator=gen) * 2 - 1
+            ops[key] = torch.cat([cols.to(device), ops[key]], dim=1)
+        for key in ("aw", "a"):
+            t = ops[key]
+            ops[key] = torch.cat([t.new_zeros((extra,) + t.shape[1:]), t])
+    assert ops["aw"].shape[0] == nj
+    return ops, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("contract_f", [False, True])
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("nj", [36, 68, 72])
+def test_apply_phi_kernel_past_64_exponents_matches_twin(cuda_device, nj, dtype, bound,
+                                                          contract_f, monkeypatch):
+    # the FP32-FMA kernel refused tables wider than 64 exponents (ks 65 has
+    # 68); the tensor-core kernel takes up to 256, and computes no twin
+    twin = tff.fused_apply_phi_plain
+
+    def no_twin(*args, **kw):
+        raise AssertionError("the twin ran on a CUDA tensor")
+
+    monkeypatch.setattr(tff, "fused_apply_phi_plain", no_twin)
+    ops, kw = _apply_phi_wide(nj, contract_f, cuda_device, dtype)
+    got = tff.fused_apply_phi(**ops, **kw)
+    torch.cuda.synchronize()
+    want = twin(**ops, **kw)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= bound * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_apply_phi_kernel_raises_past_its_plan(cuda_device):
+    ops, kw = _apply_phi_case(2, 8, 2, 16, 9, False, cuda_device, torch.float32)
+    extra = 257 - ops["aw"].shape[0]  # 257 exponents: j past 8 bits
+    wide = {k: torch.cat([torch.zeros((ops[k].shape[0], extra), device=cuda_device), ops[k]], 1)
+            for k in ("t1", "t2")}
+    wide.update({k: torch.cat([ops[k].new_zeros((extra,) + ops[k].shape[1:]), ops[k]])
+                 for k in ("aw", "a")})
+    assert tff.apply_phi_plan(nj=257, dtype=torch.float32) is None
+    before = tff.fused_apply_phi.launches
+    with pytest.raises(ValueError, match="plan"):
+        tff.fused_apply_phi(**dict(ops, **wide), **kw)
+    assert tff.fused_apply_phi.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("g", [5, 7])
+def test_apply_phi_kernel_with_more_units_than_a_pass_matches_twin(cuda_device, g, dtype,
+                                                                    bound):
+    # past 4 units the kernel sums them 4 a pass (its chunked instance)
+    for contract_f in (False, True):
+        ops, kw = _apply_phi_case(3, 24, g, 40, 9, contract_f, cuda_device, dtype, seed=g)
+        got = tff.fused_apply_phi(**ops, **kw)
+        want = tff.fused_apply_phi_plain(**ops, **kw)
+        assert float((got - want).abs().max()) <= bound * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ragged", "ks65"])
+def test_apply_phi_operand_kernel_matches_the_torch_operands(cuda_device, case, dtype):
+    # K3's operand kernel builds, bit for bit, what `apply_phi_operands` and
+    # `spectral_table_quads` build in torch (the CPU tests hold those against
+    # the JAX kernel), from one-hots at the op's (permuted) strides
+    if case == "ragged":
+        ops, kw = _apply_phi_case(*APPLY_PHI["ragged"], True, cuda_device, dtype, seed=3)
+    else:
+        ops, kw = _apply_phi_wide(68, False, cuda_device, dtype)
+    assert not ops["aw"].is_contiguous()
+    n, p1, rb = kw["n_img"], kw["p1b"], kw["rbb"]
+    b_t, rec, tq = tff._operands_cuda(tff._library(), ops["xs"], ops["t1"], ops["t2"], ops["aw"],
+                                      ops["a"], n, p1, rb)
+    torch.cuda.synchronize()
+    want_b, want_rec = tff.apply_phi_operands(ops["xs"], ops["aw"], ops["a"], n)
+    quads = [tfb.spectral_table_quads(t.to(dtype).float(), rows)
+             for t, rows in ((ops["t1"], p1), (ops["t2"], rb))]
+    assert torch.equal(b_t, want_b) and torch.equal(rec, want_rec)
+    assert torch.equal(tq, torch.cat(quads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,co", [(4, 40), (3, 37)])
+def test_apply_phi_split_kernel_is_split_bf16(cuda_device, n, co):
+    # K3's closing launch multiplies Y's bf16 hi/lo parts; the split kernel
+    # writes them bit for bit as `split_bf16`, zero past N*CO (3*37 = 111
+    # columns pad to 112)
+    y = torch.randn((5, 2 * n, co), generator=torch.Generator().manual_seed(n)) * 10
+    y = y.to(cuda_device)
+    parts = tff._split_cuda(tff._library(), y, n)
+    torch.cuda.synchronize()
+    c = n * co
+    assert parts.shape == (4, 5, -(-c // 8) * 8) and parts.dtype == torch.bfloat16
+    for h in (0, 1):
+        hi, lo = tk.split_bf16(y[:, h * n:(h + 1) * n].reshape(5, -1))
+        assert torch.equal(parts[2 * h, :, :c], hi) and torch.equal(parts[2 * h + 1, :, :c], lo)
+    assert not parts[:, :, c:].float().any()
 
 
 # K4 on the tensor cores. Bounds: f32 1e-4 * max|y| (the three-way bf16

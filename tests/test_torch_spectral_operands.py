@@ -210,7 +210,7 @@ def test_k1_variant_edits_apply_to_the_kernel_source():
     # (a variant that no longer applies would fail only on the card)
     from dau_convnet_tpu_torch.tools import k1_variants
 
-    source = (k1_variants._build._CSRC / "dau_spectral_grads.cu").read_text()
+    source = k1_variants._variant_source([])
     for name, edits in k1_variants.VARIANTS.items():
         changed = k1_variants._variant_source(edits)
         assert (changed == source) == (not edits), name
@@ -218,10 +218,11 @@ def test_k1_variant_edits_apply_to_the_kernel_source():
 
 def test_dx_variant_edits_apply_to_the_kernel_source():
     # `tools/k1_variants.py --dx` times the dx kernel with one part of its
-    # source changed by a text edit; each edit must still find its text
+    # source (or of its mainloop's header) changed by a text edit; each edit
+    # must still find its text
     from dau_convnet_tpu_torch.tools import k1_variants
 
-    source = (k1_variants._build._CSRC / "dau_spectral_grads.cu").read_text()
+    source = k1_variants._variant_source([])
     for name, edits in k1_variants.DX_VARIANTS.items():
         changed = k1_variants._variant_source(edits)
         assert (changed == source) == (not edits), name
