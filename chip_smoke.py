@@ -1,5 +1,5 @@
-"""Chip smoke test of the PyTorch port: AlexNet-DAU serving and training on
-one NVIDIA GPU.
+"""Chip smoke test of the PyTorch port: AlexNet-DAU, the CIFAR nets and
+DAU-ResNet-18, serving and training on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -10,7 +10,8 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    K1/K2 and K8 the fused spectral gradients, one kernel under two gather
    policies, K7 the partial iDFT, K3 the fused apply-phi), and print their
    registers and spills (ks=9; K1 and K8 at every (dtype, M, G) instance,
-   failing if K1 spills at M=3, G=2 or K8 at any instance; K2's dx kernel
+   failing if K1 spills at M=3, G=2 or K8 at any instance; K6's two
+   instances, failing if either spills; K2's dx kernel
    and K3's products kernel, which share a mainloop, at every instance,
    failing if the bf16 G=2 one of either spills); count the
    tensor-core instructions (HGMMA, HMMA) and TMA loads (UTMALDG) in the
@@ -40,7 +41,7 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
 6. backward kernels vs twins at the four layer shapes (N=4), f32 and bf16:
    K6 with M=3 (bound 1e-4*max|table| in both: bf16 products are exact in
    f32, so only the order of the f32 sums differs; f32 input goes through
-   the bf16 hi/lo split, ~3*2^-16 of each product), K4 at the four forward
+   the three-way bf16 split, ~2^-24 of each product), K4 at the four forward
    and the four transposed dx shapes (f32 1e-4*max|y|: the three-way bf16
    split and the order of the f32 sums; bf16 1e-2*max|y|: one rounding of the
    output), and K5 at the four dx shapes with the mirrored 'error' filter;
@@ -146,7 +147,42 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    the same pixel count with one strip (48x150, 96x160); then one SGD step
    each on 'pallas' and 'pallas_fused' of a small net (conv, two DAU layers,
    pool, linear) on 2x32x24x300, its launch counts (2 forward + 2 dx K4 or
-   K5, 2 K6), a finite loss and finite gradients.
+   K5, 2 K6), a finite loss and finite gradients;
+21. the CIFAR nets from the repo's trained artifacts, f32, eval mode:
+   `docs/spatial_dau_4000_params.npz` in DAUCifarNet (G = 4) through the
+   engines 'xla' (cuDNN, TF32 off), 'pallas' (3 K4 per request),
+   'pallas_fused' (3 K5) and 'fourier', and `docs/spatial_conv_2500_params.npz`
+   in ConvCifarNet (plain torch ops), on the recorded test slice (the first
+   500 test images of `synthetic_spatial(n=50000)`) in requests of 125:
+   each engine's logits within 1e-3*max|logits| of its plain twins' and of
+   the 'xla' engine's, top-1 in [0.42, 0.58] and pair accuracy >= 0.92,
+   and the request times;
+22. CIFAR training in bf16: 3 SGD steps (lr 1e-3) of 128 training images
+   of the same task per run, with the checks of phase 7 and moving
+   BatchNorm statistics: 'auto' (-> fourier; 3 K1 per step at G = 4, one
+   per layer), 'pallas_fused' (3 forward + 2 dx K5 and 3 K6: conv1's input
+   is the image, so it runs no dx pass), 'pallas' (3 + 2 K4, 3 K6), and
+   with a trainable sigma (blur 17x17, M = 4) 'auto' and 'pallas_fused';
+   then one more bf16 step per run with every kernel launch held against
+   its plain twin on the same inputs (`checked_kernels`: K5, K4 and K1
+   within 1e-2*max|twin|, K6 within 1e-4); one f32 step per engine
+   ('fourier', 'pallas_fused', 'pallas', and the two trainable-sigma
+   runs) through the kernels and the twins, every
+   gradient within 1e-3*max|grad|; step times and the device time by kernel
+   class of the 'auto' and 'pallas_fused' steps;
+23. DAU-ResNet-18 at full width (64, G = 4, 1,000 classes) in bf16 on
+   32x3x224x224: 3 requests on 'pallas_fused' (16 K5 per request, planes
+   56x56 down to 7x7; F = 64 takes K5's branch without a cluster) and on
+   'auto' (-> fourier, none), 3 SGD steps (lr 1e-4) on 'auto' (16 K1 per
+   step) and on 'pallas_fused' (16 forward + 16 dx K5, 16 K6) with the
+   checks of phase 22 (one request on 'pallas_fused' and one step per run
+   under `checked_kernels`); request and step times (median of 5 with min
+   and max) and the device time by kernel class of each step; then per
+   layer shape of the CIFAR nets (N=128) and of one layer per ResNet stage
+   (N=32), G = 4, bf16: K5 (kb 9, and 17 at the CIFAR layers), K4, K6 and
+   K1 checked against their twins on the same inputs, then timed: K5
+   against its twin and the two-call library chain, K4 and K6 against one
+   `conv2d` each, K1 against its twin.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -176,12 +212,15 @@ from dau_convnet_tpu_torch.kernels import fused_bwd as kfb  # noqa: E402
 from dau_convnet_tpu_torch.kernels import fused_fwd as kff  # noqa: E402
 from dau_convnet_tpu_torch.kernels import spectral as ksp  # noqa: E402
 from dau_convnet_tpu_torch.kernels._build import build, build_log, disassemble  # noqa: E402
-from dau_convnet_tpu_torch.models import AlexNetDAU  # noqa: E402
-from dau_convnet_tpu_torch.nn import refresh_phi_cache  # noqa: E402
+from dau_convnet_tpu_torch.examples.train_cifar10 import synthetic_spatial  # noqa: E402
+from dau_convnet_tpu_torch.models import (AlexNetDAU, ConvCifarNet, DAUCifarNet,  # noqa: E402
+                                          DAUResNet)
+from dau_convnet_tpu_torch.nn import DAUConv2d, refresh_phi_cache  # noqa: E402
 from dau_convnet_tpu_torch.ops import DAUConvSettings, gaussian_filters  # noqa: E402
 from dau_convnet_tpu_torch.ops import fourier_engine as fe  # noqa: E402
 from dau_convnet_tpu_torch.ops import xla_engine  # noqa: E402
 from dau_convnet_tpu_torch.parallel import make_train_step  # noqa: E402
+from dau_convnet_tpu_torch.utils import load_params_npz, params_from_flax  # noqa: E402
 
 KERNEL = dict(name="dau_forward_fused (K5: blur warps + TMA + wgmma)", route="cuda",
               source="dau_convnet_tpu_torch/kernels/csrc/dau_forward_fused.cu",
@@ -336,6 +375,64 @@ def plain_twin():
             setattr(mod, name, kernel)
 
 
+def _widen(args):
+    return (args[0].float(), *args[1:])
+
+
+# (module, wrapper, its twin, bound for f32 and bf16 input (None: the same
+# for both), the twin takes f32 x) of each kernel `checked_kernels` holds;
+# the bounds of phases 1, 6 and 10
+_CHECKED = (("K5", kfwd, "dau_forward_fused", kfwd.dau_forward_fused_plain, (1e-4, 1e-2), True),
+            ("K4", kfwd, "aggregate_forward", kfwd.aggregate_forward_plain, (1e-4, 1e-2), True),
+            ("K6", kbwd, "grad_tables", kbwd.grad_tables_plain, (1e-4, 1e-4), False),
+            ("K1/K2/K8", kfb, "fused_spectral_grads", _spectral_twin, (1e-4, 1e-2), False))
+
+
+@contextlib.contextmanager
+def checked_kernels(tag):
+    """Hold every launch of K5, K4, K6 and K1/K2/K8 inside the block, at
+    the shapes and on the inputs the path gives it, against its plain twin
+    on the same inputs: each output within its bound (`_CHECKED`) times
+    max|twin|. Prints the worst error of each kernel; raises after the
+    block, naming every call that disagreed. The kernels' launches count as
+    the path's; the twins launch nothing."""
+    worst, failed = {}, []
+
+    def checked(name, kernel, twin, bounds, widen):
+        def call(*args, **kw):
+            out = kernel(*args, **kw)
+            want = twin(*(_widen(args) if widen else args), **kw)
+            torch.cuda.synchronize()
+            bound = bounds[args[0].dtype == torch.bfloat16]
+            for got, ref in zip(*((o if isinstance(o, tuple) else (o,)) for o in (out, want))):
+                err = float((got.float() - ref.float()).abs().max())
+                rel = err / max(float(ref.float().abs().max()), 1e-30)
+                calls, top = worst.get(name, (0, 0.0))
+                worst[name] = (calls + 1, max(top, rel))
+                if got.shape != ref.shape or not rel <= bound:
+                    failed.append(f"{name} {tuple(args[0].shape)} {args[0].dtype}: "
+                                  f"max|err|/max|twin| = {rel:.3e}, bound {bound:.0e}")
+            return out
+        # the kernel's launch counters are attributes of the module's
+        # function, which the wrapper counts through: share them
+        call.__dict__ = kernel.__dict__
+        return call
+
+    kernels = [getattr(mod, attr) for _, mod, attr, *_ in _CHECKED]
+    for (name, mod, attr, twin, bounds, widen), kernel in zip(_CHECKED, kernels):
+        setattr(mod, attr, checked(name, kernel, twin, bounds, widen))
+    try:
+        yield
+    finally:
+        for (_, mod, attr, *_), kernel in zip(_CHECKED, kernels):
+            setattr(mod, attr, kernel)
+    print(f"checked {tag} against the twins: " + ("; ".join(
+        f"{k} {n} outputs, worst max|err|/max|twin| {w:.3e}" for k, (n, w) in worst.items())
+        or "no kernel launched"))
+    if failed:
+        raise AssertionError(f"{tag}: kernels disagree with their twins: " + "; ".join(failed))
+
+
 def _tables_inputs(gen, n, s, f, hw, dtype, dev):
     """(M, N, S, H, W) view of a stacked blur, as the op hands it to K6, and
     an error of (N, F, H, W)."""
@@ -440,64 +537,107 @@ TRAIN_RUNS = {
 
 
 def train(engine, dev, seed, batches, labels):
-    """3 bf16 SGD steps through `make_train_step` for the run `engine` of
-    TRAIN_RUNS; checks the launch counts of each step, a finite loss and
-    the SGD update of every trainable parameter. Returns (model, step,
+    """3 bf16 SGD steps of AlexNet-DAU through `make_train_step` for the run
+    `engine` of TRAIN_RUNS, with `run_steps`' checks. Returns (model, step,
     launch counts, moved)."""
     kw, want = TRAIN_RUNS[engine]
     model = AlexNetDAU(variant="default", image_size=IMAGE, dtype=torch.bfloat16, device=dev,
                        generator=torch.Generator().manual_seed(seed), **kw)
-    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=LR))
+    return (model, *run_steps(engine, model, [(x, labels) for x in batches], want, LR))
+
+
+def _fixed_sigmas(model):
+    """Names of the sigma parameters that do not train (a layer's fixed
+    sigma is detached in its forward: no gradient, no update)."""
+    return {f"{name}.sigma" for name, m in model.named_modules()
+            if isinstance(m, DAUConv2d) and not m.dau_sigma_trainable}
+
+
+def _stats(model):
+    return {k: b.detach().clone() for k, b in model.named_buffers()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def run_steps(tag, model, data, want, lr):
+    """SGD steps of `model` through `make_train_step`, one per (x, labels)
+    of `data`; checks the launch counts of each step against `want`, a
+    finite loss, a finite nonzero gradient for every trainable parameter and
+    its SGD update, and that every BatchNorm running statistic moved.
+    Returns (step, launch counts, moved)."""
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=lr))
+    fixed = _fixed_sigmas(model)
     first = {k: p.detach().clone() for k, p in model.named_parameters()}
+    stats = _stats(model)
     _zero_counts()
-    for i, x in enumerate(batches):
+    for i, (x, labels) in enumerate(data):
         old = {k: p.detach().clone() for k, p in model.named_parameters()}
         before = _counts()
         loss = step(x, labels)
         torch.cuda.synchronize()
         got = tuple(a - b for a, b in zip(_counts(), before))
         if got != want:
-            raise AssertionError(f"{engine} step {i}: launches {COUNTS} {got}, want {want}")
+            raise AssertionError(f"{tag} step {i}: launches {COUNTS} {got}, want {want}")
         if not torch.isfinite(loss.float()):
-            raise AssertionError(f"{engine} step {i}: loss {float(loss)}")
+            raise AssertionError(f"{tag} step {i}: loss {float(loss)}")
         for name, p in model.named_parameters():
-            if name.endswith(".sigma"):  # not trainable in this model
+            if name in fixed:
                 if p.grad is not None or not torch.equal(p, old[name]):
-                    raise AssertionError(f"{engine} step {i}: sigma {name} moved")
+                    raise AssertionError(f"{tag} step {i}: fixed sigma {name} moved")
                 continue
             g = p.grad
             if g is None or not torch.isfinite(g.float()).all() or not torch.any(g != 0):
-                raise AssertionError(f"{engine} step {i}: bad gradient for {name}")
+                raise AssertionError(f"{tag} step {i}: bad gradient for {name}")
             # one rounding of old - lr*grad to p's dtype, within two ulps (of
             # the larger of old and new): the add may be fused, and lr may be
             # rounded to p's dtype first
-            sgd = (old[name].float() - LR * g.float()).to(p.dtype)
+            sgd = (old[name].float() - lr * g.float()).to(p.dtype)
             tol = 2 * _ulp(torch.maximum(old[name].float().abs(), sgd.float().abs()), p.dtype)
             if not bool(((p.float() - sgd.float()).abs() <= tol).all()):
-                raise AssertionError(f"{engine} step {i}: {name} did not take the SGD update")
-        print(f"train {engine} step {i}: loss {float(loss):.5f}, launches {COUNTS} {got}")
+                raise AssertionError(f"{tag} step {i}: {name} did not take the SGD update")
+        print(f"train {tag} step {i}: loss {float(loss):.5f}, launches {COUNTS} {got}")
     counts = _counts()
     moved = [k for k, p in model.named_parameters() if not torch.equal(p, first[k])]
-    return model, step, counts, moved
+    still = [k for k, b in _stats(model).items() if torch.equal(b, stats[k])]
+    if still:
+        raise AssertionError(f"{tag}: BatchNorm statistics did not move: {still}")
+    return step, counts, moved
 
 
 def reference_step(engine, dev, seed, x, labels, **kw):
+    """One f32 AlexNet-DAU step's gradients through the kernels and through
+    the twins, from the same weights (`reference_grads`)."""
+    model = AlexNetDAU(variant="default", image_size=IMAGE, engine=engine, dtype=torch.float32,
+                       device=dev, generator=torch.Generator().manual_seed(seed), **kw)
+    return reference_grads(f"{engine} {kw}", model, x, labels)
+
+
+def reference_grads(tag, model, x, labels, backward_only=False):
     """One f32 step's gradients through the kernels and through the twins,
-    from the same weights; returns the worst gradient error relative to
-    its tensor's max|grad|, and the kernel path's gradients."""
-    model = AlexNetDAU(variant="default", image_size=IMAGE, engine=engine, dtype=torch.float32, device=dev,
-                       generator=torch.Generator().manual_seed(seed), **kw)
-    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0))
+    from the same weights: every gradient within 1e-3*max|grad| of its
+    tensor. With `backward_only` (the CIFAR nets) the twins' pass keeps the
+    kernels' forward, so both backward passes start from the same bits:
+    BatchNorm, ReLU and 2x2 max-pools turn the forward's last-bit
+    differences into discrete ones (a near-tie broken the other way, a
+    value near 0 on the other side of the ReLU), each moving one element's
+    gradient far outside any rounding bound (§6 of PERF.md, PR 15); the
+    forward kernels are held to their twins by phase 21's logits. Returns
+    the worst error relative to its tensor's max|grad|, and the kernel
+    path's gradients."""
     grads = []
-    for route in (contextlib.nullcontext, plain_twin):
+    routes = ((contextlib.nullcontext, contextlib.nullcontext),
+              (contextlib.nullcontext if backward_only else plain_twin, plain_twin))
+    for forward, backward in routes:
         before = _counts()
-        with route():
-            loss = step(x, labels)
+        model.zero_grad(set_to_none=True)
+        with forward():
+            loss = torch.nn.functional.cross_entropy(model(x), labels)
+        with backward():
+            loss.backward()
         torch.cuda.synchronize()
         launched = tuple(a - b for a, b in zip(_counts(), before))
         grads.append({k: p.grad.clone() for k, p in model.named_parameters()
                       if p.grad is not None})
-        if route is contextlib.nullcontext:
+        if forward is contextlib.nullcontext and backward is contextlib.nullcontext:
             first = launched
     worst = 0.0
     for name, want in grads[1].items():
@@ -505,11 +645,12 @@ def reference_step(engine, dev, seed, x, labels, **kw):
         scale = float(want.abs().max())
         worst = max(worst, err / scale)
         if not err <= 1e-3 * scale:
-            raise AssertionError(f"reference {engine} {kw}: {name} max|dg|={err:.3e} "
+            raise AssertionError(f"reference {tag}: {name} max|dg|={err:.3e} "
                                  f"max|g|={scale:.3e}")
-    print(f"reference f32 step {engine} {kw}: loss {float(loss):.5f}; {len(grads[1])} "
+    print(f"reference f32 step {tag}: loss {float(loss):.5f}; {len(grads[1])} "
           f"gradients, worst max|dg|/max|g| = {worst:.3e} (bound 1e-3); kernel-path "
-          f"launches {COUNTS} {first}")
+          f"launches {COUNTS} {first}"
+          + ("; the twins' pass on the kernels' forward" if backward_only else ""))
     return worst, grads[0]
 
 
@@ -541,7 +682,7 @@ class Bounds:
         return max(self.by, key=self.by.get)
 
 
-def _spectral_inputs(gen, n, s, f, hw, dtype, dev):
+def _spectral_inputs(gen, n, s, f, hw, dtype, dev, g=G):
     """The fused kernel's operands at a layer shape, as the op makes them:
     the spectra of a stacked (M=3) blur and of an error, bilinear one-hots
     of random offsets, the phase tables; and the dx operands (blurred-error
@@ -555,12 +696,12 @@ def _spectral_inputs(gen, n, s, f, hw, dtype, dev):
     xs = torch.cat([xre, xim], dim=1).permute(3, 0, 1, 2).contiguous()
     spectra = [torch.cat(fe._rdft2(e, p1, p2, rb), dim=0).permute(2, 0, 1).contiguous()
                for e in (err, eb)]
-    mu1, mu2 = (torch.rand((2, s, G, f), generator=gen) * 7.98 - 3.99).to(dev, dtype)
+    mu1, mu2 = (torch.rand((2, s, g, f), generator=gen) * 7.98 - 3.99).to(dev, dtype)
     a1 = fe._phase_onehot(mu1, span, True).permute(0, 2, 1, 3)
     a2 = fe._phase_onehot(mu2, span, True).permute(0, 2, 1, 3)
     t1 = fe._phase_table(p1, p1, span, torch.float32, dev)
     t2 = fe._phase_table(p2, rb, span, torch.float32, dev, coef_p1=p1)
-    wg = (torch.randn((G, s, f), generator=gen) * 0.1).to(dev, dtype)
+    wg = (torch.randn((g, s, f), generator=gen) * 0.1).to(dev, dtype)
     kw = dict(n_img=n, p1b=p1, rbb=rb)
     return (xs, spectra[0], t1, t2, a1, a2), kw, dict(esb=spectra[1], wg=wg), (xb, err, mu1, mu2)
 
@@ -744,8 +885,13 @@ def _instance(entry):
     g = re.search(r"Li(\d+)E(Lb([01])E)?EEv", entry)
     gather = next((g for g in ("PhiGather", "FactoredGather") if g in entry), "")
     chunked = g and g.group(3) == "1" and "chunked"
+    # K6's one int argument: the stages per wgmma chain (f32 input 4, bf16 32)
+    fold = re.search(r"grad_tables_kernelILi(\d+)E", entry)
+    fold = fold and f"folds every {fold.group(1)} stages"
     return " ".join(p for p in (kind, mg and f"M={mg.group(1)} G={mg.group(2)}",
-                                not mg and g and f"G={g.group(1)}", chunked, gather) if p)
+                                not (mg or fold) and g and f"G={g.group(1)}", chunked, gather,
+                                fold)
+                    if p)
 
 
 def _ptxas(lib, markers):
@@ -815,13 +961,13 @@ def _tensor_core_count(lib):
         raise AssertionError(f"{lib}: no TMA load in the SASS")
 
 
-def _dense_work(n, s, f, hw, x_bytes, kb: int = 0):
+def _dense_work(n, s, f, hw, x_bytes, kb: int = 0, g: int = G):
     """(operations, bytes) of K5 (blur filter kb x kb) or K4 (kb=0) at a
     layer shape: the 4*G bilinear taps per (s, f, pixel), plus the kb x kb
     blur per (s, pixel) for K5; x, the three (S, G, F) parameter tensors and
     the output in bf16."""
-    ops = 2 * 4 * G * s * f * hw * hw * n + 2 * kb * kb * s * hw * hw * n
-    return ops, x_bytes + 3 * s * G * f * 2 + n * f * hw * hw * 2
+    ops = 2 * 4 * g * s * f * hw * hw * n + 2 * kb * kb * s * hw * hw * n
+    return ops, x_bytes + 3 * s * g * f * 2 + n * f * hw * hw * 2
 
 
 def time_k5(x, w, mu1, mu2, filt, ks, bound):
@@ -839,7 +985,7 @@ def time_k5(x, w, mu1, mu2, filt, ks, bound):
     kern = xla_engine.synthesize_kernel(w, mu1, mu2, ks).transpose(0, 1).contiguous()
     conv = torch.nn.functional.conv2d
     t_l = _cuda_ms(lambda: conv(conv(x, blur, padding=kb // 2, groups=s), kern, padding=ks // 2))
-    bd = bound.add(*_dense_work(n, s, f, hw, _nbytes(x), kb))
+    bd = bound.add(*_dense_work(n, s, f, hw, _nbytes(x), kb, w.shape[-2]))
     peak = 2 * ks * ks * s * f * hw * hw * n / PEAK_BF16 * 1e3
     return t_k, t_o, t_p, t_l, bd, peak
 
@@ -1221,7 +1367,9 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s; ptxas:")
     _ptxas("dau_forward_fused", ["fused_forward_kernel"])
     _ptxas("dau_aggregate", ["aggregate_kernel"])
-    _ptxas("dau_grad_tables", ["grad_tables_kernel"])
+    # K6: the f32 and the bf16 instance (folding their wgmma chains every 4
+    # and 32 stages) spill-free
+    _instances("dau_grad_tables", ["grad_tables_kernel"], "K6", 2, ("grad_tables_kernel",))
     # K1 and K8: f32/bf16 x M 3, 4 x G 1-4; K1 spill-free at M=3, G=2, K8
     # everywhere
     _instances("dau_spectral_grads", ["spectral_grads_kernel", "PhiGather"], "K1", 16,
@@ -1524,10 +1672,22 @@ def main(argv=None) -> int:
     for engine in ("pallas", "pallas_fused"):
         wide_step(engine, dev, args.seed)
 
-    launches_k5 = launches + runs["pallas_fused"][1][0]
-    launches_k4 = runs["pallas"][1][1]
-    launches_k6 = runs["pallas_fused"][1][2] + runs["pallas"][1][2]
-    launches_k1 = runs["fourier"][1][3]
+    # 21-23. the other models at G = 4: the CIFAR nets from the repo's
+    # artifacts, CIFAR training, DAU-ResNet-18 at full width
+    x_train, y_train, x_test, y_test = synthetic_spatial(n=50000)
+    more = cifar_artifacts(dev, card, x_test, y_test)
+    for _, counts in cifar_training(dev, args.seed, card, x_train, y_train).values():
+        more = _add(more, counts)
+    del x_train, x_test
+    more = _add(more, resnet(dev, args.seed, card, gen))
+    time_model_layers(gen, dev, card)
+    print(f"phases 21-23 (G=4): launches {COUNTS} {more}; K1 launched {more[3]} times at G=4, "
+          f"K5 {more[0]} times")
+
+    launches_k5 = launches + runs["pallas_fused"][1][0] + more[0]
+    launches_k4 = runs["pallas"][1][1] + more[1]
+    launches_k6 = runs["pallas_fused"][1][2] + runs["pallas"][1][2] + more[2]
+    launches_k1 = runs["fourier"][1][3] + more[3]
     launches_k2 = runs["fourier fused_dx"][1][4]
     launches_k8 = runs["fourier factored"][1][5]
     launches_k8dx = runs["fourier factored fused_dx"][1][6]
@@ -1725,6 +1885,282 @@ def _train_run(engine, dev, seed, batches, labels):
           f"tensors moved" + (f"; unmoved (every update below half a bf16 ulp): {still}"
                               if still else ""))
     return step, counts
+
+
+# phases 21-23: the other models at G = 4 (dau_units (2, 2)). Launches per
+# request or step in COUNTS' order, derived from the op: each DAU layer
+# runs one forward aggregation (K5 on 'pallas_fused', K4 on 'pallas'); in
+# training each layer also runs one K6 and, where its input needs a
+# gradient, one dx aggregation; CIFAR conv1's input is the image, so of
+# its three layers two run a dx pass. 'auto' in bf16 resolves to 'fourier',
+# whose forward and dx run no kernel and whose unit gradients come from K1
+# at every layer (the gate sends G >= 4 to K1 at any bin count).
+CIFAR_ARTIFACTS = (("docs/spatial_dau_4000_params.npz", "DAUCifarNet"),
+                   ("docs/spatial_conv_2500_params.npz", "ConvCifarNet"))
+CIFAR_SERVE = {"xla": (0, 0, 0, 0, 0, 0, 0, 0, 0), "pallas": (0, 3, 0, 0, 0, 0, 0, 0, 0),
+               "pallas_fused": (3, 0, 0, 0, 0, 0, 0, 0, 0), "fourier": (0, 0, 0, 0, 0, 0, 0, 0, 0)}
+CIFAR_REQUEST, CIFAR_TEST = 125, 500
+CIFAR_BATCH, CIFAR_LR = 128, 1e-3
+CIFAR_TRAIN = {
+    "auto": (dict(), (0, 0, 0, 3, 0, 0, 0, 0, 0)),
+    "pallas_fused": (dict(engine="pallas_fused"), (5, 0, 3, 0, 0, 0, 0, 0, 0)),
+    "pallas": (dict(engine="pallas"), (0, 5, 3, 0, 0, 0, 0, 0, 0)),
+    "auto sigma": (dict(dau_sigma_trainable=True), (0, 0, 0, 3, 0, 0, 0, 0, 0)),
+    "pallas_fused sigma": (dict(engine="pallas_fused", dau_sigma_trainable=True),
+                           (5, 0, 3, 0, 0, 0, 0, 0, 0)),
+}
+# DAU-ResNet-18: 16 DAU layers, each one's input needing a gradient
+RESNET_BATCH, RESNET_IMAGE, RESNET_LR = 32, 224, 1e-4
+RESNET_SERVE = {"pallas_fused": (16, 0, 0, 0, 0, 0, 0, 0, 0), "auto": (0, 0, 0, 0, 0, 0, 0, 0, 0)}
+RESNET_TRAIN = {"auto": (dict(), (0, 0, 0, 16, 0, 0, 0, 0, 0)),
+                "pallas_fused": (dict(engine="pallas_fused"), (32, 0, 16, 0, 0, 0, 0, 0, 0))}
+
+
+def _add(a, b):
+    return tuple(x + y for x, y in zip(a, b))
+
+
+def _per_call(tag, fn, calls, want):
+    """Run fn(c) for each c of `calls` with the counters at 0, checking the
+    launches of each call against `want`; returns the outputs and the
+    counts."""
+    _zero_counts()
+    out = []
+    for i, c in enumerate(calls):
+        before = _counts()
+        out.append(fn(c))
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(_counts(), before))
+        if got != want:
+            raise AssertionError(f"{tag} call {i}: launches {COUNTS} {got}, want {want}")
+    return out, _counts()
+
+
+# (name, N, S, F, H=W) of the other models' DAU layers as their phases
+# run them: the CIFAR nets at N=128 (conv1's S = 3), DAU-ResNet-18 at N=32
+# (one layer per stage, its planes and widths; the strided first layers
+# compute at their input's plane)
+MODEL_LAYERS = (("cifar conv1", 128, 3, 96, 32), ("cifar conv2", 128, 96, 96, 16),
+                ("cifar conv3", 128, 96, 192, 8), ("resnet stage0", 32, 64, 64, 56),
+                ("resnet stage1", 32, 128, 128, 28), ("resnet stage2", 32, 256, 256, 14),
+                ("resnet stage3", 32, 512, 512, 7))
+
+
+def time_model_layers(gen, dev, card):
+    """Per layer of MODEL_LAYERS at G = 4 in bf16: K5 at kb 9 (and 17, a
+    trainable sigma's filter, at the CIFAR layers), K4, K6 and K1 checked
+    against their twins on the same inputs (K5, K4 and K1 within
+    1e-2*max|twin|, K6 within 1e-4, the bounds of phases 1, 6 and 10), then
+    timed: K5 against its twin and the two-call library chain, K4 and K6
+    against one `conv2d` each (as in phase 9), and K1 against its twin; K5
+    and K4 also alone (device time); each row says where a kernel with its
+    wrapper loses to its library call. Returns {kernel: [ms, library ms, device ms of K5's and K4's
+    kernel alone]} summed over the layers (K5 at kb 9)."""
+    filters = {kb: gaussian_filters(sigma, size=kb, device=dev)["w"]
+               for kb, sigma in ((9, 0.5), (17, 1.6))}
+    ks = DAUConvSettings().synth_kernel_size
+    sums = {k: [0.0, 0.0, 0.0] for k in ("K5", "K4", "K6", "K1")}
+    conv = torch.nn.functional.conv2d
+    for name, n, s, f, hw in MODEL_LAYERS:
+        x = torch.rand((n, s, hw, hw), generator=gen).to(dev, torch.bfloat16)
+        w = (torch.randn((s, 4, f), generator=gen) * 0.1).to(dev, torch.bfloat16)
+        mu1, mu2 = (torch.rand((2, s, 4, f), generator=gen) * 7.98 - 3.99).to(dev, torch.bfloat16)
+        cols = []
+        for kb in ((9, 17) if name.startswith("cifar") else (9,)):
+            _check_err(f"K5 {name} kb={kb} bf16",
+                       kfwd.dau_forward_fused(x, w, mu1, mu2, filters[kb], ks),
+                       kfwd.dau_forward_fused_plain(x.float(), w, mu1, mu2, filters[kb], ks), 1e-2)
+            t = time_k5(x, w, mu1, mu2, filters[kb], ks, Bounds())
+            d = _device_ms(lambda: kfwd.dau_forward_fused(x, w, mu1, mu2, filters[kb], ks),
+                           "fused_forward_kernel")[0]
+            if kb == 9:
+                sums["K5"] = [sums["K5"][0] + t[0], sums["K5"][1] + t[3], sums["K5"][2] + d]
+            cols.append(f"K5 kb={kb} {t[0]:.3f} ms, kernel alone {d:.4f} (twin {t[2]:.3f}, "
+                        f"chain {t[3]:.3f}{', LOSES to the chain' if t[0] > t[3] else ''}; "
+                        f"{kfwd.fused_cluster_size(f)}-block clusters)")
+        _check_err(f"K4 {name} bf16", kfwd.aggregate_forward(x, w, mu1, mu2, ks),
+                   kfwd.aggregate_forward_plain(x.float(), w, mu1, mu2, ks), 1e-2)
+        t_k = _cuda_ms(lambda: kfwd.aggregate_forward(x, w, mu1, mu2, ks))
+        d = _device_ms(lambda: kfwd.aggregate_forward(x, w, mu1, mu2, ks), "aggregate_kernel")[0]
+        kern = xla_engine.synthesize_kernel(w, mu1, mu2, ks).transpose(0, 1).contiguous()
+        t_l = _cuda_ms(lambda: conv(x, kern, padding=ks // 2))
+        sums["K4"] = [sums["K4"][0] + t_k, sums["K4"][1] + t_l, sums["K4"][2] + d]
+        cols.append(f"K4 {t_k:.3f} ms, kernel alone {d:.4f} (conv2d {t_l:.3f}"
+                    f"{', LOSES' if t_k > t_l else ''})")
+        xb, err = _tables_inputs(gen, n, s, f, hw, torch.bfloat16, dev)
+        _check_err(f"K6 {name} bf16 M={M}", kbwd.grad_tables(xb, err, ks),
+                   kbwd.grad_tables_plain(xb, err, ks), 1e-4)
+        t_k = _cuda_ms(lambda: kbwd.grad_tables(xb, err, ks))
+        lhs = xb.transpose(1, 2).reshape(M * s, n, hw, hw)
+        rhs = err.transpose(0, 1).contiguous()
+        t_l = _cuda_ms(lambda: conv(lhs, rhs, padding=ks // 2))
+        sums["K6"][0] += t_k
+        sums["K6"][1] += t_l
+        cols.append(f"K6 {t_k:.3f} ms (conv2d {t_l:.3f}{', LOSES' if t_k > t_l else ''})")
+        del x, xb, err, lhs, rhs, kern
+        args, kw, _, _ = _spectral_inputs(gen, n, s, f, hw, torch.bfloat16, dev, g=4)
+        _check_err(f"K1 {name} G=4 bf16 B={kw['p1b'] * kw['rbb']}",
+                   kfb.fused_spectral_grads(*args, **kw),
+                   kfb.fused_spectral_grads_plain(*args, **kw), 1e-2)
+        t_k = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw))
+        t_p = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw), iters=3, warmup=1)
+        sums["K1"][0] += t_k
+        cols.append(f"K1 B={kw['p1b'] * kw['rbb']} {t_k:.3f} ms (twin {t_p:.3f})")
+        del args
+        print(f"layer {name} N={n} {s}->{f} {hw}x{hw} G=4 bf16: {'; '.join(cols)} [{card}]")
+    print(f"over the {len(MODEL_LAYERS)} layer shapes of the other models, G=4 bf16: "
+          + "; ".join(f"{k} {v[0]:.3f} ms" + (f", kernel alone {v[2]:.4f}" if v[2] else "")
+                      + (f" (library {v[1]:.3f})" if v[1] else "") for k, v in sums.items())
+          + f" [{card}]")
+    return sums
+
+
+def cifar_artifacts(dev, card, x_test, y_test):
+    """Phase 21: the spatial artifacts in eval mode, f32, on the recorded
+    500-image test slice in requests of 125: DAUCifarNet through each engine
+    of CIFAR_SERVE, ConvCifarNet through plain torch ops. Each engine's
+    logits within 1e-3*max|logits| of its plain twins' and of the 'xla'
+    engine's, top-1 in [0.42, 0.58] and pair accuracy >= 0.92 (the bounds
+    of tests/test_models.py); request times. Returns the launch counts."""
+    x = torch.from_numpy(x_test[:CIFAR_TEST]).to(dev)
+    y = torch.from_numpy(y_test[:CIFAR_TEST]).to(dev).long()
+    requests = x.split(CIFAR_REQUEST)
+    total = (0,) * 9
+    for path, kind in CIFAR_ARTIFACTS:
+        state = params_from_flax(load_params_npz(str(ROOT / path)))
+        ref = None
+        for engine in (CIFAR_SERVE if kind == "DAUCifarNet" else ("xla",)):
+            if kind == "DAUCifarNet":
+                net = DAUCifarNet(train=False, engine=engine, device=dev)
+                tag = f"{kind} {engine}"
+            else:
+                net = ConvCifarNet(train=False, device=dev)
+                tag = f"{kind} (plain torch ops)"
+            net.load_state_dict(state)
+            with torch.inference_mode():
+                out, counts = _per_call(f"artifact {tag}", net, requests, CIFAR_SERVE[engine])
+                logits = torch.cat(out)
+                with plain_twin():
+                    plain = torch.cat([net(r) for r in requests])
+                t = _spread(lambda: net(requests[0]))
+            total = _add(total, counts)
+            if logits.shape != (CIFAR_TEST, 10) or not torch.isfinite(logits).all():
+                raise AssertionError(f"artifact {tag}: bad logits {tuple(logits.shape)}")
+            ref = logits if ref is None else ref
+            errs = [float((logits - want).abs().max()) for want in (plain, ref)]
+            scales = [float(want.abs().max()) for want in (plain, ref)]
+            pred = logits.argmax(-1)
+            top1 = float((pred == y).float().mean())
+            pair = float(((pred % 5) == (y % 5)).float().mean())
+            print(f"artifact {path} {tag} f32: top-1 {top1:.4f}, pair {pair:.4f}; vs plain "
+                  f"twins max|dlogits|={errs[0]:.3e}, vs xla {errs[1]:.3e} (bounds "
+                  f"{1e-3 * scales[0]:.3e}, {1e-3 * scales[1]:.3e}); launches {COUNTS} {counts}; "
+                  f"request of {CIFAR_REQUEST}x3x32x32 {_fmt(t)} [{card}]")
+            if not (errs[0] <= 1e-3 * scales[0] and errs[1] <= 1e-3 * scales[1]):
+                raise AssertionError(f"artifact {tag}: logits disagree")
+            if not (0.42 <= top1 <= 0.58 and pair >= 0.92):
+                raise AssertionError(f"artifact {tag}: top-1 {top1}, pair {pair} out of bounds")
+            del net
+    return total
+
+
+def _check_model_engines(model, engine, g):
+    engines = {m.cfg.engine for m in model.modules() if isinstance(m, DAUConv2d)}
+    units = {m.weights.shape[2] for m in model.modules() if isinstance(m, DAUConv2d)}
+    if engines != {engine} or units != {g}:
+        raise AssertionError(f"DAU layers on {engines} with G {units}, want {engine}, G={g}")
+
+
+def cifar_training(dev, seed, card, x_train, y_train):
+    """Phase 22: DAUCifarNet trains 3 bf16 SGD steps (lr 1e-3) of 128 images
+    per run of CIFAR_TRAIN with `run_steps`' checks and one more under
+    `checked_kernels`; then one f32 step per
+    kernel engine through the kernels and the twins (`reference_grads`);
+    step times and the device time by kernel class of the 'auto' and
+    'pallas_fused' steps. Returns {run: (step, counts)} and the first
+    batch."""
+    data = [(torch.from_numpy(x_train[i * CIFAR_BATCH:(i + 1) * CIFAR_BATCH]).to(dev),
+             torch.from_numpy(y_train[i * CIFAR_BATCH:(i + 1) * CIFAR_BATCH]).to(dev).long())
+            for i in range(STEPS)]
+    runs = {}
+    for tag, (kw, want) in CIFAR_TRAIN.items():
+        model = DAUCifarNet(dtype=torch.bfloat16, device=dev,
+                            generator=torch.Generator().manual_seed(seed), **kw)
+        _check_model_engines(model, kw.get("engine", "fourier"), 4)
+        blur = model.dau_conv2.cfg.blur_size
+        step, counts, moved = run_steps(f"cifar {tag}", model, data, want, CIFAR_LR)
+        with checked_kernels(f"cifar {tag} bf16 step"):
+            step(*data[0])
+        runs[tag] = (step, counts)
+        print(f"train cifar {tag}: {STEPS} bf16 steps of {CIFAR_BATCH}x3x32x32, G=4, blur "
+              f"{blur}x{blur}, launches {COUNTS} {counts}; {len(moved)} parameter tensors "
+              f"moved, BatchNorm statistics moved")
+    for engine, kw in (("fourier", {}), ("pallas_fused", {}), ("pallas", {}),
+                       ("fourier", dict(dau_sigma_trainable=True)),
+                       ("pallas_fused", dict(dau_sigma_trainable=True))):
+        model = DAUCifarNet(engine=engine, device=dev,
+                            generator=torch.Generator().manual_seed(seed), **kw)
+        reference_grads(f"cifar {engine} {kw}", model, *data[0], backward_only=True)
+    for tag in CIFAR_TRAIN:
+        step = runs[tag][0]
+        t = _spread(lambda: step(*data[0]), iters=3)
+        print(f"train step cifar {tag} {CIFAR_BATCH}x3x32x32 bf16: {_fmt(t)} over 5 runs of 3 "
+              f"[{card}]")
+        if tag in ("auto", "pallas_fused"):
+            profile_step(f"cifar {tag}", step, *data[0], t[0], card)
+    return runs
+
+
+def resnet(dev, seed, card, gen):
+    """Phase 23: DAU-ResNet-18 at full width (64, G = 4, 1,000 classes) in
+    bf16 on 32x3x224x224: 3 requests each on 'pallas_fused' (16 K5 per
+    request, some on K5's branch without a cluster) and 'auto' (->
+    fourier), then 3 SGD steps (lr 1e-4) each with `run_steps`' checks;
+    one 'pallas_fused' request and one more step per run under
+    `checked_kernels`;
+    request and step times (median of 5 with min and max) and the device
+    time by kernel class of each step. Returns the launch counts."""
+    requests = [torch.rand((RESNET_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE), generator=gen).to(dev)
+                for _ in range(REQUESTS)]
+    labels = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen).to(dev)
+    total = (0,) * 9
+    for engine, want in RESNET_SERVE.items():
+        model = DAUResNet(dtype=torch.bfloat16, device=dev, train=False,
+                          generator=torch.Generator().manual_seed(seed),
+                          **({} if engine == "auto" else dict(engine=engine)))
+        _check_model_engines(model, "fourier" if engine == "auto" else engine, 4)
+        clusterless = kfwd.dau_forward_fused.launches_clusterless
+        with torch.inference_mode():
+            out, counts = _per_call(f"resnet serve {engine}", model, requests, want)
+            clusterless = kfwd.dau_forward_fused.launches_clusterless - clusterless
+            t = _spread(lambda: model(requests[0]))
+        total = _add(total, counts)
+        for y in out:
+            if y.shape != (RESNET_BATCH, 1000) or not torch.isfinite(y.float()).all():
+                raise AssertionError(f"resnet serve {engine}: bad logits")
+        if engine == "pallas_fused" and not clusterless:
+            raise AssertionError("resnet serve: no K5 launch took the branch without a cluster")
+        with torch.inference_mode(), checked_kernels(f"resnet serve {engine} bf16 request"):
+            model(requests[0])
+        print(f"serving DAU-ResNet-18 {engine} {RESNET_BATCH}x3x{RESNET_IMAGE}x{RESNET_IMAGE} "
+              f"bf16: logits finite, launches {COUNTS} {counts} ({clusterless} of them K5 "
+              f"without a cluster); request {_fmt(t)} [{card}]")
+        del model, out
+    for engine, (kw, want) in RESNET_TRAIN.items():
+        model = DAUResNet(dtype=torch.bfloat16, device=dev,
+                          generator=torch.Generator().manual_seed(seed), **kw)
+        step, counts, moved = run_steps(f"resnet {engine}", model,
+                                        [(x, labels) for x in requests], want, RESNET_LR)
+        total = _add(total, counts)
+        with checked_kernels(f"resnet {engine} bf16 step"):
+            step(requests[0], labels)
+        t = _spread(lambda: step(requests[0], labels), iters=3)
+        print(f"train DAU-ResNet-18 {engine}: {STEPS} bf16 steps of {RESNET_BATCH}x3x"
+              f"{RESNET_IMAGE}x{RESNET_IMAGE}, launches {COUNTS} {counts}; {len(moved)} "
+              f"parameter tensors moved; step {_fmt(t)} over 5 runs of 3 [{card}]")
+        profile_step(f"resnet18 {engine}", step, requests[0], labels, t[0], card)
+        del model, step
+    return total
 
 
 if __name__ == "__main__":

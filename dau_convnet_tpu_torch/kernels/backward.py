@@ -18,8 +18,14 @@ The kernel multiplies bf16 operands on the tensor cores with f32 sums and
 writes the table position-major, (ks*ks, F, M*S); `grad_tables` returns the
 (M, S, F, ks, ks) view of it. `grad_tables_operands` prepares the operands
 in torch: channels last, chunk-major (see `chunk_major`), and f32 input
-split into bf16 hi + lo parts that the same bf16 products sum as
-xh*eh + xl*eh + xh*el over a batch of 3N images.
+split in three bf16 parts (`split_bf16_3`) whose six products of orders up
+to 3 the same bf16 products sum over a batch of 6N images, each f32
+product held to about 2**-24. The kernel folds its wgmma sums, which round
+toward zero, into sums rounded to nearest every `FOLD_F32` stages for f32
+input and every `FOLD_BF16` for bf16. (Two parts, three products
+and one wgmma chain per tap moved the f32 gradients of a conv before a
+train-mode BatchNorm, whose sums cancel, by up to 2.7e-3 of max|grad| from
+the f32 twin's.)
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 
 from ..ops import xla_engine
 from ._build import load_library
-from .forward import _DTYPE_CODE, _TMA_BOX_MAX, chunk_major, split_bf16
+from .forward import _DTYPE_CODE, _TMA_BOX_MAX, chunk_major, split_bf16_3
 
 __all__ = ["grad_tables", "grad_tables_plain", "grad_tables_operands", "chunk_major",
            "table_view", "check_kernel_limits"]
@@ -45,6 +51,13 @@ _GRID_Z_MAX = 65535
 _TMA_COORD_MAX = 2 ** 31
 _TMA_DIM_MAX = 2 ** 32
 _TMA_STRIDE_MAX = 2 ** 40
+# stages of R = 4 image rows (4 k16 steps a tap) per wgmma chain for f32
+# and for bf16 input, as csrc/dau_grad_tables.cu sets them: the chain's f32
+# sums round toward zero, so the kernel folds them into sums rounded to
+# nearest this often. Kept here for the CPU emulation of the fold
+# (tests/test_torch_gemm_operands.py), which also reads them from the source
+FOLD_F32 = 4
+FOLD_BF16 = 32
 
 
 def check_kernel_limits(ks: int, n: int, h: int, w: int) -> None:
@@ -96,15 +109,15 @@ def _check(x_blur_k, err, ks):
 def grad_tables_operands(x_blur_k, err):
     """The kernel's operands: (err_t, xb_t), chunk-major bf16 copies of err
     as (N, H, W, F) and of xb as (N, H, W, M*S) with ms = m*S + s. f32
-    input is split (`split_bf16`) and concatenated along N, xb as [xh, xl,
-    xh] against err as [eh, eh, el]."""
+    input is split in three (`split_bf16_3`) and concatenated along N, xb
+    as [x1, x1, x2, x1, x2, x3] against err as [e1, e2, e1, e3, e2, e1]."""
     m, n, s, h, w = x_blur_k.shape
     x = x_blur_k.permute(1, 3, 4, 0, 2).reshape(n, h, w, m * s)
     e = err.permute(0, 2, 3, 1)
     if x.dtype == torch.float32:
-        xh, xl = split_bf16(x)
-        eh, el = split_bf16(e)
-        x, e = torch.cat([xh, xl, xh]), torch.cat([eh, eh, el])
+        x1, x2, x3 = split_bf16_3(x)
+        e1, e2, e3 = split_bf16_3(e)
+        x, e = torch.cat([x1, x1, x2, x1, x2, x3]), torch.cat([e1, e2, e1, e3, e2, e1])
     return chunk_major(e.to(torch.bfloat16)), chunk_major(x.to(torch.bfloat16))
 
 
@@ -129,7 +142,7 @@ def grad_tables(x_blur_k, err, ks: int):
     if x_blur_k.device.type != "cuda":
         raise RuntimeError(f"grad_tables has no kernel for device {x_blur_k.device}")
     m, n, s, h, w = x_blur_k.shape
-    check_kernel_limits(ks, 3 * n if x_blur_k.dtype == torch.float32 else n, h, w)
+    check_kernel_limits(ks, 6 * n if x_blur_k.dtype == torch.float32 else n, h, w)
     f = err.shape[1]
     err_t, xb_t = grad_tables_operands(x_blur_k, err)
     table = torch.empty((ks * ks, f, m * s), dtype=torch.float32, device=err.device)
@@ -137,7 +150,7 @@ def grad_tables(x_blur_k, err, ks: int):
         stream = torch.cuda.current_stream(err.device).cuda_stream
         code = _library().dau_grad_tables_launch(
             err_t.data_ptr(), xb_t.data_ptr(), table.data_ptr(), f, m * s, err_t.shape[1], h,
-            w, ks, stream)
+            w, ks, _DTYPE_CODE[x_blur_k.dtype], stream)
     if code != 0:
         raise RuntimeError(f"grad_tables launch failed: cudaError {code}")
     grad_tables.launches += 1
@@ -152,6 +165,6 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with every C signature declared."""
     lib = load_library("dau_grad_tables")
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
-    lib.dau_grad_tables_launch.argtypes = [c_ptr] * 3 + [c_int] * 6 + [c_ptr]
+    lib.dau_grad_tables_launch.argtypes = [c_ptr] * 3 + [c_int] * 7 + [c_ptr]
     lib.dau_grad_tables_launch.restype = c_int
     return lib

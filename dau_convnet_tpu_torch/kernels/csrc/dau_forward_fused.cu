@@ -415,7 +415,7 @@ fused_forward_kernel(const __grid_constant__ CUtensorMap k_map,
 template <typename T>
 cudaError_t launch(const CUtensorMap& k_map, const void* x_t, const float* filt, void* out,
                    int N, int S, int parts, int S8, int F, int H, int W, int ks, int kb,
-                   const FusedPlan& p, cudaStream_t stream) {
+                   int csize, const FusedPlan& p, cudaStream_t stream) {
   // x_t: (S8/8, N, H, W*8) in T, 8 channels per pixel
   CUtensorMap x_map;
   const cuuint64_t e = sizeof(T) * 8;  // bytes per pixel
@@ -430,9 +430,7 @@ cudaError_t launch(const CUtensorMap& k_map, const void* x_t, const float* filt,
   if (err != cudaSuccess) return err;
   err = set_smem(fused_forward_kernel<T>, p.win.smem);
   if (err != cudaSuccess) return err;
-  // pairs of F tiles share their blur where the tiles pair up
   const int ftiles = (F + FB - 1) / FB;
-  const int csize = ftiles % 2 == 0 ? 2 : 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ftiles, p.win.tiles * p.win.strips, N);
   cfg.blockDim = dim3(THREADS);
@@ -473,14 +471,17 @@ long long dau_forward_fused_smem_bytes(int H, int W, int ks, int kb, int dtype) 
 // its channels stacked as K's (bf16 x: S; f32 x: six copies of x, 6S),
 // the channels past the stack zero; filt: (kb, kb) f32; kern: (ks*ks, F, S8)
 // bf16, s innermost, K4's layout (f32 x: the three-way split stacked over
-// 6S channels), S8 a multiple of 8; out: (N, F, H, W) in x's dtype. Returns
-// a cudaError_t.
+// 6S channels), S8 a multiple of 8; out: (N, F, H, W) in x's dtype; csize:
+// blocks per cluster, 2 (neighbouring F tiles share their blur; the tile
+// count must be even) or 1 (each block blurs alone), the wrapper's choice
+// (`fused_cluster_size`). Returns a cudaError_t.
 int dau_forward_fused_launch(const void* x_t, const void* filt, const void* kern, void* out,
                              int dtype, int N, int S, int F, int H, int W, int ks, int kb, int S8,
-                             void* stream) {
+                             int csize, void* stream) {
   const int parts = dtype == 0 ? 6 : 1;
   if (N <= 0 || S <= 0 || F <= 0 || !valid(H, W, ks, kb) || (dtype != 0 && dtype != 1) ||
-      S8 % 8 != 0 || S8 < parts * S)
+      S8 % 8 != 0 || S8 < parts * S || (csize != 1 && csize != 2) ||
+      ((F + FB - 1) / FB) % csize != 0)
     return (int)cudaErrorInvalidValue;
   const FusedPlan p = make_fused_plan(H, W, ks, kb, dtype == 0 ? 4 : 2);
   if (p.win.nxb == 0) return (int)cudaErrorInvalidValue;
@@ -490,9 +491,10 @@ int dau_forward_fused_launch(const void* x_t, const void* filt, const void* kern
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* f = static_cast<const float*>(filt);
   if (dtype == 0)
-    return (int)launch<float>(k_map, x_t, f, out, N, S, parts, S8, F, H, W, ks, kb, p, st);
-  return (int)launch<__nv_bfloat16>(k_map, x_t, f, out, N, S, parts, S8, F, H, W, ks, kb, p,
-                                    st);
+    return (int)launch<float>(k_map, x_t, f, out, N, S, parts, S8, F, H, W, ks, kb, csize, p,
+                              st);
+  return (int)launch<__nv_bfloat16>(k_map, x_t, f, out, N, S, parts, S8, F, H, W, ks, kb, csize,
+                                    p, st);
 }
 
 }  // extern "C"

@@ -9,7 +9,8 @@
 // c = ks/2, xb zero outside the image, bf16 operands and f32 sums; the table
 // is written position-major, (ks*ks, F, M*S) f32, and the wrapper
 // (`backward.py`) returns its (M, S, F, ks, ks) view. f32 operands reach the
-// kernel split by the wrapper into bf16 hi + lo parts, concatenated along N.
+// kernel split by the wrapper into three bf16 parts whose six products are
+// concatenated along N.
 //
 // Bound: per position p = (ky, kx) the table is a GEMM, F x (M*S), over
 // K = (n, i, j): 2*ks^2*M*S*F*N*H*W operations (1.18 TFLOP per AlexNet-DAU
@@ -23,7 +24,7 @@
 //     channel edge cost no copy and no mask;
 //   - one block per (128 f, 64 planes ms, kernel row ky, group of T = 3
 //     kernel columns kx). Its producer warp streams R = 4 image rows per
-//     stage into a ring of STAGES = 6 stages: the err tile (R rows x 16
+//     stage into a ring of STAGES = 5 stages: the err tile (R rows x 16
 //     columns x 128 f) and the xb rows the T taps meet (R x (16 + T - 1)
 //     columns x 64 ms). Its two consumer warpgroups (64 f each) issue R * T
 //     wgmma m64n64k16 per stage, tap kx reading the staged xb row from its
@@ -31,7 +32,24 @@
 //     tile and xb row is staged once for the T taps of the block;
 //   - image rows whose xb row lies outside the image are not streamed;
 //   - every table entry is summed by one block in one fixed order: no
-//     atomics, and a step is deterministic.
+//     atomics, and a step is deterministic;
+//   - the tensor cores' f32 sums round toward zero. Summed in one wgmma
+//     chain over all N*H*W/16 k16 steps of a tap, a table whose sums cancel
+//     (the error a train-mode BatchNorm hands back has zero mean per
+//     channel) drifted by ~7e-4 of max|table| at CIFAR conv1's 6 x 128
+//     images of 32x32 (f32 input) and by ~2e-4 at its 128 (bf16). So each
+//     instance runs one chain per FOLD stages, an inner loop of its own,
+//     and after the loop adds the chain's sums, rounded to nearest on the
+//     FP32 units (as K4 folds its taps), to the earlier chains' sums, which
+//     wait in shared memory, a column per thread (96 KB, paid for with one
+//     stage of the ring): FOLD is 4 (16 k16 steps) for f32 input, 32 for
+//     bf16, where 8 times the steps per chain still drift ~1e-5 (emulated
+//     in tests/test_torch_gemm_operands.py). The 9 warps leave a thread 168
+//     registers: a second set of 96 for the sums spills. Folded inside the
+//     stage loop, behind a branch, the bf16 instance took 1.9x its one-chain
+//     time (into the table in global memory there); folded into the table
+//     after each chain's loop, 1.6x (L2 latency at every fold, the table's
+//     bytes three times over where it is large).
 // Why these sizes: one row per stage pays a barrier round trip and two TMA
 // issues for every T small wgmmas; T = 9 taps with their 144 f32 sums per
 // thread does not fit the registers beside the pipeline, and ptxas then
@@ -46,9 +64,12 @@ using namespace dau_hopper;
 constexpr int FB = 128;                // output channels f per block: 2 warpgroups x 64
 constexpr int NB = 64;                 // planes ms per block: the wgmma N
 constexpr int KC = 16;                 // image columns j per row of a stage: the wgmma K
+// stages per wgmma chain, the kernel's FOLD, for f32 and for bf16 input
+constexpr int FOLD_F32 = 4;
+constexpr int FOLD_BF16 = 32;
 constexpr int T = 3;                   // kernel columns kx per block
 constexpr int R = 4;                   // image rows per stage
-constexpr int STAGES = 6;
+constexpr int STAGES = 5;
 constexpr int KB = KC + T - 1;         // xb columns staged per row
 constexpr int CONSUMERS = 2;           // warpgroups
 constexpr int THREADS = CONSUMERS * 128 + 32;
@@ -60,9 +81,11 @@ constexpr uint32_t B_BYTES = NB * R * KB * 2;
 struct Shared {
   uint8_t a[STAGES][round128(A_BYTES)];  // err: [f/8][row][column][8 f]
   uint8_t b[STAGES][round128(B_BYTES)];  // xb:  [ms/8][row][column][8 ms]
+  float sum[T * NB / 2][CONSUMERS * 128];  // the folded chains, a column per thread
   Ring<STAGES> ring;
 };
 
+template <int FOLD>
 __global__ void __launch_bounds__(THREADS, 1)
 grad_tables_kernel(const __grid_constant__ CUtensorMap err_map,
                    const __grid_constant__ CUtensorMap xb_map, float* __restrict__ table, int F,
@@ -106,43 +129,61 @@ grad_tables_kernel(const __grid_constant__ CUtensorMap err_map,
   }
 
   const int wg = warp / 4;
-  float acc[T][NB / 2];
+  float acc[T][NB / 2];  // the wgmma chain's sums; after the last, the table's
 #pragma unroll
   for (int t = 0; t < T; ++t)
 #pragma unroll
     for (int v = 0; v < NB / 2; ++v) acc[t][v] = 0.f;
 
   RingPos<STAGES> pos;
-  int pending = -1;  // the stage whose wgmmas may still be reading it
-  for (int s = 0; s < steps; ++s) {
-    pos.wait_full(sm.ring);
-    // chunk strides R*KC*16 (err) and R*KB*16 (xb) bytes; row r of the
-    // stage r*KC*16 (r*KB*16) bytes into its chunk, tap t 16*t bytes further
-    const uint64_t da = make_desc(&sm.a[pos.stage][wg * 8 * R * KC * 16], 128, R * KC * 16,
-                                  kNoSwizzle);
-    const uint64_t db = make_desc(sm.b[pos.stage], 128, R * KB * 16, kNoSwizzle);
+  for (int s0 = 0; s0 < steps; s0 += FOLD) {  // one wgmma chain of up to FOLD stages
+    const int s1 = min(steps, s0 + FOLD);
+    int pending = -1;  // the stage whose wgmmas may still be reading it
+    for (int s = s0; s < s1; ++s) {
+      pos.wait_full(sm.ring);
+      // chunk strides R*KC*16 (err) and R*KB*16 (xb) bytes; row r of the
+      // stage r*KC*16 (r*KB*16) bytes into its chunk, tap t 16*t bytes further
+      const uint64_t da = make_desc(&sm.a[pos.stage][wg * 8 * R * KC * 16], 128, R * KC * 16,
+                                    kNoSwizzle);
+      const uint64_t db = make_desc(sm.b[pos.stage], 128, R * KB * 16, kNoSwizzle);
+#pragma unroll
+      for (int t = 0; t < T; ++t) fence_regs(acc[t]);
+      wgmma_fence();
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int t = 0; t < T; ++t)
+          wgmma_m64n64<1, 1>(acc[t], desc_advance(da, r * KC * 16),
+                             desc_advance(db, (r * KB + t) * 16), r > 0 || s > s0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's wgmmas are done
+#pragma unroll
+      for (int t = 0; t < T; ++t) fence_regs(acc[t]);
+      if (pending >= 0) mbar_arrive(&sm.ring.empty[pending]);
+      pending = pos.stage;
+      pos.next();
+    }
+    wgmma_wait<0>();  // the chain is done: free its last stage, fold it
 #pragma unroll
     for (int t = 0; t < T; ++t) fence_regs(acc[t]);
-    wgmma_fence();
-#pragma unroll
-    for (int r = 0; r < R; ++r)
+    mbar_arrive(&sm.ring.empty[pending]);
+    if (s0 > 0) {  // add the earlier chains' sums
 #pragma unroll
       for (int t = 0; t < T; ++t)
-        wgmma_m64n64<1, 1>(acc[t], desc_advance(da, r * KC * 16),
-                           desc_advance(db, (r * KB + t) * 16));
-    wgmma_commit();
-    wgmma_wait<1>();  // the previous stage's wgmmas are done
 #pragma unroll
-    for (int t = 0; t < T; ++t) fence_regs(acc[t]);
-    if (pending >= 0) mbar_arrive(&sm.ring.empty[pending]);
-    pending = pos.stage;
-    pos.next();
+        for (int v = 0; v < NB / 2; ++v)
+          acc[t][v] = sm.sum[t * NB / 2 + v][threadIdx.x] + acc[t][v];
+    }
+    if (s1 < steps) {  // and keep them for the next chain's fold
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int v = 0; v < NB / 2; ++v) sm.sum[t * NB / 2 + v][threadIdx.x] = acc[t][v];
+    }
   }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int t = 0; t < T; ++t) fence_regs(acc[t]);
 
   // table[(ky*ks + kx), f, ms]: 4 lanes write 8 consecutive ms of one f row
+  // (zeros where no image row meets this kernel row)
   const int frow = f0 + wg * 64 + (warp % 4) * 16 + lane / 4;
 #pragma unroll
   for (int t = 0; t < T; ++t) {
@@ -182,11 +223,14 @@ extern "C" {
 
 // err_t: (F8/8, N, H, W*8) and xb_t: (MS8/8, N, H, W*8), bf16, chunk-major
 // (channel c at chunk c/8, lane c%8; F8, MS8 = F, MS rounded up to 8; the
-// (m, s) planes in m-major order ms = m*S + s); table: (ks*ks, F, MS) f32.
-// Returns a cudaError_t.
+// (m, s) planes in m-major order ms = m*S + s); table: (ks*ks, F, MS) f32;
+// dtype: the input's before the split, 0 f32 (the instance that folds its
+// wgmma chain every FOLD_F32 stages) or 1 bf16 (every FOLD_BF16). Returns a
+// cudaError_t.
 int dau_grad_tables_launch(const void* err_t, const void* xb_t, void* table, int F, int MS, int N,
-                           int H, int W, int ks, void* stream) {
-  if (ks < 1 || ks % 2 == 0 || F <= 0 || MS <= 0 || N <= 0 || H <= 0 || W <= 0)
+                           int H, int W, int ks, int dtype, void* stream) {
+  if (ks < 1 || ks % 2 == 0 || F <= 0 || MS <= 0 || N <= 0 || H <= 0 || W <= 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   CUtensorMap err_map, xb_map;
   cudaError_t e = chunk_map(&err_map, err_t, F, N, H, W, KC, FB / 8);
@@ -194,11 +238,18 @@ int dau_grad_tables_launch(const void* err_t, const void* xb_t, void* table, int
   e = chunk_map(&xb_map, xb_t, MS, N, H, W, KB, NB / 8);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = sizeof(Shared) + 1024;
-  e = set_smem(grad_tables_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
   const dim3 grid((F + FB - 1) / FB, (MS + NB - 1) / NB, ks * ((ks + T - 1) / T));
-  grad_tables_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      err_map, xb_map, static_cast<float*>(table), F, MS, N, H, W, ks);
+  if (dtype == 0) {
+    e = set_smem(grad_tables_kernel<FOLD_F32>, smem);
+    if (e != cudaSuccess) return (int)e;
+    grad_tables_kernel<FOLD_F32><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        err_map, xb_map, static_cast<float*>(table), F, MS, N, H, W, ks);
+  } else {
+    e = set_smem(grad_tables_kernel<FOLD_BF16>, smem);
+    if (e != cudaSuccess) return (int)e;
+    grad_tables_kernel<FOLD_BF16><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        err_map, xb_map, static_cast<float*>(table), F, MS, N, H, W, ks);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -44,8 +44,8 @@ from ._build import load_library
 
 __all__ = ["dau_forward_fused", "dau_forward_fused_plain", "aggregate_forward",
            "aggregate_forward_plain", "aggregate_forward_operands", "aggregate_kernel_operand",
-           "fused_forward_operands", "aggregate_plan", "fused_plan", "chunk_major",
-           "split_bf16", "split_bf16_3"]
+           "fused_forward_operands", "aggregate_plan", "fused_plan", "fused_cluster_size",
+           "chunk_major", "split_bf16", "split_bf16_3"]
 
 _MAX_SMEM = 227 * 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -204,18 +204,19 @@ def fused_plan(h: int, w: int, ks: int, kb: int, dtype, n: int = 1) -> dict:
 def split_bf16(t):
     """(hi, lo) bf16 with hi + lo = t to about 2**-16 relative: hi is t
     rounded to bf16, lo the rest rounded to bf16. The bf16 tensor-core
-    kernels K6 and K7 take f32 operands x, y as three products, xh*yh +
-    xl*yh + xh*yl: x's parts stacked [hi, lo, hi] against y's [hi, hi, lo]."""
+    kernel K7 takes f32 operands x, y as three products, xh*yh + xl*yh +
+    xh*yl: x's parts stacked [hi, lo, hi] against y's [hi, hi, lo]."""
     hi = t.to(torch.bfloat16)
     return hi, (t.float() - hi).to(torch.bfloat16)  # hi widens exactly in the f32 sub
 
 
 def split_bf16_3(t):
     """(t1, t2, t3) bf16 with t1 + t2 + t3 = t to about 2**-25 relative:
-    each part is the rest so far rounded to bf16. K4 takes f32 operands x,
-    y as the six products of parts whose orders sum to at most 3 (x1*y1,
-    x1*y2, x2*y1, x1*y3, x2*y2, x3*y1), which keep each f32 product to
-    about 2**-24: its f32 path feeds ReLUs and max-pools, where the three
+    each part is the rest so far rounded to bf16. K4 and K6 take f32
+    operands x, y as the six products of parts whose orders sum to at most
+    3 (x1*y1, x1*y2, x2*y1, x1*y3, x2*y2, x3*y1), which keep each f32
+    product to about 2**-24: K4's f32 path feeds ReLUs and max-pools, and
+    K6's sums cancel before a train-mode BatchNorm, where the three
     products of `split_bf16` (~2**-17) already move the gradients of a
     training step beyond 1e-3 of the f32 twins'."""
     t = t.float()
@@ -409,18 +410,32 @@ def dau_forward_fused(x, w, mu1, mu2, blur_filter, ks: int,
     x_t, kern_t, filt = fused_forward_operands(x, w, mu1, mu2, blur_filter, ks,
                                                use_interpolation)
     out = torch.empty((n, f, h, wd), dtype=x.dtype, device=x.device)
+    csize = fused_cluster_size(f)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dau_forward_fused_launch(
             x_t.data_ptr(), filt.data_ptr(), kern_t.data_ptr(), out.data_ptr(), code, n, s, f,
-            h, wd, ks, kb, kern_t.shape[-1], stream)
+            h, wd, ks, kb, kern_t.shape[-1], csize, stream)
     if err != 0:
         raise RuntimeError(f"dau_forward_fused launch failed: cudaError {err}")
     dau_forward_fused.launches += 1
+    if csize == 1:
+        dau_forward_fused.launches_clusterless += 1
     return out
 
 
 dau_forward_fused.launches = 0
+# the launches among them on the kernel's branch without a cluster
+dau_forward_fused.launches_clusterless = 0
+
+
+def fused_cluster_size(f: int) -> int:
+    """Blocks per cluster of K5 for F output channels, which the wrapper
+    passes to the launch (`csrc/dau_forward_fused.cu` takes it as given):
+    pairs of 64-wide F tiles share their blur as a 2-block cluster where
+    the tiles pair up, else each block blurs alone (an odd tile count:
+    F = 64, 192, ...)."""
+    return 2 if -(-f // 64) % 2 == 0 else 1
 
 
 def aggregate_forward(x_blur, w, mu1, mu2, ks: int,
@@ -470,7 +485,7 @@ def _library(name: str) -> ctypes.CDLL:
     if name == "dau_forward_fused":
         lib.dau_forward_fused_smem_bytes.argtypes = [c_int] * 5
         lib.dau_forward_fused_smem_bytes.restype = c_ll
-        lib.dau_forward_fused_launch.argtypes = [c_ptr] * 4 + [c_int] * 9 + [c_ptr]
+        lib.dau_forward_fused_launch.argtypes = [c_ptr] * 4 + [c_int] * 10 + [c_ptr]
         lib.dau_forward_fused_launch.restype = c_int
     else:
         lib.dau_aggregate_smem_bytes.argtypes = [c_int] * 3

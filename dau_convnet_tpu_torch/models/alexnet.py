@@ -11,7 +11,6 @@ The fused_* fields and phi_caching (serving only) go to every DAU layer.
 
 from __future__ import annotations
 
-import math
 import typing as tp
 
 import torch
@@ -19,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import DAUConv2d
+from ._common import Affine
 
 __all__ = ["AlexNetDAU", "ALEXNET_DAU_VARIANTS"]
 
@@ -43,18 +43,6 @@ def _pooled(size: int) -> int:
     return (size - 3) // 2 + 1
 
 
-class _Affine(nn.Module):
-    """f32 weight + bias of a conv or dense layer, drawn from `generator`
-    with the lecun-normal scale 1/sqrt(fan_in)."""
-
-    def __init__(self, shape, fan_in, device, generator):
-        super().__init__()
-        gen_device = generator.device if generator is not None else device
-        w = torch.randn(shape, generator=generator, device=gen_device) / math.sqrt(fan_in)
-        self.weight = nn.Parameter(w.to(device))
-        self.bias = nn.Parameter(torch.zeros(shape[0], device=device))
-
-
 class AlexNetDAU(nn.Module):
     """AlexNet with DAU conv2-conv5. Input NCHW (N, 3, image_size, image_size);
     `image_size` fixes fc6's width (227 -> 256*6*6)."""
@@ -69,8 +57,8 @@ class AlexNetDAU(nn.Module):
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
-        units = ALEXNET_DAU_VARIANTS[variant]
-        self.conv1 = _Affine((96, 3, 11, 11), 3 * 11 * 11, device, generator)
+        self.dau_units = units = ALEXNET_DAU_VARIANTS[variant]
+        self.conv1 = Affine((96, 3, 11, 11), 3 * 11 * 11, device, generator)
         for name, s, f, _ in _DAU_LAYERS:
             setattr(self, name, DAUConv2d(
                 s, f, units, max_kernel_size, static_max_offset=static_max_offset,
@@ -79,22 +67,26 @@ class AlexNetDAU(nn.Module):
                 dtype=dtype, device=device, generator=generator))
         side = _pooled(_pooled(_pooled((image_size - 11) // 4 + 1)))
         fc_in = 256 * side * side
-        self.fc6 = _Affine((4096, fc_in), fc_in, device, generator)
-        self.fc7 = _Affine((4096, 4096), 4096, device, generator)
-        self.fc8 = _Affine((num_classes, 4096), 4096, device, generator)
+        self.fc6 = Affine((4096, fc_in), fc_in, device, generator)
+        self.fc7 = Affine((4096, 4096), 4096, device, generator)
+        self.fc8 = Affine((num_classes, 4096), 4096, device, generator)
 
-    def _dense(self, layer: _Affine, x):
-        return F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
+    def num_dau_units(self, in_channels=(96, 256, 384, 384)) -> int:
+        """DAU units of conv2-conv5: sum of S*G*F (G before the rounding to
+        groups of 2), the published budgets 0.3M/0.7M/1.5M for the
+        variants small/default/large."""
+        g = self.dau_units[0] * self.dau_units[1]
+        outs = (256, 384, 384, 256)
+        return sum(s * g * f for s, f in zip(in_channels, outs))
 
     def forward(self, x):
         dt = self.dtype
-        x = F.conv2d(x.to(dt), self.conv1.weight.to(dt), self.conv1.bias.to(dt), stride=4)
-        x = _max_pool_nchw(F.relu(x))
+        x = _max_pool_nchw(F.relu(self.conv1.conv(x, dt, stride=4)))
         for name, _, _, pool in _DAU_LAYERS:
             x = getattr(self, name)(x)
             if pool:
                 x = _max_pool_nchw(x)
         x = x.reshape(x.shape[0], -1)
-        x = F.relu(self._dense(self.fc6, x))
-        x = F.relu(self._dense(self.fc7, x))
-        return self._dense(self.fc8, x)
+        x = F.relu(self.fc6.dense(x, dt))
+        x = F.relu(self.fc7.dense(x, dt))
+        return self.fc8.dense(x, dt)

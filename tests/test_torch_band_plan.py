@@ -334,3 +334,15 @@ def test_strips_of_any_width_sum_every_pixel_once(wc, kyb):
     got = _aggregate_in_bands(xb_t, kern_t, f, h, w, ks, plan)
     want = tkf.aggregate_forward_plain(x.float(), wt, mu1, mu2, ks).double()
     assert float((got - want).abs().max()) <= BOUND * float(want.abs().max())
+
+
+@pytest.mark.parametrize("f,csize", [(3, 1), (64, 1), (96, 2), (128, 2), (192, 1), (256, 2),
+                                     (384, 2), (512, 2), (65, 2), (200, 2)])
+def test_fused_cluster_size_pairs_f_tiles(f, csize):
+    # K5 runs pairs of 64-wide F tiles as a 2-block cluster; an odd tile
+    # count (the other models' F = 64 and 192, and dx into 3 channels)
+    # takes the branch without one, which `launches_clusterless` counts
+    assert tkf.fused_cluster_size(f) == csize
+    assert -(-f // 64) % 2 == (csize == 1)
+    assert all(tkf.fused_plan(hw, hw, 9, kb, torch.bfloat16) is not None
+               for hw in (32, 16, 8, 56, 28, 14, 7) for kb in (9, 17))

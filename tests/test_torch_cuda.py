@@ -966,9 +966,9 @@ def test_band_and_strip_plans_equal_the_kernels_on_wide_planes(cuda_device, h, w
 @pytest.mark.parametrize("engine", ["pallas", "pallas_fused"])
 def test_layer_on_a_wide_plane_matches_xla_engine(cuda_device, engine):
     # 2x32x24x300: K4 or K5 in column strips, forward and dx pass, and K6.
-    # sigma is left untrained, as in the models: its gradient, one sum over
-    # the whole plane, carries K6's f32 hi/lo split (~2**-17 per product)
-    # beyond 1e-4 of its value at this size, strips or not
+    # sigma is left untrained, as in the models (its gradient, one sum over
+    # the whole plane, went beyond 1e-4 of its value at this size under
+    # K6's former f32 hi/lo split, strips or not)
     out = {}
     for eng in (engine, "xla"):
         layer = DAUConv2d(32, 40, (2, 1), 9, engine=eng, device=cuda_device,
@@ -1128,3 +1128,140 @@ def test_f32_xla_layer_on_the_card_matches_the_cpu_under_torch_defaults():
         _assert_matrix(got.numpy(), want.numpy(), name)
         # and the file's f32 bound, which TF32 (a 10-bit mantissa) breaks
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+
+# The other models' layer shapes (N, S, F, H): the CIFAR nets at 32x32
+# (conv1's S = 3, conv3's F = 192) and DAU-ResNet-18 at 224x224 (stage 0 at
+# 56x56, F = 64), G = 4 each. F = 64 and 192 are odd counts of 64-wide F
+# tiles, where K5 runs without its 2-block cluster; "cifar1_dx" is the dx
+# shape of the 3-channel layer (F = 96 in, 3 out, one tile).
+MODEL_SHAPES = {
+    "cifar1": (4, 3, 96, 32), "cifar1_dx": (4, 96, 3, 32), "cifar2": (4, 96, 96, 16),
+    "cifar3": (4, 96, 192, 8), "cifar3_dx": (4, 192, 96, 8), "resnet0": (2, 64, 64, 56),
+    "resnet1": (2, 128, 128, 28), "resnet3": (2, 512, 512, 7),
+}
+
+
+def _model_case(name, device, dtype, seed=0):
+    n, s, f, hw = MODEL_SHAPES[name]
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((n, s, hw, hw), generator=gen).to(device, dtype)
+    w = (torch.randn((s, 4, f), generator=gen) * 0.1).to(device, dtype)
+    mu1, mu2 = (torch.rand((2, s, 4, f), generator=gen) * 7.98 - 3.99).to(device, dtype)
+    return x, w, mu1, mu2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kb,sigma", [(9, 0.5), (17, 1.6)])
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("name", sorted(MODEL_SHAPES))
+def test_fused_kernel_at_the_model_shapes_matches_twin(cuda_device, name, dtype, bound, kb,
+                                                       sigma):
+    """K5 at G = 4, S = 3, odd F-tile counts (its cluster-less branch) and
+    the blur filter of a trainable sigma (kb = 17)."""
+    args = _model_case(name, cuda_device, dtype)
+    filt = gaussian_filters(sigma, size=kb, device=cuda_device)["w"]
+    before = tk.dau_forward_fused.launches, tk.dau_forward_fused.launches_clusterless
+    y = tk.dau_forward_fused(*args, filt, KS)
+    torch.cuda.synchronize()
+    clusterless = MODEL_SHAPES[name][2] in (3, 64, 192)
+    assert (tk.dau_forward_fused.launches, tk.dau_forward_fused.launches_clusterless) == (
+        before[0] + 1, before[1] + clusterless)
+    want = tk.dau_forward_fused_plain(args[0].float(), *args[1:], filt, KS)
+    assert y.dtype == dtype and y.shape == want.shape
+    assert float((y.float() - want).abs().max()) <= bound * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("name", sorted(MODEL_SHAPES))
+def test_aggregate_kernel_at_the_model_shapes_matches_twin(cuda_device, name, dtype, bound):
+    args = _model_case(name, cuda_device, dtype, seed=1)
+    y = tk.aggregate_forward(*args, KS)
+    want = tk.aggregate_forward_plain(args[0].float(), *args[1:], KS)
+    assert y.dtype == dtype
+    assert float((y.float() - want).abs().max()) <= bound * float(want.abs().max())
+
+
+# K1/K2 at G = 4 on the new planes: (M, N, S, G, F, H); 32x32 has 684 bins,
+# 56x56 1,860 (the op sends G >= 4 to K1 at any bin count); M = 4 is the
+# trainable-sigma backward; S = 3 is CIFAR conv1
+SPECTRAL_G4 = {
+    "cifar1_m3": (3, 4, 3, 4, 96, 32), "cifar1_m4": (4, 4, 3, 4, 96, 32),
+    "cifar2_m4": (4, 4, 96, 4, 96, 16), "resnet0_m3": (3, 2, 64, 4, 64, 56),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("name", sorted(SPECTRAL_G4))
+def test_spectral_grads_at_g4_on_the_model_planes_match_twin(cuda_device, name, dtype, bound):
+    m, n, s, g, f, h = SPECTRAL_G4[name]
+    p1, _, rb = tfe.plan_bins(h, h, KS)
+    assert tfb.spectral_plan(m=m, g=g, nj=12, p1b=p1, rbb=rb) is not None
+    args, kw, (esb, wg) = _spectral_case(SPECTRAL_G4[name], cuda_device, dtype)
+    before = tfb.fused_spectral_grads.launches_k1
+    got = tfb.fused_spectral_grads(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfb.fused_spectral_grads.launches_k1 == before + 1
+    want = tfb.fused_spectral_grads_plain(*args, **kw)
+    assert float((got - want).abs().max()) <= bound * float(want.abs().max())
+    got = tfb.fused_spectral_grads(*args, **kw, esb=esb, wg=wg)
+    want = tfb.fused_spectral_grads_plain(*args, **kw, esb=esb, wg=wg)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= bound * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,s,f,hw", [(3, 128, 3, 96, 32), (4, 128, 96, 96, 16)])
+def test_grad_tables_f32_kernel_holds_a_cancelling_table(cuda_device, m, n, s, f, hw):
+    """K6 in f32 at the CIFAR layer shapes (N = 128) with an error of zero
+    mean per channel, as a train-mode BatchNorm hands back: within 1e-5 of
+    max|table| of the float64 table (three bf16 parts, six products; two
+    parts and three products moved such tables by ~1e-3 in a step)."""
+    gen = torch.Generator().manual_seed(3)
+    xb = (torch.randn((m, n, s, hw, hw), generator=gen) + 3.0).to(cuda_device)
+    err = torch.randn((n, f, hw, hw), generator=gen).to(cuda_device)
+    err = err - err.mean(dim=(0, 2, 3), keepdim=True)
+    got = tkb.grad_tables(xb, err, KS)
+    want = tke.grad_tables(xb.double(), err.double(), KS)
+    assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,s,f,hw", [(3, 128, 3, 96, 32), (4, 128, 96, 96, 16)])
+def test_grad_tables_bf16_kernel_holds_a_cancelling_table(cuda_device, m, n, s, f, hw):
+    """K6 in bf16 at the CIFAR layer shapes (N = 128) with an error of zero
+    mean per channel: within 1e-4 of max|table| (phase 6's bound) of the
+    float64 table of the same bf16 inputs. One wgmma chain per tap, rounded
+    toward zero, drifted by 1.9e-4 at the first shape; the kernel folds its
+    chain every FOLD_BF16 stages (2.4e-6 there)."""
+    gen = torch.Generator().manual_seed(4)
+    xb = (torch.randn((m, n, s, hw, hw), generator=gen) + 3.0).to(cuda_device, torch.bfloat16)
+    err = torch.randn((n, f, hw, hw), generator=gen)
+    err = (err - err.mean(dim=(0, 2, 3), keepdim=True)).to(cuda_device, torch.bfloat16)
+    got = tkb.grad_tables(xb, err, KS)
+    want = tke.grad_tables(xb.double(), err.double(), KS)
+    assert float((got.double() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_fused_launch_takes_the_wrappers_cluster_size(cuda_device):
+    """K5's launcher launches with the cluster size the wrapper passes and
+    refuses one that does not divide the F-tile count (F = 64: one tile)."""
+    x, w, mu1, mu2 = _model_case("resnet0", cuda_device, torch.bfloat16)
+    filt = gaussian_filters(0.5, size=9, device=cuda_device)["w"]
+    x_t, kern_t, f32 = tk.fused_forward_operands(x, w, mu1, mu2, filt, KS)
+    n, s, h, wd = x.shape
+    out = torch.empty((n, 64, h, wd), dtype=x.dtype, device=cuda_device)
+    lib = tk._library("dau_forward_fused")
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    codes = [lib.dau_forward_fused_launch(x_t.data_ptr(), f32.data_ptr(), kern_t.data_ptr(),
+                                          out.data_ptr(), 1, n, s, 64, h, wd, KS, 9,
+                                          kern_t.shape[-1], csize, stream)
+             for csize in (2, 1)]
+    torch.cuda.synchronize()
+    assert codes[0] != 0 and codes[1] == 0
+    assert tk.fused_cluster_size(64) == 1
+    want = tk.dau_forward_fused_plain(x.float(), w, mu1, mu2, filt, KS)
+    assert float((out.float() - want).abs().max()) <= 1e-2 * float(want.abs().max())

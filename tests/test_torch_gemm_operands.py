@@ -2,16 +2,20 @@
 the CPU.
 
 The kernels run only on the card, but what their wrappers prepare is plain
-torch and runs here: the bf16 hi/lo split both share (`kernels/forward.py`),
-K6's chunk-major channels-last copies, its position-major table and the
-view back (`kernels/backward.py`), and K7's cached [C^T, -S^T] matrix, its
-spectra and segments (`kernels/spectral.py`). A product over the prepared operands, in float64
+torch and runs here: the bf16 splits of f32 input (`kernels/forward.py`:
+K6's in three parts, K7's hi/lo), K6's chunk-major channels-last copies,
+its position-major table and the view back (`kernels/backward.py`), and
+K7's cached [C^T, -S^T] matrix, its spectra and segments
+(`kernels/spectral.py`). A product over the prepared operands, in float64
 as the tensor cores sum exact bf16 products, must equal the JAX Pallas
-kernels (interpret mode): within 2e-5 * max|reference| (f32 input: the
+kernels (interpret mode): within 2e-5 * max|reference| (f32 input: K7's
 split keeps about 16 bits of each factor and drops lo * lo, ~3 * 2**-16 of
-each product at worst; bf16 input: exact products, f32 sums in another
-order).
+each product at worst, K6's six products ~2**-24; bf16 input: exact
+products, f32 sums in another order).
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -77,11 +81,12 @@ def test_grad_tables_operands_split_along_the_batch():
     x, e = torch.tensor(xb), torch.tensor(err)
     err_t, xb_t = tkb.grad_tables_operands(x, e)
     assert err_t.dtype == xb_t.dtype == torch.bfloat16
-    assert err_t.shape == (1, 6, 4, 6 * 8) and xb_t.shape == (2, 6, 4, 6 * 8)
-    xh, xl = tkf.split_bf16(x.permute(1, 3, 4, 0, 2).reshape(2, 4, 6, 9))
-    eh, el = tkf.split_bf16(e.permute(0, 2, 3, 1))
-    assert torch.equal(xb_t, tkb.chunk_major(torch.cat([xh, xl, xh])))
-    assert torch.equal(err_t, tkb.chunk_major(torch.cat([eh, eh, el])))
+    assert err_t.shape == (1, 12, 4, 6 * 8) and xb_t.shape == (2, 12, 4, 6 * 8)
+    x1, x2, x3 = tkf.split_bf16_3(x.permute(1, 3, 4, 0, 2).reshape(2, 4, 6, 9))
+    e1, e2, e3 = tkf.split_bf16_3(e.permute(0, 2, 3, 1))
+    # the six products of orders up to 3, stacked along the batch
+    assert torch.equal(xb_t, tkb.chunk_major(torch.cat([x1, x1, x2, x1, x2, x3])))
+    assert torch.equal(err_t, tkb.chunk_major(torch.cat([e1, e2, e1, e3, e2, e1])))
     bf_err, bf_xb = tkb.grad_tables_operands(x.bfloat16(), e.bfloat16())
     assert bf_err.shape[1] == bf_xb.shape[1] == 2  # no split: N images
 
@@ -145,9 +150,83 @@ def test_grad_tables_operands_match_jax_kernel(name, dtype):
         jnp.asarray(xb, getattr(jnp, dtype)), jnp.asarray(err, getattr(jnp, dtype)))
     x, e = torch.tensor(xb).to(getattr(torch, dtype)), torch.tensor(err).to(getattr(torch, dtype))
     err_t, xb_t = tkb.grad_tables_operands(x, e)
-    assert err_t.shape[1] == (3 * n if dtype == "float32" else n)
+    assert err_t.shape[1] == (6 * n if dtype == "float32" else n)
     got = _tables_from_operands(err_t, xb_t, f, m, s, ks)
     _close(got.numpy(), np.asarray(ref, np.float32), f"{name} {dtype}")
+
+
+def test_grad_tables_f32_operands_hold_a_cancelling_table():
+    """K6's f32 products where the table's sums cancel, as before a
+    train-mode BatchNorm (the error has zero mean per channel and no part
+    along its input): the products of the prepared operands, summed exactly,
+    stay within 1e-6 * max|table| of the float64 table of the f32 inputs
+    (4.7e-8 here). Two bf16 parts and three products (the split K6 took
+    before, ~2**-17 of each product) miss it (1.2e-5 here)."""
+    m, n, s, f, h, w, ks = 1, 16, 3, 6, 8, 8, 3
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.standard_normal((m, n, s, h, w)).astype(np.float32) + 3.0)
+    e = torch.tensor(rng.standard_normal((n, f, h, w)))
+    e = e - e.mean(dim=(0, 2, 3), keepdim=True)
+    ref = _tables_from_operands(tkb.chunk_major(e.permute(0, 2, 3, 1)),
+                                tkb.chunk_major(x.double().permute(1, 3, 4, 0, 2)
+                                                .reshape(n, h, w, m * s)), f, m, s, ks)
+    e = e.float()
+    got = _tables_from_operands(*tkb.grad_tables_operands(x, e), f, m, s, ks)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-6 * scale
+    xh, xl = tkf.split_bf16(x.permute(1, 3, 4, 0, 2).reshape(n, h, w, m * s))
+    eh, el = tkf.split_bf16(e.permute(0, 2, 3, 1))
+    old = _tables_from_operands(tkb.chunk_major(torch.cat([eh, eh, el])),
+                                tkb.chunk_major(torch.cat([xh, xl, xh])), f, m, s, ks)
+    assert float((old - ref).abs().max()) > 1e-6 * scale
+
+
+def _toward_zero(v):
+    """float64 -> float32 rounded toward zero, as the tensor cores round
+    their f32 sums."""
+    r = v.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def _k6_sums(steps, fold):
+    """K6's f32 sums of table entries from the exact sums of each k16 step
+    ((K, E) float64): each added into its wgmma chain, rounded toward zero;
+    every `fold` stages of 4 steps (0: never) the chain is added into the
+    folded sum, rounded to nearest, and restarts."""
+    acc = np.zeros(steps.shape[1], np.float32)
+    total = np.zeros_like(acc)
+    for k, part in enumerate(steps):
+        acc = _toward_zero(acc.astype(np.float64) + part)
+        if (fold and (k + 1) % (4 * fold) == 0) or k + 1 == len(steps):
+            total = (total.astype(np.float64) + acc).astype(np.float32)
+            acc[:] = 0
+    return total
+
+
+def test_grad_tables_f32_folds_its_wgmma_sums():
+    """The kernel folds its wgmma chain every FOLD_F32 stages for f32 input
+    and every FOLD_BF16 for bf16 (the periods the source sets): emulated on
+    the sums of one tap over 8,192 k16 steps (the products of 128 images of
+    32x32, as at CIFAR conv1) of a cancelling table, one chain rounded
+    toward zero drifts by ~5e-4 of max|table| (the card showed 7e-4 for
+    f32 input), the sums folded every 4 stages stay within 1e-5 and every
+    32 within 2e-5 (9e-6 here)."""
+    src = (Path(tkb.__file__).parent / "csrc" / "dau_grad_tables.cu").read_text()
+    periods = dict(re.findall(r"constexpr int (FOLD_F32|FOLD_BF16) = (\d+);", src))
+    assert periods == {"FOLD_F32": str(tkb.FOLD_F32), "FOLD_BF16": str(tkb.FOLD_BF16)}
+    assert (tkb.FOLD_F32, tkb.FOLD_BF16) == (4, 32)
+    rng = np.random.default_rng(0)
+    e = rng.standard_normal((8192 * 16, 32)).astype(np.float32).astype(np.float64)
+    e -= e.mean(axis=0)
+    x = (3 + rng.standard_normal(e.shape)).astype(np.float32).astype(np.float64)
+    steps = (x * e).reshape(8192, 16, -1).sum(axis=1)
+    ref = steps.sum(axis=0)
+    scale = np.abs(ref).max()
+    assert np.abs(_k6_sums(steps, tkb.FOLD_F32) - ref).max() <= 1e-5 * scale
+    assert np.abs(_k6_sums(steps, tkb.FOLD_BF16) - ref).max() <= 2e-5 * scale
+    assert np.abs(_k6_sums(steps, 0) - ref).max() > 1e-4 * scale
 
 
 def _idft_case(kind, h, c, seed):
