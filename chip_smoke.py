@@ -182,9 +182,26 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    (N=32), G = 4, bf16: K5 (kb 9, and 17 at the CIFAR layers), K4, K6 and
    K1 checked against their twins on the same inputs, then timed: K5
    against its twin and the two-call library chain, K4 and K6 against one
-   `conv2d` each, K1 against its twin.
+   `conv2d` each, K1 against its twin;
+24. the bench's configurations (`dau_convnet_tpu_torch/bench.py`), bf16:
+   one SGD step of the small variant (units (1, 1), rounded to G = 2 with
+   one dummy unit) and of the large one (G = 4) on 'auto' (-> fourier: 3
+   K1 for small as for default, 4 for large, whose G >= 4 gate takes
+   conv2's 496 bins too) and on 'pallas_fused' (8 K5 + 4 K6), each under
+   `checked_kernels` with `run_steps`' checks; one phi-cached request of
+   each variant against its uncached request (1e-2*max|logits|); 20
+   memtest steps (`bench.memtest_setup`: 6x6 planes, S=128, F=256, mu
+   from +-10 clipped to 3.9; one K1 a step at 60 bins), the first under
+   `checked_kernels`, all finite; the layer cell (`bench.layer_setup`:
+   N32, S128, 16x16, F32, G=2) on 'pallas' (2 K4 + 1 K6), 'pallas_fused'
+   (2 K5 + 1 K6) and 'fourier' (1 K1) at static_max_offset 3 and 1 (ks 9
+   and 5), each step under `checked_kernels`; and `python -m
+   dau_convnet_tpu_torch.bench --model layer --iters 5` as a child
+   process, whose last line must carry a value. Each step's device ms of
+   K5, K4, K6 and K1 and of everything (torch.profiler) is printed.
 
-The second-to-last line is a JSON summary of the kernels; the last line is
+The whole run's time prints before the summary. The second-to-last line
+is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a machine without a CUDA device.
 """
@@ -211,6 +228,7 @@ from dau_convnet_tpu_torch.kernels import forward as kfwd  # noqa: E402
 from dau_convnet_tpu_torch.kernels import fused_bwd as kfb  # noqa: E402
 from dau_convnet_tpu_torch.kernels import fused_fwd as kff  # noqa: E402
 from dau_convnet_tpu_torch.kernels import spectral as ksp  # noqa: E402
+from dau_convnet_tpu_torch import bench  # noqa: E402
 from dau_convnet_tpu_torch.kernels._build import build, build_log, disassemble  # noqa: E402
 from dau_convnet_tpu_torch.examples.train_cifar10 import synthetic_spatial  # noqa: E402
 from dau_convnet_tpu_torch.models import (AlexNetDAU, ConvCifarNet, DAUCifarNet,  # noqa: E402
@@ -221,6 +239,8 @@ from dau_convnet_tpu_torch.ops import fourier_engine as fe  # noqa: E402
 from dau_convnet_tpu_torch.ops import xla_engine  # noqa: E402
 from dau_convnet_tpu_torch.parallel import make_train_step  # noqa: E402
 from dau_convnet_tpu_torch.utils import load_params_npz, params_from_flax  # noqa: E402
+from dau_convnet_tpu_torch.utils.profiling import (device_busy_ms, device_time,  # noqa: E402
+                                                    kernel_ms, trace)
 
 KERNEL = dict(name="dau_forward_fused (K5: blur warps + TMA + wgmma)", route="cuda",
               source="dau_convnet_tpu_torch/kernels/csrc/dau_forward_fused.cu",
@@ -269,43 +289,53 @@ def _card() -> str:
     return out.splitlines()[0]
 
 
-def _cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def _cuda_ms(fn, iters: int = 10) -> float:
+    """ms per call of fn: `device_time`'s CUDA events after a warm-up."""
+    return device_time(fn, iters=iters) * 1e3
+
+
+def _kernel_ms(fn, iters: int = 5):
+    """`kernel_ms` per call of fn: a device-only `trace` of `iters` calls
+    after one warm-up, taken again (up to 3 times) where it recorded no
+    device time at all."""
+    fn()
+    for _ in range(3):
+        with trace(host=False) as prof:
+            for _ in range(iters):
+                fn()
+        rows = kernel_ms(prof)
+        if rows:
+            break
+    return {key: ms / iters for key, ms in rows.items()}
 
 
 def _device_ms(fn, fragment: str, iters: int = 5):
     """(device ms of the kernels whose name holds `fragment`, device ms of
-    all kernels) per call of fn, from torch.profiler, after one warm-up."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a trace that recorded no kernel at all is taken again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        rows = [(e.key, e.self_device_time_total / 1e3 / iters) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        if rows:
-            break
-    return sum(ms for k, ms in rows if fragment in k), sum(ms for _, ms in rows)
+    all kernels) per call of fn, from `_kernel_ms`."""
+    rows = _kernel_ms(fn, iters)
+    return sum(ms for k, ms in rows.items() if fragment in k), sum(rows.values())
+
+
+# the name fragments of K5's, K4's, K6's and K1's kernels in a profile
+KERNEL_NAMES = (("K5", "fused_forward_kernel"), ("K4", "aggregate_kernel"),
+                ("K6", "grad_tables_kernel"), ("K1", "spectral_grads_kernel"))
+
+
+def _kernel_line(fn, iters: int = 3) -> str:
+    """Device ms per call of fn of each of K5, K4, K6 and K1 that ran, and
+    of everything on the device."""
+    rows = _kernel_ms(fn, iters)
+    parts = [f"{k} {sum(ms for n, ms in rows.items() if frag in n):.4f}"
+             for k, frag in KERNEL_NAMES if any(frag in n for n in rows)]
+    return f"device ms per step: {', '.join(parts)}; all {sum(rows.values()):.4f}"
 
 
 def _spread(fn, repeats: int = 5, iters: int = 5):
-    """(median, min, max) ms of `repeats` runs of `_cuda_ms(fn, iters)`:
-    the Fourier paths launch many small ops, so the host sets their pace
-    and a single mean moves from run to run."""
-    fn()
-    times = sorted(_cuda_ms(fn, iters=iters, warmup=1) for _ in range(repeats))
-    return times[len(times) // 2], times[0], times[-1]
+    """(median, min, max) ms of `repeats` runs of `iters` calls of fn (the
+    bench's `time_steps`): the Fourier paths launch many small ops, so the
+    host sets their pace and a single mean moves from run to run."""
+    med, runs = bench.time_steps(fn, iters, torch.device("cuda"), repeats)
+    return med * 1e3, min(runs), max(runs)
 
 
 def _fmt(spread) -> str:
@@ -798,8 +828,7 @@ def time_dx(args, kw, dx, name, card, total):
     d_dx = _device_ms(lambda: kfb.fused_spectral_grads(*args, **kw, **dx), "spectral_dx_kernel")[0]
     phire, phiim = kfb._phase_factors(t1, t2, a1, a2, kw["p1b"], kw["rbb"], xs.dtype)
     wgf = wg.float()
-    t_p = _cuda_ms(lambda: kfb._dx_spectra_plain(esb, phire, phiim, wgf, kw["n_img"]), iters=3,
-                   warmup=1)
+    t_p = _cuda_ms(lambda: kfb._dx_spectra_plain(esb, phire, phiim, wgf, kw["n_img"]), iters=3)
     del phire, phiim
     lhs = torch.randn((b, n2, 2 * f), device=esb.device).to(torch.bfloat16)
     rhs = torch.randn((b, 2 * f, s), device=esb.device).to(torch.bfloat16)
@@ -839,11 +868,10 @@ def time_spectral(gen, dev, card, worst):
         del got, want
         t_k1 = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw))
         d_k1, d_all = _device_ms(lambda: kfb.fused_spectral_grads(*args, **kw), "PhiGather")
-        t_p1 = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw), iters=3, warmup=1)
+        t_p1 = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw), iters=3)
         t_k2 = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw, **dx))
-        t_p2 = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw, **dx), iters=3,
-                        warmup=1)
-        t_unf = _cuda_ms(lambda: fe.fourier_unit_grads(xb, err, mu1, mu2, 9), iters=3, warmup=1)
+        t_p2 = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw, **dx), iters=3)
+        t_unf = _cuda_ms(lambda: fe.fourier_unit_grads(xb, err, mu1, mu2, 9), iters=3)
         t_f2 = _cuda_ms(lambda: fe.fourier_unit_grads_fused2(xb, err, mu1, mu2, 9))
         main = name != "conv2"
         bd1 = (b1 if main else Bounds()).add(*_spectral_work(args, kw))
@@ -1015,22 +1043,22 @@ def profile_step(name, step, x, labels, step_ms, card, steps: int = 3):
     after one warm-up): per-category and top-kernel ms per step, and the
     device's busy share of `step_ms`, the step's CUDA-event time measured
     without the profiler (the profiler slows the host)."""
-    from torch.profiler import ProfilerActivity, profile
     step(x, labels)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step(x, labels)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    busy = device_busy_ms(prof)
+    if busy is None:
+        print(f"profile: torch.profiler recorded no device time [{card}]")
+        return
+    device_ms = busy / steps
     rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    device_ms = sum(ms for _, ms, _ in rows)
-    if not rows:
-        print(f"profile: torch.profiler recorded no device time [{card}]")
-        return
     cats = {}
     for key, ms, _ in rows:
         cat = next((c for c, frags in CATEGORIES if any(fr in key for fr in frags)), "other")
@@ -1238,12 +1266,11 @@ def time_new_kernels(gen, dev, card, worst):
                                 "FactoredGather")
         d_dx = _device_ms(lambda: kfb.fused_spectral_grads(*args, **kw, **dx, gather="factored"),
                           "spectral_dx_kernel")[0]
-        t_p = _cuda_ms(lambda: kfb.fused_factored_grads_plain(*args, **kw), iters=3, warmup=1)
+        t_p = _cuda_ms(lambda: kfb.fused_factored_grads_plain(*args, **kw), iters=3)
         t_kd = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw, **dx, gather="factored"))
-        t_pd = _cuda_ms(lambda: kfb.fused_factored_grads_plain(*args, **kw, **dx), iters=3,
-                        warmup=1)
+        t_pd = _cuda_ms(lambda: kfb.fused_factored_grads_plain(*args, **kw, **dx), iters=3)
         t_k1 = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw))
-        t_unf = _cuda_ms(lambda: fe.fourier_unit_grads(xb, err, mu1, mu2, 9), iters=3, warmup=1)
+        t_unf = _cuda_ms(lambda: fe.fourier_unit_grads(xb, err, mu1, mu2, 9), iters=3)
         t_f2 = _cuda_ms(lambda: fe.fourier_unit_grads_fused2(xb, err, mu1, mu2, 9,
                                                              gather="factored"))
         bd = out["k8"][3].add(*_spectral_work(args, kw))
@@ -1289,7 +1316,7 @@ def time_new_kernels(gen, dev, card, worst):
                 f"K3 {tag} {way}", kff.fused_apply_phi(**ops, **kw),
                 kff.fused_apply_phi_plain(**ops, **kw), 1e-2))
             t_k = _cuda_ms(lambda: kff.fused_apply_phi(**ops, **kw))
-            t_p = _cuda_ms(lambda: kff.fused_apply_phi_plain(**ops, **kw), iters=3, warmup=1)
+            t_p = _cuda_ms(lambda: kff.fused_apply_phi_plain(**ops, **kw), iters=3)
             t_f = _cuda_ms(lambda: fe.fourier_apply_phi_fused(x, w, mu1, mu2, 9,
                                                               contract_f=contract_f))
             t_u = _cuda_ms(lambda: _unfused_apply(x, w, mu1, mu2, contract_f))
@@ -1355,6 +1382,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    t_run = time.perf_counter()
     card = _card()
     print(f"card: {card}")
     print(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}), "
@@ -1684,10 +1712,15 @@ def main(argv=None) -> int:
     print(f"phases 21-23 (G=4): launches {COUNTS} {more}; K1 launched {more[3]} times at G=4, "
           f"K5 {more[0]} times")
 
+    # 24. the bench's configurations
+    more = _add(more, bench_configurations(dev, args.seed, card, gen))
+
     launches_k5 = launches + runs["pallas_fused"][1][0] + more[0]
     launches_k4 = runs["pallas"][1][1] + more[1]
     launches_k6 = runs["pallas_fused"][1][2] + runs["pallas"][1][2] + more[2]
     launches_k1 = runs["fourier"][1][3] + more[3]
+    print(f"chip_smoke: the whole run took {time.perf_counter() - t_run:.1f} s, the build "
+          f"included [{card}]")
     launches_k2 = runs["fourier fused_dx"][1][4]
     launches_k8 = runs["fourier factored"][1][5]
     launches_k8dx = runs["fourier factored fused_dx"][1][6]
@@ -1773,7 +1806,7 @@ def time_aggregation(gen, dev, card, ks):
                     ("K4", lambda: kfwd.aggregate_forward(*args, ks), "aggregate_kernel"),
                     ("K5", lambda: kfwd.dau_forward_fused(*args, filt, ks),
                      "fused_forward_kernel")):
-                t = _cuda_ms(fn, iters=iters, warmup=1)
+                t = _cuda_ms(fn, iters=iters)
                 d = _device_ms(fn, frag, iters=iters)[0]
                 sums[kernel][0] += t
                 sums[kernel][1] += d
@@ -2003,7 +2036,7 @@ def time_model_layers(gen, dev, card):
                    kfb.fused_spectral_grads(*args, **kw),
                    kfb.fused_spectral_grads_plain(*args, **kw), 1e-2)
         t_k = _cuda_ms(lambda: kfb.fused_spectral_grads(*args, **kw))
-        t_p = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw), iters=3, warmup=1)
+        t_p = _cuda_ms(lambda: kfb.fused_spectral_grads_plain(*args, **kw), iters=3)
         sums["K1"][0] += t_k
         cols.append(f"K1 B={kw['p1b'] * kw['rbb']} {t_k:.3f} ms (twin {t_p:.3f})")
         del args
@@ -2160,6 +2193,110 @@ def resnet(dev, seed, card, gen):
               f"parameter tensors moved; step {_fmt(t)} over 5 runs of 3 [{card}]")
         profile_step(f"resnet18 {engine}", step, requests[0], labels, t[0], card)
         del model, step
+    return total
+
+
+# launches per bf16 step (COUNTS) of the bench's variants, by (variant,
+# engine): 'auto' resolves to fourier, whose gate fuses a layer at <= 256
+# bins or G >= 4 (the small variant's one unit is rounded to G = 2, so
+# conv2's 496 bins stay unfused as in the default variant)
+BENCH_STEPS = {
+    ("small", "auto"): (0, 0, 0, 3, 0, 0, 0, 0, 0),
+    ("small", "pallas_fused"): (8, 0, 4, 0, 0, 0, 0, 0, 0),
+    ("large", "auto"): (0, 0, 0, 4, 0, 0, 0, 0, 0),
+    ("large", "pallas_fused"): (8, 0, 4, 0, 0, 0, 0, 0, 0),
+}
+# launches per step of the bench's layer cell, by engine
+BENCH_LAYER = {"pallas": (0, 2, 1, 0, 0, 0, 0, 0, 0),
+               "pallas_fused": (2, 0, 1, 0, 0, 0, 0, 0, 0),
+               "fourier": (0, 0, 0, 1, 0, 0, 0, 0, 0)}
+# steps of the memtest and the launches of each (one K1 at 60 bins, G = 2)
+MEMTEST_STEPS, MEMTEST_WANT = 20, (0, 0, 0, 1, 0, 0, 0, 0, 0)
+
+
+def _finite(tag, tensors):
+    if not all(bool(torch.isfinite(t.float()).all()) for t in tensors):
+        raise AssertionError(f"{tag}: a tensor is not finite")
+
+
+def _checked_steps(tag, step, carry, steps, want):
+    """`steps` chained steps of a bench layer cell, the first under
+    `checked_kernels`, each launching `want` (COUNTS); returns the carry and
+    the counts."""
+    _zero_counts()
+    for i in range(steps):
+        before = _counts()
+        with checked_kernels(f"{tag} step") if i == 0 else contextlib.nullcontext():
+            carry = step(carry)
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(_counts(), before))
+        if got != want:
+            raise AssertionError(f"{tag} step {i}: launches {COUNTS} {got}, want {want}")
+    _finite(tag, carry)
+    return carry, _counts()
+
+
+def bench_configurations(dev, seed, card, gen):
+    """Phase 24: the configurations of `python -m dau_convnet_tpu_torch.bench`
+    that no earlier phase runs, in bf16 (see the module docstring). Returns
+    the launch counts."""
+    t0 = time.perf_counter()
+    total = (0,) * 9
+    x = torch.rand((BATCH, 3, IMAGE, IMAGE), generator=gen).to(dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen).to(dev)
+    for (variant, engine), want in BENCH_STEPS.items():
+        model = AlexNetDAU(variant=variant, engine=engine, image_size=IMAGE,
+                           dtype=torch.bfloat16, device=dev,
+                           generator=torch.Generator().manual_seed(seed))
+        g = model.dau_conv2.num_dau_units_all
+        with checked_kernels(f"bench {variant} {engine} bf16 step"):
+            step, counts, moved = run_steps(f"bench {variant} {engine}", model, [(x, labels)],
+                                            want, LR)
+        total = _add(total, counts)
+        print(f"train {variant} variant (G = {g} in the kernels) {engine}: one bf16 step of "
+              f"{BATCH}x3x{IMAGE}x{IMAGE}, launches {COUNTS} {counts}; {len(moved)} "
+              f"parameter tensors moved; {_kernel_line(lambda: step(x, labels))} [{card}]")
+        del model, step
+    with torch.inference_mode():
+        for variant in ("small", "large"):
+            kw = dict(variant=variant, image_size=IMAGE, dtype=torch.bfloat16, device=dev)
+            plain = AlexNetDAU(generator=torch.Generator().manual_seed(seed), **kw)
+            cached = refresh_phi_cache(AlexNetDAU(
+                phi_caching=True, generator=torch.Generator().manual_seed(seed), **kw), x)
+            y, y_c = plain(x).float(), cached(x).float()
+            err, scale = float((y - y_c).abs().max()), float(y.abs().max())
+            print(f"serve {variant} variant bf16 (auto -> fourier): phi-cached against "
+                  f"uncached max|dlogits|={err:.3e} max|logits|={scale:.3e} "
+                  f"bound={1e-2 * scale:.3e}")
+            if y.shape != (BATCH, 1000) or not err <= 1e-2 * scale:
+                raise AssertionError(f"serve {variant}: phi-cached logits disagree")
+            del plain, cached
+    step, carry = bench.memtest_setup(torch.bfloat16, dev)
+    carry, counts = _checked_steps("bench memtest", step, carry, MEMTEST_STEPS, MEMTEST_WANT)
+    total = _add(total, counts)
+    print(f"memtest: {MEMTEST_STEPS} bf16 steps of 32x128x6x6 -> 256 with mu from +-10 "
+          f"clipped to 3.9, all finite, launches {COUNTS} {counts}; "
+          f"{_kernel_line(lambda: step(carry))} [{card}]")
+    for engine, want in BENCH_LAYER.items():
+        for offset in (3.0, 1.0):
+            step, carry, _, _ = bench.layer_setup(32, 128, 32, 16, torch.bfloat16, engine,
+                                                  offset, dev)
+            carry, counts = _checked_steps(f"bench layer {engine} off{offset:g}", step, carry,
+                                           2, want)
+            total = _add(total, counts)
+            ks = DAUConvSettings(static_max_offset=offset).synth_kernel_size
+            print(f"layer cell {engine} static_max_offset {offset:g} (ks {ks}): 2 bf16 "
+                  f"steps of 32x128x16x16 -> 32, launches {COUNTS} {counts}; "
+                  f"{_kernel_line(lambda: step(carry))} [{card}]")
+    proc = subprocess.run([sys.executable, "-m", "dau_convnet_tpu_torch.bench", "--model",
+                           "layer", "--iters", "5"], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print(f"bench --model layer --iters 5 (rc {proc.returncode}): {last}")
+    if proc.returncode != 0 or json.loads(last or "{}").get("value") is None:
+        raise AssertionError(f"the bench's layer cell failed: {proc.stderr[-2000:]}")
+    print(f"phase 24 (the bench's configurations): launches {COUNTS} {total}, "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
     return total
 
 

@@ -1,0 +1,88 @@
+"""Profiling and timing helpers.
+
+Counterpart of `dau_convnet_tpu/utils/profiling.py`. The reference's
+tracing is compile-time `#define PROFILE_CUDA` blocks that synchronize and
+clock() each sub-kernel (dau_conv_forward_core.hpp:2506-2562). Here it is a
+`torch.profiler` trace (a Chrome trace, viewable in Perfetto) and CUDA-event
+timing on the card: PyTorch returns before the device finishes, so a host
+clock without a synchronize measures only the enqueue.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+import typing as tp
+
+import torch
+
+__all__ = ["trace", "device_time", "kernel_ms", "device_busy_ms"]
+
+
+@contextlib.contextmanager
+def trace(logdir: tp.Optional[str] = None, device: str = "cuda", host: bool = True):
+    """Profile the enclosed block with `torch.profiler` (host activity
+    unless `host=False`, and the card's kernels unless `device="cpu"`) and
+    yield the profiler. The
+    device is synchronized on entry (work queued before the block stays out
+    of it) and on exit; when `logdir` is given, a Chrome trace is written
+    into it as `trace_<pid>_<ns>.json`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] if host or device == "cpu" else []
+    if device != "cpu":
+        activities.append(ProfilerActivity.CUDA)
+    # one cycle: acc_events keeps its events (and the profiler's warning
+    # that a cycle clears them quiet)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    with profile(activities=activities, acc_events=True) as prof:
+        yield prof
+        if device != "cpu":
+            torch.cuda.synchronize()
+    if logdir is not None:
+        os.makedirs(logdir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(logdir, f"trace_{os.getpid()}_{time.monotonic_ns()}.json"))
+
+
+def kernel_ms(prof) -> tp.Dict[str, float]:
+    """Device ms of each kernel, copy and fill a `trace` recorded, by name:
+    the sum of their self device times (empty where it recorded none)."""
+    out: tp.Dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
+def device_busy_ms(prof, fragment: str = "") -> tp.Optional[float]:
+    """Device ms of the rows of `kernel_ms` whose name holds `fragment` (all
+    of them by default; one stream's kernels do not overlap, so all of them
+    is the time the device was busy). None where the trace recorded no
+    device time at all."""
+    rows = kernel_ms(prof)
+    return sum(ms for key, ms in rows.items() if fragment in key) if rows else None
+
+
+def device_time(fn, *args, iters: int = 10, device: str = "cuda") -> float:
+    """Seconds per call of `fn(*args)`: one warm-up call, then CUDA events
+    around `iters` calls on the card, or the host clock around them when
+    `device="cpu"`. The calls are not chained: eager PyTorch elides no
+    repeated call, so each one runs."""
+    fn(*args)
+    if device == "cpu":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*args)
+        return (time.perf_counter() - t0) / iters
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3 / iters

@@ -71,3 +71,56 @@ def test_bf16_model_keeps_dau_params_bf16_and_dense_params_f32():
         y = port(torch.rand((1, 3, IMAGE, IMAGE), generator=torch.Generator().manual_seed(1)))
     assert y.dtype == torch.bfloat16 and y.shape == (1, 1000)
     assert torch.isfinite(y.float()).all()
+
+
+# ---- the bench's other variants: small (units (1, 1), rounded to G = 2
+# with one dummy unit) and large (G = 4), logits and one step's gradients
+
+def _variant_params(variant, engine, x, rng):
+    model = JaxAlexNetDAU(variant=variant, engine=engine, train=False)
+    params = jax.device_get(model.init(jax.random.PRNGKey(0), jnp.asarray(x)))["params"]
+    for name in ("dau_conv2", "dau_conv3", "dau_conv4", "dau_conv5"):
+        layer = params[name]
+        shape = layer["mu1"].shape
+        layer["mu1"] = rng.uniform(-3.99, 3.99, shape).astype(np.float32)
+        layer["mu2"] = rng.uniform(-3.99, 3.99, shape).astype(np.float32)
+        layer["bias"] = (rng.standard_normal(shape[-1]) * 0.1).astype(np.float32)
+    return model, params
+
+
+@pytest.mark.parametrize("engine", ["pallas_fused", "fourier"])
+@pytest.mark.parametrize("variant, g", [("small", 2), ("large", 4)])
+def test_variant_logits_and_gradients_match_jax(variant, g, engine):
+    """Tolerances as for the default variant: the logits as in
+    `test_alexnet_logits_match_jax`, the gradients as in
+    `test_torch_train.py` (rtol 1e-3, floor 1e-4 * max|grad| per tensor)."""
+    import optax
+
+    rng = np.random.default_rng(0)
+    x = rng.random((2, 3, IMAGE, IMAGE)).astype(np.float32)
+    labels = rng.integers(0, 1000, 2)
+    model, params = _variant_params(variant, engine, x, rng)
+
+    def loss_fn(p):
+        logits = model.apply({"params": p}, jnp.asarray(x))
+        loss = optax.softmax_cross_entropy_with_integer_labels(logits, jnp.asarray(labels))
+        return loss.mean(), logits
+
+    (_, ref), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    ref = np.asarray(ref)
+    grads = params_from_flax(jax.device_get(grads))
+
+    port = AlexNetDAU(variant=variant, engine=engine, image_size=IMAGE, device="cpu")
+    assert port.dau_conv3.num_dau_units_all == g
+    port.load_state_dict(params_from_flax(params))
+    logits = port(torch.from_numpy(x))
+    np.testing.assert_allclose(logits.detach().numpy(), ref, rtol=1e-4,
+                               atol=1e-4 * float(np.abs(ref).max()))
+    torch.nn.functional.cross_entropy(logits, torch.from_numpy(labels)).backward()
+    for name, p in port.named_parameters():
+        want = grads[name].numpy()
+        if name.endswith(".sigma"):  # not trainable
+            assert p.grad is None and not np.any(want), name
+            continue
+        np.testing.assert_allclose(p.grad.numpy(), want, rtol=1e-3,
+                                   atol=1e-4 * float(np.abs(want).max()), err_msg=name)

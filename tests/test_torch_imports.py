@@ -1,5 +1,5 @@
-"""The port stands alone: importing it, or the chip smoke test that drives
-it, pulls in no JAX."""
+"""The port stands alone: importing it (its bench and utilities included),
+or the chip smoke test that drives it, pulls in no JAX."""
 
 import subprocess
 import sys
@@ -16,6 +16,8 @@ def test_port_imports_no_jax():
         "import dau_convnet_tpu_torch.nn, dau_convnet_tpu_torch.utils\n"
         "import dau_convnet_tpu_torch.parallel, dau_convnet_tpu_torch.ops.fourier_engine\n"
         "import dau_convnet_tpu_torch.kernels.fused_bwd, dau_convnet_tpu_torch.tools.k1_variants\n"
+        "import dau_convnet_tpu_torch.bench, dau_convnet_tpu_torch.utils.tiers\n"
+        "import dau_convnet_tpu_torch.utils.profiling\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'dau_convnet_tpu')]\n"
