@@ -1,5 +1,6 @@
 """Chip smoke test of the PyTorch port: AlexNet-DAU, the CIFAR nets and
-DAU-ResNet-18, serving and training on one NVIDIA GPU.
+DAU-ResNet-18, serving and training on one NVIDIA GPU, directly and through
+the example scripts.
 
     python3 chip_smoke.py [--seed N]
 
@@ -198,7 +199,24 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    and 5), each step under `checked_kernels`; and `python -m
    dau_convnet_tpu_torch.bench --model layer --iters 5` as a child
    process, whose last line must carry a value. Each step's device ms of
-   K5, K4, K6 and K1 and of everything (torch.profiler) is printed.
+   K5, K4, K6 and K1 and of everything (torch.profiler) is printed;
+25. the examples (`dau_convnet_tpu_torch/examples/`), called in process
+   but analyze_spatial: one step of each trainer through its step builder
+   under `checked_kernels` (train_alexnet_synth's `make_step`, small
+   variant bf16, 3 K1; train_cifar10's `make_train_step`, f32 fourier, 3
+   K1); then train_alexnet_synth at its defaults (1,000 bf16 steps of 32
+   images at 3x227x227, 64 classes, Adam 3e-4, chunks of 50, a checkpoint
+   and resume mid-run): every loss finite, the last-20 mean below 0.1x the
+   first-20, the resume delta 0.0, max|mu| <= 3.99, 3 K1 a step;
+   train_cifar10 on the spatial task (f32, fourier, batch 128, 600 steps,
+   --auto-tier, evaluated at 300 and 600): every loss finite, the health
+   check passing, test top-1 >= 0.40, 3 K1 a step, its saved params scoring
+   the same top-1; serve_inference (torch.export round trip of DAUCifarNet
+   below 1e-5 on 'xla' and 'fourier', 50 chained requests, no launch); and
+   `python -m dau_convnet_tpu_torch.examples.analyze_spatial` on
+   `docs/spatial_dau_4000_params.npz` as a child process, its first 500
+   predictions equal to phase 21's 'fourier' argmax but where phase 21's
+   two largest logits lie within 1e-3*max|logits|.
 
 The whole run's time prints before the summary. The second-to-last line
 is a JSON summary of the kernels; the last line is
@@ -214,9 +232,11 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -230,6 +250,10 @@ from dau_convnet_tpu_torch.kernels import fused_fwd as kff  # noqa: E402
 from dau_convnet_tpu_torch.kernels import spectral as ksp  # noqa: E402
 from dau_convnet_tpu_torch import bench  # noqa: E402
 from dau_convnet_tpu_torch.kernels._build import build, build_log, disassemble  # noqa: E402
+from dau_convnet_tpu_torch.examples import analyze_spatial as az  # noqa: E402
+from dau_convnet_tpu_torch.examples import serve_inference as si  # noqa: E402
+from dau_convnet_tpu_torch.examples import train_alexnet_synth as ta  # noqa: E402
+from dau_convnet_tpu_torch.examples import train_cifar10 as tc  # noqa: E402
 from dau_convnet_tpu_torch.examples.train_cifar10 import synthetic_spatial  # noqa: E402
 from dau_convnet_tpu_torch.models import (AlexNetDAU, ConvCifarNet, DAUCifarNet,  # noqa: E402
                                           DAUResNet)
@@ -1703,7 +1727,7 @@ def main(argv=None) -> int:
     # 21-23. the other models at G = 4: the CIFAR nets from the repo's
     # artifacts, CIFAR training, DAU-ResNet-18 at full width
     x_train, y_train, x_test, y_test = synthetic_spatial(n=50000)
-    more = cifar_artifacts(dev, card, x_test, y_test)
+    more, spatial_logits = cifar_artifacts(dev, card, x_test, y_test)
     for _, counts in cifar_training(dev, args.seed, card, x_train, y_train).values():
         more = _add(more, counts)
     del x_train, x_test
@@ -1714,6 +1738,9 @@ def main(argv=None) -> int:
 
     # 24. the bench's configurations
     more = _add(more, bench_configurations(dev, args.seed, card, gen))
+
+    # 25. the examples: train, serve and analyse through them
+    more = _add(more, examples(dev, card, spatial_logits))
 
     launches_k5 = launches + runs["pallas_fused"][1][0] + more[0]
     launches_k4 = runs["pallas"][1][1] + more[1]
@@ -2054,11 +2081,14 @@ def cifar_artifacts(dev, card, x_test, y_test):
     of CIFAR_SERVE, ConvCifarNet through plain torch ops. Each engine's
     logits within 1e-3*max|logits| of its plain twins' and of the 'xla'
     engine's, top-1 in [0.42, 0.58] and pair accuracy >= 0.92 (the bounds
-    of tests/test_models.py); request times. Returns the launch counts."""
+    of tests/test_models.py); request times. Returns the launch counts and
+    the DAU artifact's 'fourier' logits (phase 25 holds analyze_spatial's
+    predictions against them)."""
     x = torch.from_numpy(x_test[:CIFAR_TEST]).to(dev)
     y = torch.from_numpy(y_test[:CIFAR_TEST]).to(dev).long()
     requests = x.split(CIFAR_REQUEST)
     total = (0,) * 9
+    kept = None
     for path, kind in CIFAR_ARTIFACTS:
         state = params_from_flax(load_params_npz(str(ROOT / path)))
         ref = None
@@ -2093,8 +2123,10 @@ def cifar_artifacts(dev, card, x_test, y_test):
                 raise AssertionError(f"artifact {tag}: logits disagree")
             if not (0.42 <= top1 <= 0.58 and pair >= 0.92):
                 raise AssertionError(f"artifact {tag}: top-1 {top1}, pair {pair} out of bounds")
+            if tag == "DAUCifarNet fourier":
+                kept = logits
             del net
-    return total
+    return total, kept
 
 
 def _check_model_engines(model, engine, g):
@@ -2297,6 +2329,155 @@ def bench_configurations(dev, seed, card, gen):
         raise AssertionError(f"the bench's layer cell failed: {proc.stderr[-2000:]}")
     print(f"phase 24 (the bench's configurations): launches {COUNTS} {total}, "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return total
+
+
+# phase 25: the examples (dau_convnet_tpu_torch/examples/). Their JAX
+# defaults, full width: train_alexnet_synth (small variant, N = 32 of
+# 3x227x227 bf16, 8 batches, 64 classes, Adam 3e-4, 1,000 steps in chunks
+# of 50) and train_cifar10 on the spatial task (f32, fourier, batch 128,
+# 600 steps, evaluated at 300 and 600, --auto-tier); K1 launches per step of
+# each (conv3-conv5 of AlexNet at G = 2; the CIFAR net's three layers at
+# G = 4); the JAX package's recorded numbers beside which they print
+ALEXNET_ARGS = ["--steps", "1000", "--chunk", "50"]
+CIFAR_ARGS = ["--dataset", "spatial", "--engine", "fourier", "--steps", "600",
+              "--eval-every", "300", "--auto-tier"]
+EXAMPLE_K1 = {"alexnet": (0, 0, 0, 3, 0, 0, 0, 0, 0), "cifar": (0, 0, 0, 3, 0, 0, 0, 0, 0)}
+JAX_ALEXNET_LOSS = (4.3812, 0.0054)  # docs/alexnet_small_1k_train.json, first/last 20
+JAX_SPATIAL = (0.4975, 0.965)  # docs/TRAINING_RESULTS.md:210, top-1 and pair
+JAX_CIFAR_600 = 0.46  # docs/TRAINING_RESULTS.md:158-160, TEST top-1 at step 600
+
+
+def _launched(tag, fn, want_per_step, steps):
+    """fn() with the counts set to 0 just before and read just after; they
+    must be `want_per_step` (COUNTS) times `steps`. Returns fn's result and
+    the counts."""
+    _zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = _counts()
+    want = tuple(w * steps for w in want_per_step)
+    if got != want:
+        raise AssertionError(f"{tag}: launches {COUNTS} {got}, want {want}")
+    return out, got
+
+
+def examples(dev, card, spatial_logits):
+    """Phase 25: the four examples on the card, in process (so the counts
+    see their launches) but analyze_spatial, a child process as a user runs
+    it. One step of each trainer through its module-level step builder under
+    `checked_kernels`; then train_alexnet_synth and train_cifar10 at their
+    full invocations, serve_inference on both engines and analyze_spatial on
+    the spatial artifact (its first 500 predictions against phase 21's
+    'fourier' logits, but at near-ties). Returns the launch counts."""
+    t_phase = time.perf_counter()
+    total = (0,) * 9
+    # one checked step of each trainer, built as its example builds it
+    x, y = ta.make_data(1, BATCH, 64, torch.bfloat16, dev)
+    alex = AlexNetDAU(variant="small", num_classes=64, dtype=torch.bfloat16, engine="fourier",
+                      device=dev, generator=torch.Generator(dev).manual_seed(0))
+    step = ta.make_step(alex, torch.optim.Adam(alex.parameters(), lr=3e-4), 9)
+    with checked_kernels("train_alexnet_synth step (small, bf16)"):
+        loss, counts = _launched("train_alexnet_synth step", lambda: step(x[0], y[0]),
+                                 EXAMPLE_K1["alexnet"], 1)
+    _finite("train_alexnet_synth step", [loss])
+    total = _add(total, counts)
+    del alex, step, x, y
+    cifar_args = tc.parse_args(CIFAR_ARGS)
+    x_train, y_train, _, _ = tc.load_data(cifar_args)
+    xb = torch.from_numpy(x_train[:CIFAR_BATCH]).to(dev)
+    yb = torch.from_numpy(y_train[:CIFAR_BATCH]).to(dev).long()
+    del x_train, y_train
+    net = tc.build_model(cifar_args, tc.flax_bn_momentum(600), dev)
+    step = tc.make_train_step(net, torch.optim.SGD(net.parameters(), lr=0.01, momentum=0.9),
+                              "dau", 9)
+    with checked_kernels("train_cifar10 step (fourier, f32)"):
+        (loss, _), counts = _launched("train_cifar10 step", lambda: step(xb, yb),
+                                      EXAMPLE_K1["cifar"], 1)
+    _finite("train_cifar10 step", [loss])
+    total = _add(total, counts)
+    cifar_step = _spread(lambda: step(xb, yb), iters=3)
+    del net, step, xb, yb
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # train_alexnet_synth at the JAX example's defaults
+        t0 = time.perf_counter()
+        record, counts = _launched(
+            "train_alexnet_synth", lambda: ta.main(
+                ALEXNET_ARGS + ["--ckpt-dir", f"{tmp}/ck", "--out", f"{tmp}/alex.json"]),
+            EXAMPLE_K1["alexnet"], 1000)
+        wall = time.perf_counter() - t0
+        total = _add(total, counts)
+        first, last = record["loss_first20_mean"], record["loss_last20_mean"]
+        print(f"example train_alexnet_synth: {record['steps']} bf16 steps, loss first-20 mean "
+              f"{first}, last-20 {last} (JAX's recorded run {JAX_ALEXNET_LOSS[0]} -> "
+              f"{JAX_ALEXNET_LOSS[1]}); resume delta {record['resume_logits_delta']}; max|mu| "
+              f"{record['final_max_abs_mu']}; steady {record['step_ms_steady_mean']} ms a step, "
+              f"spread {record['step_ms_spread_frac']}; launches {COUNTS} {counts}; "
+              f"{wall:.1f} s [{card}]")
+        print("example train_alexnet_synth ms a step per chunk: "
+              f"{record['chunk_ms_per_step']}")
+        if not (record["steps"] == 1000 and last < 0.1 * first
+                and record["resume_logits_delta"] == 0.0
+                and record["final_max_abs_mu"] <= 3.99):
+            raise AssertionError(f"train_alexnet_synth: {record}")
+
+        # train_cifar10 on the spatial task
+        t0 = time.perf_counter()
+        result, counts = _launched(
+            "train_cifar10", lambda: tc.main(CIFAR_ARGS + ["--save-params", f"{tmp}/p.npz"]),
+            EXAMPLE_K1["cifar"], 600)
+        wall = time.perf_counter() - t0
+        total = _add(total, counts)
+        _, _, x_test, y_test = tc.load_data(cifar_args)
+        net = az.load_model(f"{tmp}/p.npz", "dau", "fourier", dev)
+        saved = az.summarize(az.predictions(net, x_test, CIFAR_BATCH, dev), y_test)
+        del net
+        print(f"example train_cifar10 (spatial, fourier, f32, 600 steps, --auto-tier): test "
+              f"top-1 {result['test_accuracy']} (JAX's recorded run {JAX_CIFAR_600} at step "
+              f"600 of 1,500), pair {saved['pair']:.4f} (its saved params: top-1 "
+              f"{saved['top1']:.4f}); tiers [step, static_max_offset] {result['auto_tier']}; "
+              f"all finite {result['all_finite']}; wall {result['wall_s']} s in the example, "
+              f"{wall:.1f} s in all; step {_fmt(cifar_step)} over 5 runs of 3; launches "
+              f"{COUNTS} {counts} [{card}]")
+        if not (result["all_finite"] and result["test_accuracy"] >= 0.40
+                and abs(saved["top1"] - result["test_accuracy"]) <= 5e-4):
+            raise AssertionError(f"train_cifar10: {result}, saved params {saved['top1']}")
+
+        # serve_inference: both engines, no kernel on their forward paths
+        t0 = time.perf_counter()
+        served, counts = _launched("serve_inference", lambda: si.main([]),
+                                   (0,) * 9, 1)
+        for r in served:
+            print(f"example serve_inference {r['engine']}: exported program "
+                  f"{r['artifact_mb']:.2f} MB, round trip max|diff| "
+                  f"{r['roundtrip_max_abs_diff']:.3e} (bound 1e-5), batch-8 request "
+                  f"{r['ms_per_request']:.4f} ms over 50 chained [{card}]")
+        print(f"example serve_inference: {time.perf_counter() - t0:.1f} s")
+
+        # analyze_spatial as a child process, on the repo's artifact
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dau_convnet_tpu_torch.examples.analyze_spatial",
+             "--params", "docs/spatial_dau_4000_params.npz", "--engine", "fourier",
+             "--predictions-out", f"{tmp}/pred.npy"],
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if proc.returncode != 0:
+            raise AssertionError(f"analyze_spatial failed: {proc.stderr[-2000:]}")
+        pred = torch.from_numpy(np.load(f"{tmp}/pred.npy"))[:CIFAR_TEST].to(dev)
+    lines = proc.stdout.splitlines()
+    top2 = spatial_logits.topk(2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) <= 1e-3 * float(spatial_logits.abs().max())
+    same = pred == spatial_logits.argmax(-1)
+    print(f"example analyze_spatial (child process, fourier, f32, batches of 128): "
+          f"{'; '.join(lines[:3])} (JAX's recorded {JAX_SPATIAL[0]}, {JAX_SPATIAL[1]}); first "
+          f"{CIFAR_TEST} predictions: {int(same.sum())} equal phase 21's, "
+          f"{int((~same & tie).sum())} differ at near-ties, {int(tie.sum())} near-ties in all; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if not bool((same | tie).all()):
+        raise AssertionError("analyze_spatial: predictions differ from phase 21's")
+    print(f"phase 25 (the examples): launches {COUNTS} {total}, "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
     return total
 
 

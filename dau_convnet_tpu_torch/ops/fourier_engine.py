@@ -30,10 +30,10 @@ blocking host copy.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
+
+from ._cache import tensor_cache
 
 __all__ = ["plan_bins", "build_phi", "fourier_forward", "fourier_apply_phi",
            "fourier_input_grad", "fourier_cross_spectra", "fourier_unit_grads",
@@ -52,7 +52,7 @@ def _device(device) -> torch.device:
     return torch.device(device if device is not None else "cpu")
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache
 def _dft_mats_cached(n_in, p, nbins, dtype, device):
     i = np.arange(n_in)[:, None]
     k = np.arange(nbins)[None, :]
@@ -67,7 +67,7 @@ def _dft_mats(n_in: int, p: int, nbins: int, dtype, device=None):
     return _dft_mats_cached(n_in, p, nbins, dtype, _device(device))
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache
 def _idft_mats_cached(p1, p2, rb, out1, out2, dtype, device, apply_coef):
     k1 = np.arange(p1)
     k2 = np.arange(rb)
@@ -158,7 +158,7 @@ def _phase_table_host(p: int, nbins: int, span: int):
     return np.concatenate([np.cos(ang), np.sin(ang)])
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache
 def _phase_table_cached(p, nbins, span, dtype, device, coef_p1, conj):
     tab = _phase_table_host(p, nbins, span)
     if coef_p1:  # the rfft conjugate-half weights and 1/(P1*P2) folded in
@@ -355,7 +355,7 @@ def _spectral_gather(tre, tim, mu1, mu2, p1, p2, rb, use_interpolation,
     return torch.stack(out)
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache
 def _coef_tensor(p1, p2, rb, dtype, device):
     return torch.tensor(_rfft_coef(p2, rb) / (p1 * p2), dtype=dtype, device=device)
 
@@ -434,7 +434,7 @@ def fourier_grad_tables(x_blur_k, err, ks: int, precision: str = "default"):
     return table.reshape(ks * ks, m, s, f)
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache
 def _fused_idft_mats_cached(p1, p2, rb, h, wd, device):
     cmat, smat = _idft_mats(p1, p2, rb, range(h), range(wd), torch.float32, device)
     hwp = -(-h * wd // 8) * 8

@@ -8,12 +8,12 @@ normalisation corrections, and the zero-padded depthwise blur. Semantics
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from ._cache import tensor_cache
 from ._precision import conv_precision
 
 __all__ = ["blur_kernel_size", "gaussian_filters", "gaussian_factor_filters",
@@ -181,7 +181,7 @@ def gaussian_factor_filters(
     return vecs, terms
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache
 def _band_index(size: int, n: int, device: torch.device):
     """The constant part of `_band_matrix`, cached per device: the clipped
     tap index d = a - b + size//2 and the in-band mask, each (n, n)."""

@@ -1265,3 +1265,31 @@ def test_fused_launch_takes_the_wrappers_cluster_size(cuda_device):
     assert tk.fused_cluster_size(64) == 1
     want = tk.dau_forward_fused_plain(x.float(), w, mu1, mu2, filt, KS)
     assert float((out.float() - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_prefetch_to_device_copies_in_order_under_a_busy_stream(cuda_device):
+    """`prefetch_to_device` on the card: the batches arrive in order with
+    their values, on the card, while the consumer's stream is kept busy
+    (so a read before the side stream's copy had finished would show), and
+    the producer's exception is raised in the consumer."""
+    from dau_convnet_tpu_torch.data import prefetch_to_device
+
+    batches = [(np.full((256, 1024), i, np.float32), np.arange(4) + i) for i in range(8)]
+    busy = torch.randn((2048, 2048), device=cuda_device)
+    seen = []
+    for x, y in prefetch_to_device(iter(batches), size=2):
+        for _ in range(8):
+            busy = busy @ busy * 1e-3
+        assert x.device.type == "cuda" and tuple(x.shape) == (256, 1024)
+        seen.append((float(x.min()), float(x.max()), y.tolist()))
+    assert seen == [(float(i), float(i), [i, i + 1, i + 2, i + 3]) for i in range(8)]
+
+    def failing():
+        yield (np.zeros(3, np.float32),)
+        raise RuntimeError("boom")
+
+    it = prefetch_to_device(failing())
+    assert float(next(it)[0].sum()) == 0.0
+    with pytest.raises(RuntimeError, match="boom"):
+        next(it)

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it (its bench and utilities included),
-or the chip smoke test that drives it, pulls in no JAX."""
+"""The port stands alone: importing it (its bench, utilities, input
+pipeline and examples included), or the chip smoke test that drives it,
+pulls in no JAX."""
 
 import subprocess
 import sys
@@ -17,7 +18,9 @@ def test_port_imports_no_jax():
         "import dau_convnet_tpu_torch.parallel, dau_convnet_tpu_torch.ops.fourier_engine\n"
         "import dau_convnet_tpu_torch.kernels.fused_bwd, dau_convnet_tpu_torch.tools.k1_variants\n"
         "import dau_convnet_tpu_torch.bench, dau_convnet_tpu_torch.utils.tiers\n"
-        "import dau_convnet_tpu_torch.utils.profiling\n"
+        "import dau_convnet_tpu_torch.utils.profiling, dau_convnet_tpu_torch.data\n"
+        "from dau_convnet_tpu_torch.examples import (analyze_spatial, serve_inference,\n"
+        "    train_alexnet_synth, train_cifar10)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'dau_convnet_tpu')]\n"
