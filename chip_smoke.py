@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch port: AlexNet-DAU, the CIFAR nets and
-DAU-ResNet-18, serving and training on one NVIDIA GPU, directly and through
-the example scripts.
+DAU-ResNet-18, serving and training on one NVIDIA GPU, directly, through
+the example scripts and through the sharded step.
 
     python3 chip_smoke.py [--seed N]
 
@@ -218,6 +218,19 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    predictions equal to phase 21's 'fourier' argmax but where phase 21's
    two largest logits lie within 1e-3*max|logits|.
 
+26. the parallel slice (`dau_convnet_tpu_torch/parallel/`): AlexNet-DAU
+   (default variant, G = 2, full width, N = 32 global, bf16, 'auto' ->
+   fourier, fused_dx='on') through the sharded step on the meshes 2x1
+   (data) and 1x2 (model), two processes on the one card over gloo, and
+   1x1, one process over nccl: per rank 3 SGD steps on its rows (from
+   `prefetch_to_device(..., sharding=batch_sharding(mesh))`), the first
+   under `checked_kernels`, 3 K2 launches a step (conv3-conv5, on the
+   shard's N and F), losses finite and within 1e-2 of the one-process
+   step's; the step's time beside the one-process step's and the time in
+   its collectives; one f32 step whose loss (1e-5 relative) and gathered
+   parameters (two ulps + LR * 1e-3 * max|grad|) match the one-process f32
+   step's from the same weights.
+
 The whole run's time prints before the summary. The second-to-last line
 is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -261,7 +274,11 @@ from dau_convnet_tpu_torch.nn import DAUConv2d, refresh_phi_cache  # noqa: E402
 from dau_convnet_tpu_torch.ops import DAUConvSettings, gaussian_filters  # noqa: E402
 from dau_convnet_tpu_torch.ops import fourier_engine as fe  # noqa: E402
 from dau_convnet_tpu_torch.ops import xla_engine  # noqa: E402
-from dau_convnet_tpu_torch.parallel import make_train_step  # noqa: E402
+from dau_convnet_tpu_torch.data import prefetch_to_device  # noqa: E402
+from dau_convnet_tpu_torch.parallel import (batch_sharding, gather_state,  # noqa: E402
+                                            init_sharded, make_mesh, make_train_step)
+from dau_convnet_tpu_torch.parallel import _collectives  # noqa: E402
+from dau_convnet_tpu_torch.parallel._spawn import run_ranks  # noqa: E402
 from dau_convnet_tpu_torch.utils import load_params_npz, params_from_flax  # noqa: E402
 from dau_convnet_tpu_torch.utils.profiling import (device_busy_ms, device_time,  # noqa: E402
                                                     kernel_ms, trace)
@@ -1742,13 +1759,16 @@ def main(argv=None) -> int:
     # 25. the examples: train, serve and analyse through them
     more = _add(more, examples(dev, card, spatial_logits))
 
+    # 26. the parallel slice: the sharded step on three meshes, a process a rank
+    launches_parallel = parallel(dev, args.seed, card)
+
     launches_k5 = launches + runs["pallas_fused"][1][0] + more[0]
     launches_k4 = runs["pallas"][1][1] + more[1]
     launches_k6 = runs["pallas_fused"][1][2] + runs["pallas"][1][2] + more[2]
     launches_k1 = runs["fourier"][1][3] + more[3]
     print(f"chip_smoke: the whole run took {time.perf_counter() - t_run:.1f} s, the build "
           f"included [{card}]")
-    launches_k2 = runs["fourier fused_dx"][1][4]
+    launches_k2 = runs["fourier fused_dx"][1][4] + launches_parallel[4]
     launches_k8 = runs["fourier factored"][1][5]
     launches_k8dx = runs["fourier factored fused_dx"][1][6]
     print(json.dumps({"kernels": [
@@ -2479,6 +2499,201 @@ def examples(dev, card, spatial_logits):
     print(f"phase 25 (the examples): launches {COUNTS} {total}, "
           f"{time.perf_counter() - t_phase:.1f} s [{card}]")
     return total
+
+
+# phase 26: the parallel slice (dau_convnet_tpu_torch/parallel/). The card
+# is one H100 and NCCL refuses two ranks on one device, so the 2-rank meshes
+# run in two processes on cuda:0 over gloo (CUDA tensors: every collective
+# of the port is an all-reduce, which gloo takes), one mesh after the
+# other, and the 1x1 mesh in one process over nccl.
+# (backend, ranks, ((data, model) of each mesh))
+PARALLEL_GROUPS = (("gloo", 2, ((2, 1), (1, 2))), ("nccl", 1, ((1, 1),)))
+# launches (COUNTS) per bf16 step (fused_dx='on': K2 at conv3-conv5; conv2's
+# 496 bins at G = 2 keep the unfused path, as on one device) and per f32
+# step (fused_bwd='on' takes conv2 too)
+PARALLEL_BF16 = (0, 0, 0, 0, 3, 0, 0, 0, 0)
+PARALLEL_F32 = (0, 0, 0, 0, 4, 0, 0, 0, 0)
+# the bf16 losses against the one-process step's, relative (a few bf16
+# roundings of the logits); the f32 step's loss, relative; its parameters
+# within two ulps plus LR * 1e-3 * max|grad| of the tensor (phase 7's
+# update bound with phase 8's gradient bound carried through the update)
+BF16_LOSS, F32_LOSS = 1e-2, 1e-5
+
+
+def parallel(dev, seed, card):
+    """Phase 26: AlexNet-DAU (default variant, G = 2) at full width, N = 32
+    global, through the sharded step (`init_sharded`, `make_train_step`
+    with a mesh) on the meshes of PARALLEL_MESHES, a process per rank
+    (`run_ranks`; the kernels were built by phase 1, so no rank runs nvcc):
+    per rank 3 bf16 SGD steps on its rows of the global batches (engine
+    'auto' -> fourier, fused_dx='on'), the first under `checked_kernels`
+    (every K2 launch on this shard's shapes against its twin), each step's
+    launches PARALLEL_BF16, every loss finite and within BF16_LOSS of the
+    one-process step's; the step's time (CUDA events, 3 runs of 2) and one
+    step with every collective synchronised and timed; then one f32 step
+    (fourier, fused_bwd='on', fused_dx='on'), whose loss and gathered
+    parameters must match the one-process f32 step from the same weights
+    (F32_LOSS; two ulps + LR * 1e-3 * max|grad|). Returns the launch counts
+    of the bf16 steps, summed over ranks."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed + 26)
+    batches = [torch.rand((BATCH, 3, IMAGE, IMAGE), generator=gen) for _ in range(STEPS)]
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen)
+    x_dev, y_dev = [x.to(dev) for x in batches], labels.to(dev)
+    model = AlexNetDAU(variant="default", image_size=IMAGE, dtype=torch.bfloat16,
+                       fused_dx="on", device=dev, generator=torch.Generator().manual_seed(seed))
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=LR))
+    bf16 = [float(step(x, y_dev)) for x in x_dev]
+    one_ms = _spread(lambda: step(x_dev[0], y_dev), repeats=3, iters=2)
+    del model, step
+    model = AlexNetDAU(variant="default", image_size=IMAGE, dtype=torch.float32,
+                       engine="fourier", fused_bwd="on", fused_dx="on", device=dev,
+                       generator=torch.Generator().manual_seed(seed))
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=LR))
+    loss32 = float(step(x_dev[0], y_dev))
+    ref = dict(batches=batches, labels=labels, bf16=bf16, loss32=loss32,
+               params32={k: p.detach().cpu() for k, p in model.named_parameters()},
+               grad_max={k: 0.0 if p.grad is None else float(p.grad.abs().max())
+                         for k, p in model.named_parameters()})
+    del model, step, x_dev, y_dev
+    torch.cuda.empty_cache()
+    print(f"phase 26: one-process AlexNet-DAU step N={BATCH} bf16 (fused_dx='on'): losses "
+          f"{[round(v, 5) for v in bf16]}, {_fmt(one_ms)} over 3 runs of 2; f32 (fourier, "
+          f"fused_bwd='on', fused_dx='on') loss {loss32:.6f} [{card}]")
+    total = (0,) * 9
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(ref, f"{tmp}/ref.pt")
+        for backend, world, meshes in PARALLEL_GROUPS:
+            t0 = time.perf_counter()
+            outs = run_ranks(_parallel_rank, world, meshes, seed, tmp, backend=backend,
+                             timeout=300)
+            for (data, model_par), *per_rank in zip(meshes, *outs):
+                _print_parallel(f"{data}x{model_par} ({backend})", per_rank, bf16, one_ms,
+                                loss32, card)
+                for r in per_rank:
+                    total = _add(total, tuple(int(c) for c in r["counts"]))
+            print(f"phase 26 meshes {meshes} over {backend}: {time.perf_counter() - t0:.1f} s "
+                  f"with the processes' start [{card}]")
+    print(f"phase 26 (parallel): launches {COUNTS} {total} in the bf16 steps of every rank, "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return total
+
+
+def _print_parallel(name, per_rank, bf16, one_ms, loss32, card):
+    """Phase 26's lines for one mesh, a line per rank."""
+    for rank, r in enumerate(per_rank):
+        print(f"phase 26 mesh {name} rank {rank}: bf16 losses "
+              f"{[round(v, 5) for v in r['losses']]} (one-process "
+              f"{[round(v, 5) for v in bf16]}, bound {BF16_LOSS} relative), launches "
+              f"{COUNTS} {PARALLEL_BF16} each step; step {_fmt(r['step_ms'])} over 3 "
+              f"runs of 2 (one-process {_fmt(one_ms)}); one step with its collectives "
+              f"synchronised {r['synced_ms']:.3f} ms, of which {r['coll_ms']:.3f} ms in "
+              f"{r['coll_calls']} all-reduces; f32 step loss {r['loss32']:.6f} vs "
+              f"{loss32:.6f} (|d| {abs(r['loss32'] - loss32):.3e}, bound "
+              f"{F32_LOSS * abs(loss32):.3e}), parameters worst |d|/bound "
+              f"{r['worst32']:.3e} ({r['worst32_name']}) [{card}]")
+
+
+def _parallel_rank(rank, meshes, seed, tmp):
+    """One rank of phase 26 (see `parallel`), in a process of its own: the
+    meshes one after the other. Returns a result per mesh."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ref = torch.load(f"{tmp}/ref.pt")
+    world = dist.get_world_size()
+    probe = _collectives.all_reduce(torch.ones(4, device=dev), None)
+    if not bool((probe == world).all()):
+        raise AssertionError(f"rank {rank}: all-reduce over {world} ranks gave {probe}")
+    return [_parallel_mesh(rank, make_mesh(data=data, model=model_par), seed, ref, dev,
+                           f"phase 26 {data}x{model_par} rank {rank}")
+            for data, model_par in meshes]
+
+
+def _parallel_mesh(rank, mesh, seed, ref, dev, tag):
+    """Phase 26's work on one mesh, on this rank. Its rows of each global
+    batch come through `prefetch_to_device(..., sharding=batch_sharding)`."""
+    bsh = batch_sharding(mesh)
+    fed = list(prefetch_to_device(((x.numpy(), ref["labels"].numpy()) for x in ref["batches"]),
+                                  sharding=bsh))
+    xs = [x for x, _ in fed]
+    labels = fed[0][1]
+    if not (xs[0].is_cuda and torch.equal(xs[0].cpu(), bsh.shard(ref["batches"][0]))):
+        raise AssertionError(f"{tag}: prefetch_to_device did not give this rank's rows")
+
+    def sharded(dtype, **kw):
+        model = AlexNetDAU(variant="default", image_size=IMAGE, dtype=dtype, device=dev,
+                           generator=torch.Generator().manual_seed(seed), **kw)
+        opt = torch.optim.SGD(model.parameters(), lr=LR)
+        state, sh = init_sharded(model, opt, mesh, ref["batches"][0])
+        return state, sh, make_train_step(model, opt, mesh, sh)
+
+    state, _, step = sharded(torch.bfloat16, fused_dx="on")
+    losses, total = [], (0,) * 9
+    for i, x in enumerate(xs):
+        _zero_counts()
+        with checked_kernels(f"{tag} step 0") if i == 0 else contextlib.nullcontext():
+            state, loss = step(state, x, labels)
+        torch.cuda.synchronize()
+        got = _counts()
+        if got != PARALLEL_BF16:
+            raise AssertionError(f"{tag} step {i}: launches {COUNTS} {got}, want {PARALLEL_BF16}")
+        total = _add(total, got)
+        losses.append(float(loss))
+        want = ref["bf16"][i]
+        if not (np.isfinite(losses[-1]) and abs(losses[-1] - want) <= BF16_LOSS * abs(want)):
+            raise AssertionError(f"{tag} step {i}: loss {losses[-1]}, one-process {want}")
+    step_ms = _spread(lambda: step(state, xs[0], labels), repeats=3, iters=2)
+
+    # one step with each collective synchronised and timed on the host clock
+    spent = [0.0, 0]
+    all_reduce = _collectives.all_reduce
+
+    def timed(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(t, group)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+
+    _collectives.all_reduce = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, xs[0], labels)
+        torch.cuda.synchronize()
+        synced = time.perf_counter() - t0
+    finally:
+        _collectives.all_reduce = all_reduce
+    del state, step
+
+    state, sh, step = sharded(torch.float32, engine="fourier", fused_bwd="on", fused_dx="on")
+    _zero_counts()
+    state, loss32 = step(state, xs[0], labels)
+    torch.cuda.synchronize()
+    if _counts() != PARALLEL_F32:
+        raise AssertionError(f"{tag} f32 step: launches {COUNTS} {_counts()}, want {PARALLEL_F32}")
+    loss32 = float(loss32)
+    if not abs(loss32 - ref["loss32"]) <= F32_LOSS * abs(ref["loss32"]):
+        raise AssertionError(f"{tag} f32 step: loss {loss32}, one-process {ref['loss32']}")
+    worst, worst_name = 0.0, ""
+    for k, p in gather_state(state, sh)["params"].items():
+        want = ref["params32"][k].to(dev)
+        top = torch.maximum(p.abs(), want.abs())
+        bound = 2 * _ulp(top, torch.float32) + LR * 1e-3 * ref["grad_max"][k]
+        ratio = float(((p - want).abs() / bound).max())
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    if not worst <= 1.0:
+        raise AssertionError(f"{tag} f32 step: {worst_name} off by {worst:.3e} of its bound")
+    return dict(losses=losses, counts=total, step_ms=step_ms, synced_ms=synced * 1e3,
+                coll_ms=spent[0] * 1e3, coll_calls=spent[1], loss32=loss32, worst32=worst,
+                worst32_name=worst_name)
 
 
 if __name__ == "__main__":

@@ -5,9 +5,10 @@ Counterpart of `dau_convnet_tpu/data/loader.py`. `epoch_batches`
 the same batches, bit for bit. `prefetch_to_device` (:21 there) overlaps
 the host's batch preparation and the host-to-card copy with the card's
 compute: a producer thread pins each batch and copies it on a side CUDA
-stream, `size` batches ahead of the consumer. JAX's `sharding` argument
-becomes a `torch.device`; placing a batch across cards comes with the
-mesh (not ported yet).
+stream, `size` batches ahead of the consumer. Under a device mesh, JAX's
+`sharding` argument takes a `parallel.NamedSharding` (`batch_sharding`,
+`spatial_sharding`): each rank's pipeline moves only its own rows (or
+H-band) of each global batch to its device.
 """
 
 from __future__ import annotations
@@ -38,8 +39,21 @@ def _leaves(batch) -> list:
     return out
 
 
+def _shard(batch, sharding):
+    """This rank's slice of each array of the batch: `sharding` is one
+    NamedSharding for all of them, or a tuple, list or dict of them in the
+    batch's structure (nested)."""
+    if sharding is None:
+        return batch
+    if isinstance(sharding, dict):
+        return {k: _shard(batch[k], v) for k, v in sharding.items()}
+    if isinstance(sharding, (tuple, list)):
+        return type(batch)(_shard(b, sh) for b, sh in zip(batch, sharding, strict=True))
+    return _map(lambda a: np.ascontiguousarray(sharding.shard(np.asarray(a))), batch)
+
+
 def prefetch_to_device(batch_iter: tp.Iterator, size: int = 2,
-                       device=None) -> tp.Iterator:
+                       device=None, sharding=None) -> tp.Iterator:
     """Wrap a host batch iterator with a `size`-deep transfer pipeline.
 
     Args:
@@ -48,6 +62,9 @@ def prefetch_to_device(batch_iter: tp.Iterator, size: int = 2,
       size: prefetch depth (2 = double buffering).
       device: where the batches go; default the CUDA card. On "cpu" the
         batches come back as `torch.from_numpy` views, with no copy.
+      sharding: a `parallel.NamedSharding` (or a tuple, list or dict of
+        them in the batch's structure): each array is cut to this rank's
+        slice on the host, before the copy.
 
     On the card, the producer thread pins each array and copies it with
     `non_blocking=True` on a side stream, then records an event. Before a
@@ -77,7 +94,7 @@ def prefetch_to_device(batch_iter: tp.Iterator, size: int = 2,
     def producer():
         try:
             for batch in batch_iter:
-                q.put(transfer(batch))
+                q.put(transfer(_shard(batch, sharding)))
         except Exception as e:  # noqa: BLE001 - raised again in the consumer
             err.append(e)
         finally:

@@ -25,6 +25,8 @@ from torch import nn
 
 from ..ops.dau_conv import DAUConvSettings, dau_conv2d_infer, dau_conv2d_op, precompute_phi
 from ..ops.gaussian import blur_kernel_size
+from ..parallel import _collectives
+from ..parallel.mesh import axis_size
 
 __all__ = ["DAU_UNITS_GROUP", "DAUGridMean", "ZeroNLast", "DAUConv2d", "DAUConv1d",
            "dau_conv2d", "dau_conv1d", "set_dau_variables_manually", "project_dau_params",
@@ -180,7 +182,16 @@ class DAUConv2d(nn.Module):
     serves through `dau_conv2d_infer(phi=...)`; after loading new weights
     call `refresh_phi_cache`. A caching layer asked for gradients raises:
     run it under `torch.no_grad()` or `torch.inference_mode()`.
+
+    `mesh` (set by `parallel.init_sharded`, None otherwise) is the device
+    mesh the layer is sharded over. Where its parameters hold an F-slice,
+    the layer is column-parallel: the op computes this rank's output
+    channels (`dau_conv2d_op(..., mesh=)`), the slices are all-gathered
+    over the model axis, and sigma, replicated, enters through
+    `copy_to_model`.
     """
+
+    mesh = None
 
     def __init__(self, in_channels: int, filters: int,
                  dau_units: tp.Tuple[int, int], max_kernel_size: int, *,
@@ -374,21 +385,42 @@ class DAUConv2d(nn.Module):
         mu1 = _clip(mu1, -bound, bound)
         mu2 = _clip(mu2, -bound, bound)
 
+        mesh, model_group = self._mesh_route()
+        if model_group is not None:
+            # the replicated sigma's gradient sums over every unit: this
+            # rank's units give a partial sum, closed over the model axis
+            sigma = _collectives.copy_to_model(sigma, model_group)
         sigma_tiled = sigma.reshape(1, 1, 1, 1).expand(w.shape)
         if self.phi_caching and self.cfg.engine == "fourier":
             out = dau_conv2d_infer(self.cfg, x, w, mu1, mu2, sigma_tiled,
                                    phi=self._cached_phi(x, w, mu1, mu2))
         else:
-            out = dau_conv2d_op(self.cfg, x, w, mu1, mu2, sigma_tiled)
+            out = dau_conv2d_op(self.cfg, x, w, mu1, mu2, sigma_tiled, mesh=mesh)
 
         if self.strides > 1:
             # stride emulated by output slicing, same compute as stride 1
             out = out[:, :, ::self.strides, ::self.strides]
         if bias is not None:
-            out = out + bias.reshape(1, self.filters, 1, 1)
+            out = out + bias.reshape(1, -1, 1, 1)
         if self.activation is not None:
             out = self.activation(out)
+        if model_group is not None:
+            out = _collectives.gather_from_model(out, model_group, dim=1)
         return out.permute(0, 2, 3, 1) if self.channels_last else out
+
+    def _mesh_route(self):
+        """(mesh for the op, process group of the model axis) under
+        `self.mesh`: the model group where this layer holds an F-slice, None
+        where it runs whole (no mesh, or F not split: then under a model
+        axis it runs replicated on every model rank, outside the op's mesh
+        route)."""
+        mesh = self.mesh
+        if mesh is None:
+            return None, None
+        model_axis = self.cfg.model_axis
+        if self.weights.shape[-1] != self.filters:
+            return mesh, mesh.get_group(model_axis)
+        return (mesh if axis_size(mesh, model_axis) == 1 else None), None
 
 
 class DAUConv1d(DAUConv2d):

@@ -11,6 +11,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel import _collectives
+from ..parallel.mesh import axis_size
+
 __all__ = ["BatchNorm"]
 
 
@@ -28,7 +31,17 @@ class BatchNorm(nn.Module):
     activations' dtype, as flax's `dtype=` does. weight (flax's `scale`),
     bias, running_mean and running_var (flax's batch_stats `mean` and `var`)
     are f32.
+
+    `mesh` (set by `parallel.init_sharded`, None otherwise) is the device
+    mesh the model is sharded over. In train mode the batch statistics are
+    those of the global batch, as in JAX's sharded step (GSPMD computes the
+    single-device program): the f32 sum and sum of squares are all-reduced
+    over the 'data' axis, and the running statistics stay replicated. A
+    bias sharded over 'model' (JAX's rule shards a 1-D `bias`, not the
+    scale) is all-gathered before use.
     """
+
+    mesh = None
 
     def __init__(self, num_features: int, momentum: float = 0.01, eps: float = 1e-5,
                  device=torch.device("cuda")):
@@ -47,17 +60,30 @@ class BatchNorm(nn.Module):
         axes = [0] + list(range(2, x.dim()))
         shape = [1, -1] + [1] * (x.dim() - 2)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        bias = self.bias
         if self.training:
-            mean = xf.mean(dim=axes)
-            var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+            mean, sq = self._batch_moments(xf, axes)
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
                 self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
                 self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
         else:
             mean, var = self.running_mean, self.running_var
+        if self.mesh is not None and bias.shape[0] != self.num_features:
+            bias = _collectives.gather_from_model(bias, self.mesh.get_group("model"), dim=0)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + bias.reshape(shape)
         return y.to(x.dtype)
+
+    def _batch_moments(self, xf, axes):
+        """E[x] and E[x^2] over the batch: this rank's, or under a mesh with
+        a data axis the global batch's, from all-reduced sums."""
+        if self.mesh is None or axis_size(self.mesh, "data") == 1:
+            return xf.mean(dim=axes), (xf * xf).mean(dim=axes)
+        count = xf.numel() // xf.shape[1] * axis_size(self.mesh, "data")
+        sums = torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)])
+        sums = _collectives.all_reduce_sum(sums, self.mesh.get_group("data")) / count
+        return sums[0], sums[1]
 
     def extra_repr(self) -> str:
         return f"{self.num_features}, momentum={self.momentum}, eps={self.eps}"

@@ -11,16 +11,24 @@ picks at precision='default'), whose unit gradients come from the fused
 spectral kernel where the gate allows it (K1, or K8 under
 fused_gather='factored'; either also emits dx under fused_dx='on'), else
 from the unfused spectral gather.
+
+Under a device mesh (`dau_conv2d_op(..., mesh=)`) the op runs per shard,
+the counterpart of the mesh route of JAX's `_fused_grads_call`: x holds
+this rank's rows, the parameters this rank's F-slice, and the backward
+closes dx over the model axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import typing as tp
 
 import torch
 
+from ..parallel import _collectives
+from ..parallel.mesh import axis_size
 from ..utils.math import clip_nan
 from . import fourier_engine, xla_engine
 from ._edge import disabled_edges
@@ -29,6 +37,8 @@ from .gaussian import (depthwise_blur, gaussian_factor_filters, gaussian_filters
 
 __all__ = ["DAUConvSettings", "dau_conv2d_op", "dau_conv2d_infer", "precompute_phi",
            "edge_gradient_mask"]
+
+_log = logging.getLogger(__name__)
 
 # Calibration point of fused_gather='auto': the factored gather (K8) at or
 # above this many frequency bins, the phi gather (K1) below. None, as in the
@@ -40,9 +50,8 @@ FACTORED_MIN_BINS = None
 @dataclasses.dataclass(frozen=True)
 class DAUConvSettings:
     """Static configuration of a DAU convolution; the fields, defaults and
-    validation of the JAX `DAUConvSettings`. `data_axis`/`model_axis` (the
-    sharded backward) are kept so a configuration carries over as it is;
-    they take effect when the mesh is ported."""
+    validation of the JAX `DAUConvSettings`. `data_axis`/`model_axis` name
+    the mesh axes of `dau_conv2d_op(..., mesh=)`."""
 
     kernel_size: int = 9
     use_interpolation: bool = True
@@ -319,10 +328,14 @@ def _param_grads(cfg: DAUConvSettings, x, gy, sigma_value, w3m, mu13, mu23, dx_f
         xb = rank1_blur_stack(x, vecs, fterms, names)  # (M, N, S, H, W)
         p1, _, rb = fourier_engine.plan_bins(h, w_sp, ks)
         gather = _fused_route(cfg, xb, w3m.shape[1], p1 * rb)
+        with_dx = gather is not None and dx_fused and cfg.fused_dx == "on"
+        _log.info("dau bwd %dx%d N=%d S=%d F=%d B=%d: %s", h, w_sp, n, s_ch, w3m.shape[2],
+                  p1 * rb, "unfused spectral gather" if gather is None else
+                  f"fused kernel (gather={gather}, dx={'fused' if with_dx else 'separate'})")
         if gather is None:
             return fourier_engine.fourier_unit_grads(
                 xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, precision=cfg.precision), None
-        if not (dx_fused and cfg.fused_dx == "on"):
+        if not with_dx:
             return fourier_engine.fourier_unit_grads_fused2(
                 xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, gather=gather), None
         # dx from the same kernel call as the unit gradients (K2, or K8 with dx)
@@ -418,11 +431,31 @@ class _DAUConv2dFunction(torch.autograd.Function):
         return (None, *grads)
 
 
-def dau_conv2d_op(cfg: DAUConvSettings, x, w, mu1, mu2, sigma):
+def dau_conv2d_op(cfg: DAUConvSettings, x, w, mu1, mu2, sigma, mesh=None):
     """Displaced Aggregation Unit convolution.
 
     x: (N, S, H, W), NCHW. w, mu1, mu2: (1, S, G, F) or (S, G, F). sigma:
     the layer-shared Gaussian width, any shape (its first element is used).
     Returns (N, F, H, W).
+
+    mesh: a `DeviceMesh` (`parallel.make_mesh`) the call is sharded over,
+    JAX's ambient mesh. x holds this rank's rows along `cfg.data_axis`, w,
+    mu1, mu2 and sigma this rank's F-slice along `cfg.model_axis`, and the
+    output is this rank's (rows, F-slice). Per shard the op runs as on one
+    device, its backward route decided on the shard's own N and F. x enters
+    through `copy_to_model`, so the partial dx of this F-slice is summed
+    over the model axis: JAX's psum that closes dx. The unit gradients stay
+    F-sharded, with no collective; they are partial sums over this rank's
+    rows, and JAX's in-op psum over the data axis is the train step's
+    all-reduce of the gradients here. A sigma replicated over the model
+    axis must come through `copy_to_model` before it is tiled to the
+    F-slice (as `DAUConv2d` does), so that its gradient, a sum over every
+    unit, is summed over the axis too.
     """
+    if mesh is not None:
+        da, ma = (a if axis_size(mesh, a) > 1 else None
+                  for a in (cfg.data_axis, cfg.model_axis))
+        _log.info("sharded axes: data=%s model=%s", da, ma)
+        if ma is not None:
+            x = _collectives.copy_to_model(x, mesh.get_group(ma))
     return _DAUConv2dFunction.apply(cfg, x, w, mu1, mu2, sigma)

@@ -16,6 +16,10 @@ def test_port_imports_no_jax():
         "import dau_convnet_tpu_torch.kernels, dau_convnet_tpu_torch.models\n"
         "import dau_convnet_tpu_torch.nn, dau_convnet_tpu_torch.utils\n"
         "import dau_convnet_tpu_torch.parallel, dau_convnet_tpu_torch.ops.fourier_engine\n"
+        "import dau_convnet_tpu_torch.parallel.mesh, dau_convnet_tpu_torch.parallel._collectives\n"
+        "import dau_convnet_tpu_torch.parallel._spawn\n"
+        "from dau_convnet_tpu_torch.parallel.train import (TrainState, gather_state,\n"
+        "    init_sharded, make_train_step)\n"
         "import dau_convnet_tpu_torch.kernels.fused_bwd, dau_convnet_tpu_torch.tools.k1_variants\n"
         "import dau_convnet_tpu_torch.bench, dau_convnet_tpu_torch.utils.tiers\n"
         "import dau_convnet_tpu_torch.utils.profiling, dau_convnet_tpu_torch.data\n"
