@@ -6,10 +6,11 @@ the example scripts and through the sharded step.
 
 Run from the root of the repository, on a machine with a CUDA card. Phases:
 
-1. build: compile the six kernel libraries for sm_90a, one nvcc each, all
+1. build: compile the nine kernel libraries for sm_90a, one nvcc each, all
    at once (K5 the fused forward, K4 the aggregation, K6 the grad tables,
    K1/K2 and K8 the fused spectral gradients, one kernel under two gather
-   policies, K7 the partial iDFT, K3 the fused apply-phi), and print their
+   policies, K7 the partial iDFT, K3 the fused apply-phi; the probes' GEMM,
+   gather and stream kernels), and print their
    registers and spills (ks=9; K1 and K8 at every (dtype, M, G) instance,
    failing if K1 spills at M=3, G=2 or K8 at any instance; K6's two
    instances, failing if either spills; K2's dx kernel
@@ -21,7 +22,8 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    failing if one has none, and the HGMMA and UTMALDG of each instance of
    K2's dx kernel (`spectral_dx_kernel`) and of K3's products kernel
    (`apply_phi_gemm_kernel`; the B operand of both comes by TMA), failing if
-   one has none of either;
+   one has none of either, and of each instance of the probe GEMM (A
+   K-major and M-major), failing if one has no HGMMA or no UTMALDG;
 2. kernel vs twin: `dau_forward_fused` against `dau_forward_fused_plain` at
    the four AlexNet-DAU layer shapes (N=4) in f32 (TF32 off, bound
    1e-4*max|y|) and bf16 (twin in f32 on the same bf16 values, bound
@@ -231,6 +233,21 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    parameters (two ulps + LR * 1e-3 * max|grad|) match the one-process f32
    step's from the same weights.
 
+27. the probes (`dau_convnet_tpu_torch/probes/`): P1-P7 through
+   `mosaic_probe.run()` and P8-P9 through `pallas_ladder.run()`, the entry
+   points of `python -m dau_convnet_tpu_torch.probes.mosaic_probe` and
+   `.pallas_ladder`, at the JAX probes' full shapes with their seeded
+   inputs: each probe kernel against its twin (the probe GEMM of P1, P2,
+   P5, P6 within 1e-4*max|twin|; P3, P4, P7, P8 exactly; P9, K7's kernel,
+   within 1e-2*max|twin|) and, per probe, its time (CUDA events, median,
+   min and max of 5 runs of 10), the padding or chunk cutting apart, the
+   bound, the twin and one PyTorch call of the function (P1 `matmul`, P2
+   `einsum`, P5/P6 `bmm`, P8 `Tensor.copy_`, P9 one bf16 matmul of the
+   stacked operands; P3, P4, P7 the twin); P3 at 24, 40 and 60 MB beside
+   the card's opt-in shared memory and L2; P4's cost of one launch; P8's
+   copy rate. Each of the six wrappers (probe GEMM, gather, the three
+   stream kernels, K7) must launch in the phase's run.
+
 The whole run's time prints before the summary. The second-to-last line
 is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -279,6 +296,8 @@ from dau_convnet_tpu_torch.parallel import (batch_sharding, gather_state,  # noq
                                             init_sharded, make_mesh, make_train_step)
 from dau_convnet_tpu_torch.parallel import _collectives  # noqa: E402
 from dau_convnet_tpu_torch.parallel._spawn import run_ranks  # noqa: E402
+from dau_convnet_tpu_torch import probes as probes_pkg  # noqa: E402
+from dau_convnet_tpu_torch.probes import mosaic_probe, pallas_ladder  # noqa: E402
 from dau_convnet_tpu_torch.utils import load_params_npz, params_from_flax  # noqa: E402
 from dau_convnet_tpu_torch.utils.profiling import (device_busy_ms, device_time,  # noqa: E402
                                                     kernel_ms, trace)
@@ -311,7 +330,8 @@ KERNEL_K3 = dict(name="fused_apply_phi (K3)", route="cuda",
 # the name fragment of K3's products kernel (its device time in phase 18)
 K3_PRODUCTS = "apply_phi_gemm_kernel"
 LIBRARIES = ("dau_forward_fused", "dau_aggregate", "dau_grad_tables", "dau_spectral_grads",
-             "dau_partial_idft", "dau_apply_phi")
+             "dau_partial_idft", "dau_apply_phi", "dau_probe_gemm", "dau_probe_gather",
+             "dau_probe_stream")
 # the card's peaks for the bounds (H100 SXM data sheet, dense, at 700 W):
 # bf16 on the tensor cores and the memory rate
 PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
@@ -948,6 +968,8 @@ def _k1_line(out, bound):
 def _instance(entry):
     """A kernel instance's template arguments read from its mangled name:
     dtype, M and G, and the spectral kernel's gather policy."""
+    if "probe_gemm_kernel" in entry:  # its one int argument: A's major
+        return "A M-major" if "probe_gemm_kernelILi1E" in entry else "A K-major"
     kind = "bf16" if "bfloat16" in entry else "f32" if re.search(r"If[LE]", entry) else ""
     mg = re.search(r"Li(\d+)ELi(\d+)E", entry)
     # the dx kernel's one int argument, G; K3's G and whether it is chunked
@@ -1462,6 +1484,14 @@ def main(argv=None) -> int:
     _hgmma_per_instance("dau_spectral_grads", "spectral_dx_kernel", "dx kernel", 8, tma=True)
     # K3's products kernel: f32/bf16 x (G 1-4, and chunked G 4), B by TMA
     _hgmma_per_instance("dau_apply_phi", K3_PRODUCTS, "K3 products kernel", 10, tma=True)
+    # the probes' kernels: the GEMM's two instances (A K-major, M-major) on
+    # TMA and wgmma; the gather and the stream kernels plain CUDA
+    _instances("dau_probe_gemm", ["probe_gemm_kernel"], "probe GEMM", 2, ("probe_gemm_kernel",))
+    _hgmma_per_instance("dau_probe_gemm", "probe_gemm_kernel", "probe GEMM", 2, tma=True)
+    _ptxas("dau_probe_gather", ["probe_gather_kernel"])
+    for kernel in ("scale_kernel", "colsum_partial_kernel", "colsum_final_kernel",
+                   "add_one_kernel", "copy_tiles_kernel"):
+        _ptxas("dau_probe_stream", [kernel])
 
     # 2. kernel vs twin
     gen = torch.Generator().manual_seed(args.seed)
@@ -1762,6 +1792,9 @@ def main(argv=None) -> int:
     # 26. the parallel slice: the sharded step on three meshes, a process a rank
     launches_parallel = parallel(dev, args.seed, card)
 
+    # 27. the probes P1-P9 through their entry points
+    probe_rows = probes(dev, card)
+
     launches_k5 = launches + runs["pallas_fused"][1][0] + more[0]
     launches_k4 = runs["pallas"][1][1] + more[1]
     launches_k6 = runs["pallas_fused"][1][2] + runs["pallas"][1][2] + more[2]
@@ -1800,11 +1833,45 @@ def main(argv=None) -> int:
         dict(KERNEL_DX, launches=launches_k2 + launches_k8dx,
              max_abs_err=max(worst_spec["dx"], worst_fac["dx"]), ms=new["dx"][0],
              plain_ms=new["dx"][2], bound_ms=new["dx"][1], bound_by="bytes",
-             library_ms=new["dx"][3])]}))
+             library_ms=new["dx"][3]),
+        *(_probe_entry(row) for row in probe_rows)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def probes(dev, card):
+    """Phase 27: the probes P1-P9 at the JAX probes' full shapes, through
+    `mosaic_probe.run` and `pallas_ladder.run` (each probe kernel held
+    against its twin there; a failing probe prints FAIL and fails the
+    phase), with every launch counter of the probes' wrappers set to 0
+    just before and read just after. Returns the probes' rows."""
+    t0 = time.perf_counter()
+    for kernel in probes_pkg.KERNELS:
+        kernel.launches = 0
+    ok_mosaic, rows = mosaic_probe.run(device=dev)
+    ok_ladder, more = pallas_ladder.run(device=dev)
+    counts = {kernel.__name__: kernel.launches for kernel in probes_pkg.KERNELS}
+    if not (ok_mosaic and ok_ladder):
+        raise AssertionError("phase 27: a probe failed (its FAIL line above)")
+    rows += more
+    idle = [name for name, n in counts.items() if not n]
+    if idle or any(not row["launches"] for row in rows):
+        raise AssertionError(f"phase 27: kernels not launched by the probes: {idle}, {counts}")
+    print(f"phase 27 (the probes P1-P9): {len(rows)} timed rows, launches {counts}, "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return rows
+
+
+def _probe_entry(row):
+    """The kernels line's entry of one probe row (times: medians)."""
+    med = lambda s: None if s is None else s[0]  # noqa: E731
+    return dict(name=f"{row['kernel'].__name__} as {row['probe']} ({row['label']})",
+                route="cuda", source=row["source"], replaces=row["replaces"],
+                launches=row["launches"], max_abs_err=row["err"], ms=med(row["ms"]),
+                plain_ms=med(row["plain_ms"]), bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=med(row["library_ms"]))
 
 
 def compare_bands(gen, dev, kernel, ks):

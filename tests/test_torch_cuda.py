@@ -1293,3 +1293,129 @@ def test_prefetch_to_device_copies_in_order_under_a_busy_stream(cuda_device):
     assert float(next(it)[0].sum()) == 0.0
     with pytest.raises(RuntimeError, match="boom"):
         next(it)
+
+
+# the probes' kernels (kernels/probe_kernels.py) at reduced shapes:
+# (a shape, b shape, trans_a) of the probe GEMM: P1's K-major A with rows
+# of 153, P2's M-major A against a shared B with rows of 81 (odd N: unpaired
+# stores), P5's batched layout, a shared A, and M, N, K ragged against the
+# tile
+PROBE_GEMM_CASES = {
+    "p1": ((81, 153), (153, 640), False),
+    "p2": ((6, 153, 128), (153, 81), True),
+    "p5": ((5, 384, 64), (5, 64, 128), False),
+    "shared_a": ((200, 72), (3, 72, 136), False),
+    "m_major_ragged": ((2, 40, 136), (2, 40, 33), True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PROBE_GEMM_CASES))
+def test_probe_gemm_kernel_matches_twin(cuda_device, case):
+    from dau_convnet_tpu_torch.kernels import probe_kernels as pk
+
+    a_shape, b_shape, trans_a = PROBE_GEMM_CASES[case]
+    rng = np.random.default_rng(0)
+    a, b = (torch.tensor(rng.standard_normal(s), dtype=torch.float32, device=cuda_device)
+            .bfloat16() for s in (a_shape, b_shape))
+    before = pk.probe_gemm.launches
+    got = pk.probe_gemm(a, b, trans_a)
+    torch.cuda.synchronize()
+    assert pk.probe_gemm.launches == before + 1 and got.dtype == torch.float32
+    want = pk.probe_gemm_plain(a, b, trans_a)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_probe_gather_kernel_matches_twin(cuda_device):
+    """Targets that hit, and fractions, negatives, NaN and out-of-range
+    ones that do not: exact (one product or zero per output)."""
+    from dau_convnet_tpu_torch.kernels import probe_kernels as pk
+
+    rng = np.random.default_rng(0)
+    tab = torch.tensor(rng.standard_normal((17, 3, 40, 24)), dtype=torch.float32,
+                       device=cuda_device)
+    tgt = rng.integers(-2, 20, (40, 2, 24)).astype(np.float32)
+    tgt[::3, 0, ::5] += 0.5
+    tgt[1, 1, :4] = np.nan
+    tgt = torch.tensor(tgt, device=cuda_device)
+    iw = torch.tensor(rng.random((40, 2, 24)), dtype=torch.float32, device=cuda_device)
+    before = pk.probe_gather.launches
+    got = pk.probe_gather(tab, tgt, iw)
+    torch.cuda.synchronize()
+    assert pk.probe_gather.launches == before + 1
+    assert torch.equal(got, pk.probe_gather_plain(tab, tgt, iw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3, 1000, 5000])
+def test_probe_scale_colsum_kernel_matches_twin(cuda_device, rows):
+    """Integer values, so any order of the sums gives the twin's exactly."""
+    from dau_convnet_tpu_torch.kernels import probe_kernels as pk
+
+    rng = np.random.default_rng(rows)
+    x = torch.tensor(rng.integers(-8, 8, (rows, 520)), dtype=torch.float32, device=cuda_device)
+    before = pk.scale_colsum.launches
+    got = pk.scale_colsum(x)
+    torch.cuda.synchronize()
+    assert pk.scale_colsum.launches == before + 1
+    assert torch.equal(got, pk.scale_colsum_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [None, 1, 7, 300])
+def test_probe_add_one_kernel_matches_twin(cuda_device, blocks):
+    from dau_convnet_tpu_torch.kernels import probe_kernels as pk
+
+    rng = np.random.default_rng(0)
+    x = (torch.tensor(rng.standard_normal((1000, 24)) * 300, dtype=torch.float32,
+                      device=cuda_device)).bfloat16()
+    out = torch.empty_like(x)
+    before = pk.add_one.launches
+    assert pk.add_one(x, out=out, blocks=blocks) is out
+    torch.cuda.synchronize()
+    assert pk.add_one.launches == before + 1
+    assert torch.equal(out, pk.add_one_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", [64, 200, 4096])
+def test_probe_copy_tiles_kernel_matches_twin(cuda_device, ch):
+    """Tiles that divide the row, a ragged last tile, one tile wider than
+    the row."""
+    from dau_convnet_tpu_torch.kernels import probe_kernels as pk
+
+    x = torch.randn((13, 1000), device=cuda_device).bfloat16()
+    before = pk.copy_tiles.launches
+    got = pk.copy_tiles(x, ch)
+    torch.cuda.synchronize()
+    assert pk.copy_tiles.launches == before + 1
+    assert torch.equal(got, pk.copy_tiles_plain(x, ch))
+
+
+@pytest.mark.cuda
+def test_probe_device_limits_are_the_cards(cuda_device):
+    from dau_convnet_tpu_torch.kernels import probe_kernels as pk
+
+    lim = pk.device_limits()
+    props = torch.cuda.get_device_properties(0)
+    assert lim["sms"] == props.multi_processor_count
+    assert lim["l2_bytes"] == props.L2_cache_size
+    assert lim["smem_optin"] >= 48 * 1024
+
+
+@pytest.mark.cuda
+def test_p9_chunked_dot_equals_the_whole_one(cuda_device):
+    """P9's chunks through K7 give the whole table's bits, one launch each."""
+    from dau_convnet_tpu_torch.probes import pallas_ladder as tpl
+
+    gen = torch.Generator().manual_seed(0)
+    cm, sm = torch.randn((2, 153, 81), generator=gen).to(cuda_device, torch.bfloat16)
+    tre, tim = torch.randn((2, 153, 4096), generator=gen).to(cuda_device, torch.bfloat16)
+    whole = tpl.run_dot(cm, sm, tre, tim)
+    before = tsp.partial_idft.launches
+    chunked = tpl.run_dot(cm, sm, tre, tim, 1024)
+    torch.cuda.synchronize()
+    assert tsp.partial_idft.launches == before + 4
+    assert torch.equal(chunked, whole)

@@ -1,6 +1,6 @@
 """The port stands alone: importing it (its bench, utilities, input
-pipeline and examples included), or the chip smoke test that drives it,
-pulls in no JAX."""
+pipeline, examples and probes included), or the chip smoke test that drives
+it, pulls in no JAX; the probes pull in nothing of `benchmarks/` either."""
 
 import subprocess
 import sys
@@ -25,9 +25,11 @@ def test_port_imports_no_jax():
         "import dau_convnet_tpu_torch.utils.profiling, dau_convnet_tpu_torch.data\n"
         "from dau_convnet_tpu_torch.examples import (analyze_spatial, serve_inference,\n"
         "    train_alexnet_synth, train_cifar10)\n"
+        "import dau_convnet_tpu_torch.kernels.probe_kernels, dau_convnet_tpu_torch.probes\n"
+        "from dau_convnet_tpu_torch.probes import mosaic_probe, pallas_ladder\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'dau_convnet_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'dau_convnet_tpu', 'benchmarks', 'bench')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
