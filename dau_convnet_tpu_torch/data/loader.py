@@ -20,6 +20,8 @@ import typing as tp
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 __all__ = ["prefetch_to_device", "epoch_batches"]
 
 
@@ -74,6 +76,10 @@ def prefetch_to_device(batch_iter: tp.Iterator, size: int = 2,
     consumer's work is queued. The pinned host copies are held until their
     copy is known to have finished. An exception in the producer is raised
     in the consumer, at the point of the batch it failed on.
+
+    Spans (`utils.tracing`): `input.produce` on the producer thread around
+    each batch's pinning and copy (`bytes` moved), `input.wait` in the
+    consumer around taking the next batch (`depth`: batches ready before).
     """
     device = torch.device("cuda") if device is None else torch.device(device)
     q: queue.Queue = queue.Queue(maxsize=size)
@@ -94,7 +100,11 @@ def prefetch_to_device(batch_iter: tp.Iterator, size: int = 2,
     def producer():
         try:
             for batch in batch_iter:
-                q.put(transfer(_shard(batch, sharding)))
+                with tracing.span("input.produce", root=True) as sp:
+                    item = transfer(_shard(batch, sharding))
+                    if sp:
+                        sp.set(bytes=sum(t.nbytes for t in _leaves(item[0])))
+                q.put(item)
         except Exception as e:  # noqa: BLE001 - raised again in the consumer
             err.append(e)
         finally:
@@ -105,10 +115,13 @@ def prefetch_to_device(batch_iter: tp.Iterator, size: int = 2,
     held = None  # (event, pinned) of the batch yielded last
     try:
         while True:
-            item = q.get()
-            if held is not None:
-                held[0].synchronize()  # its copy has finished: release the pinned arrays
-                held = None
+            with tracing.span("input.wait") as sp:
+                if sp:
+                    sp.set(depth=q.qsize())
+                item = q.get()
+                if held is not None:
+                    held[0].synchronize()  # its copy has finished: release the pinned arrays
+                    held = None
             if item is sentinel:
                 if err:
                     raise err[0]

@@ -27,6 +27,7 @@ from ..ops.dau_conv import DAUConvSettings, dau_conv2d_infer, dau_conv2d_op, pre
 from ..ops.gaussian import blur_kernel_size
 from ..parallel import _collectives
 from ..parallel.mesh import axis_size
+from ..utils import tracing
 
 __all__ = ["DAU_UNITS_GROUP", "DAUGridMean", "ZeroNLast", "DAUConv2d", "DAUConv1d",
            "dau_conv2d", "dau_conv1d", "set_dau_variables_manually", "project_dau_params",
@@ -189,9 +190,14 @@ class DAUConv2d(nn.Module):
     channels (`dau_conv2d_op(..., mesh=)`), the slices are all-gathered
     over the model axis, and sigma, replicated, enters through
     `copy_to_model`.
+
+    `trace_name` (set by `parallel.make_train_step` to the layer's name in
+    its model, None otherwise) names the layer in its `dau.forward` and
+    `dau.backward` spans (`utils.tracing`).
     """
 
     mesh = None
+    trace_name = None
 
     def __init__(self, in_channels: int, filters: int,
                  dau_units: tp.Tuple[int, int], max_kernel_size: int, *,
@@ -366,7 +372,13 @@ class DAUConv2d(nn.Module):
         if inputs.dim() != 4:
             raise ValueError(f"DAUConv2d expects rank-4 input, got {tuple(inputs.shape)}")
         x = inputs.permute(0, 3, 1, 2) if self.channels_last else inputs
+        with tracing.span("dau.forward") as sp:
+            if sp:
+                n, s, h, w = x.shape
+                sp.set(layer=self.trace_name, N=n, S=s, H=h, W=w, F=self.weights.shape[-1])
+            return self._forward(x)
 
+    def _forward(self, x):
         w, mu1, mu2, sigma = (self._constrained(k) for k in ("weights", "mu1", "mu2", "sigma"))
         bias = self.bias
         if not self.dau_sigma_trainable:

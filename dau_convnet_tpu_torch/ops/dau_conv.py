@@ -29,6 +29,7 @@ import torch
 
 from ..parallel import _collectives
 from ..parallel.mesh import axis_size
+from ..utils import tracing
 from ..utils.math import clip_nan
 from . import fourier_engine, xla_engine
 from ._edge import disabled_edges
@@ -311,12 +312,43 @@ def _fused_route(cfg: DAUConvSettings, xb, g: int, bins: int) -> tp.Optional[str
     return gather if plan(m=m, g=g, nj=nj, p1b=p1, rbb=rb) is not None else None
 
 
+def _launch_counts() -> tp.Dict[str, int]:
+    """The kernel wrappers' launch counters, by kernel."""
+    from ..kernels.backward import grad_tables
+    from ..kernels.fused_bwd import fused_spectral_grads as fsg
+    return {"k1": fsg.launches_k1, "k2": fsg.launches_k2, "k8": fsg.launches_k8,
+            "k8_dx": fsg.launches_k8_dx, "k6": grad_tables.launches}
+
+
+def _fourier_unit_grads(cfg: DAUConvSettings, xb, gy, gy_p, sigma_value, w3m, mu13, mu23,
+                        gather: tp.Optional[str], with_dx: bool):
+    """The fourier engine's (unit gradients, dx or None) by `gather` (None:
+    the unfused spectral gather)."""
+    ks = cfg.synth_kernel_size
+    if gather is None:
+        return fourier_engine.fourier_unit_grads(
+            xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, precision=cfg.precision), None
+    if not with_dx:
+        return fourier_engine.fourier_unit_grads_fused2(
+            xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, gather=gather), None
+    # dx from the same kernel call as the unit gradients (K2, or K8 with dx)
+    gy_blur = _blur(cfg, gy, sigma_value, "error")
+    return fourier_engine.fourier_unit_grads_fused2(
+        xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, err_blur=gy_blur,
+        w_units=w3m.to(xb.dtype), gather=gather)
+
+
 def _param_grads(cfg: DAUConvSettings, x, gy, sigma_value, w3m, mu13, mu23, dx_fused: bool):
     """(M, S, G, F) unit gradients, and dx when the fused kernel emitted it
     (else None). Blur x with the filters w, dmu1, dmu2 (and dsigma); the
     Pallas engines read the gradients out of K6's position table, 'xla' out
     of the dense table, 'fourier' out of the cross-spectra (K1/K2 or the
-    unfused spectral gather)."""
+    unfused spectral gather).
+
+    Spans: `dau.blur_stack`, then `dau.unit_grads` with the route taken
+    ('phi', 'factored', 'unfused' or 'tables'), whether dx came with it,
+    the frequency bins, the shapes it was decided on (N, S, H, W, F) and
+    each launch counter's delta."""
     gy_p = gy
     if cfg.unit_testing:
         gy_p = gy * edge_gradient_mask(*gy.shape[-2:], dtype=gy.dtype, device=gy.device)
@@ -325,34 +357,36 @@ def _param_grads(cfg: DAUConvSettings, x, gy, sigma_value, w3m, mu13, mu23, dx_f
     ks = cfg.synth_kernel_size
     if cfg.engine == "fourier":
         vecs, fterms = _factor_filters(cfg, sigma_value)
-        xb = rank1_blur_stack(x, vecs, fterms, names)  # (M, N, S, H, W)
-        p1, _, rb = fourier_engine.plan_bins(h, w_sp, ks)
-        gather = _fused_route(cfg, xb, w3m.shape[1], p1 * rb)
-        with_dx = gather is not None and dx_fused and cfg.fused_dx == "on"
-        _log.info("dau bwd %dx%d N=%d S=%d F=%d B=%d: %s", h, w_sp, n, s_ch, w3m.shape[2],
-                  p1 * rb, "unfused spectral gather" if gather is None else
-                  f"fused kernel (gather={gather}, dx={'fused' if with_dx else 'separate'})")
-        if gather is None:
-            return fourier_engine.fourier_unit_grads(
-                xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, precision=cfg.precision), None
-        if not with_dx:
-            return fourier_engine.fourier_unit_grads_fused2(
-                xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, gather=gather), None
-        # dx from the same kernel call as the unit gradients (K2, or K8 with dx)
-        gy_blur = _blur(cfg, gy, sigma_value, "error")
-        grads, dx = fourier_engine.fourier_unit_grads_fused2(
-            xb, gy_p, mu13, mu23, ks, cfg.use_interpolation, err_blur=gy_blur,
-            w_units=w3m.to(xb.dtype), gather=gather)
-        return grads, dx.to(x.dtype)
-    fstack = torch.stack([_filters(cfg, sigma_value)[k] for k in names])  # (M, kb, kb)
-    xb = depthwise_blur(x, fstack, precision=cfg.precision)  # (N, S*M, H, W)
-    xb = xb.reshape(n, s_ch, len(names), h, w_sp).permute(2, 0, 1, 3, 4)  # (M, N, S, H, W)
-    if cfg.engine in ("pallas", "pallas_fused"):
-        from ..kernels.backward import grad_tables
-        table = grad_tables(xb, gy_p, ks).to(xb.dtype)
-    else:
-        table = xla_engine.grad_tables(xb, gy_p, ks, precision=cfg.precision)
-    return xla_engine.tap_gather(table, mu13, mu23, ks, cfg.use_interpolation), None
+        with tracing.span("dau.blur_stack"):
+            xb = rank1_blur_stack(x, vecs, fterms, names)  # (M, N, S, H, W)
+        with tracing.span("dau.unit_grads") as sp:
+            before = _launch_counts() if sp else None
+            p1, _, rb = fourier_engine.plan_bins(h, w_sp, ks)
+            gather = _fused_route(cfg, xb, w3m.shape[1], p1 * rb)
+            with_dx = gather is not None and dx_fused and cfg.fused_dx == "on"
+            grads, dx = _fourier_unit_grads(cfg, xb, gy, gy_p, sigma_value, w3m, mu13, mu23,
+                                            gather, with_dx)
+            if sp:
+                sp.set(route=gather or "unfused", dx_fused=with_dx, bins=p1 * rb, N=n, S=s_ch,
+                       H=h, W=w_sp, F=w3m.shape[2],
+                       **{k: v - before[k] for k, v in _launch_counts().items()})
+        return grads, (None if dx is None else dx.to(x.dtype))
+    with tracing.span("dau.blur_stack"):
+        fstack = torch.stack([_filters(cfg, sigma_value)[k] for k in names])  # (M, kb, kb)
+        xb = depthwise_blur(x, fstack, precision=cfg.precision)  # (N, S*M, H, W)
+        xb = xb.reshape(n, s_ch, len(names), h, w_sp).permute(2, 0, 1, 3, 4)  # (M, N, S, H, W)
+    with tracing.span("dau.unit_grads") as sp:
+        before = _launch_counts() if sp else None
+        if cfg.engine in ("pallas", "pallas_fused"):
+            from ..kernels.backward import grad_tables
+            table = grad_tables(xb, gy_p, ks).to(xb.dtype)
+        else:
+            table = xla_engine.grad_tables(xb, gy_p, ks, precision=cfg.precision)
+        grads = xla_engine.tap_gather(table, mu13, mu23, ks, cfg.use_interpolation)
+        if sp:
+            sp.set(route="tables", dx_fused=False, bins=0, N=n, S=s_ch, H=h, W=w_sp,
+                   F=w3m.shape[2], **{k: v - before[k] for k, v in _launch_counts().items()})
+    return grads, None
 
 
 def _bwd_rule(cfg: DAUConvSettings, x, w, mu1, mu2, sigma, gy, needs, phi=None):
@@ -364,7 +398,8 @@ def _bwd_rule(cfg: DAUConvSettings, x, w, mu1, mu2, sigma, gy, needs, phi=None):
     w3m, mu13, mu23, had_lead, mask = _masked_units(cfg, w, mu1, mu2)
     sigma_value = _sigma_scalar(cfg, sigma)
     if cfg.engine == "fourier" and phi is None:
-        phi = _build_phi(cfg, x.shape[-2:], w3m.to(x.dtype), mu13, mu23)
+        with tracing.span("dau.phi"):
+            phi = _build_phi(cfg, x.shape[-2:], w3m.to(x.dtype), mu13, mu23)
     # the fourier engine takes dx from the forward's Phi conjugated (with
     # interpolation only: the floor tap of interp-off does not mirror)
     fourier_dx = cfg.engine == "fourier" and cfg.use_interpolation
@@ -374,16 +409,17 @@ def _bwd_rule(cfg: DAUConvSettings, x, w, mu1, mu2, sigma, gy, needs, phi=None):
         grads, dx = _param_grads(cfg, x, gy, sigma_value, w3m, mu13, mu23,
                                  dx_fused=needs[0] and fourier_dx)
     if needs[0] and dx is None:
-        if fourier_dx:
-            dx = fourier_engine.fourier_input_grad(
-                _blur(cfg, gy, sigma_value, "error"), phi, cfg.synth_kernel_size)
-        else:
-            # the forward engine on the error, with S<->F transposed params,
-            # negated offsets and the mirrored blur filter
-            dx = _blur_and_aggregate(
-                cfg, gy, sigma_value, w3m.permute(2, 1, 0),
-                -mu13.permute(2, 1, 0), -mu23.permute(2, 1, 0), blur_name="error")
-        dx = dx.to(x.dtype)
+        with tracing.span("dau.input_grad"):
+            if fourier_dx:
+                dx = fourier_engine.fourier_input_grad(
+                    _blur(cfg, gy, sigma_value, "error"), phi, cfg.synth_kernel_size)
+            else:
+                # the forward engine on the error, with S<->F transposed
+                # params, negated offsets and the mirrored blur filter
+                dx = _blur_and_aggregate(
+                    cfg, gy, sigma_value, w3m.permute(2, 1, 0),
+                    -mu13.permute(2, 1, 0), -mu23.permute(2, 1, 0), blur_name="error")
+            dx = dx.to(x.dtype)
     if grads is None:
         return dx, None, None, None, None
 
@@ -416,17 +452,22 @@ class _DAUConv2dFunction(torch.autograd.Function):
             # one phase table for the forward and the backward's dx
             # (remat_phi: rebuilt in the backward instead of kept)
             w3, mu13, mu23, _, _ = _masked_units(cfg, w, mu1, mu2)
-            phi = _build_phi(cfg, x.shape[-2:], w3.to(x.dtype), mu13, mu23)
+            with tracing.span("dau.phi"):
+                phi = _build_phi(cfg, x.shape[-2:], w3.to(x.dtype), mu13, mu23)
         ctx.cfg = cfg
         ctx.phi = None if cfg.remat_phi else phi
+        ctx.layer = tracing.enclosing("layer")  # the layer's name, for its backward's span
         ctx.save_for_backward(x, w, mu1, mu2, sigma)
         return _forward_impl(cfg, x, w, mu1, mu2, sigma, phi=phi)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        grads = _bwd_rule(ctx.cfg, *ctx.saved_tensors, grad_out, ctx.needs_input_grad[1:],
-                          phi=ctx.phi)
+        with tracing.span("dau.backward") as sp:
+            if sp:
+                sp.set(layer=ctx.layer)
+            grads = _bwd_rule(ctx.cfg, *ctx.saved_tensors, grad_out, ctx.needs_input_grad[1:],
+                              phi=ctx.phi)
         ctx.phi = None
         return (None, *grads)
 

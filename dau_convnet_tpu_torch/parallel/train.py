@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..utils import tracing
 from . import _collectives
 from .mesh import NamedSharding, P, axis_size, batch_sharding, param_shardings
 
@@ -150,13 +151,27 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     axis before `optimizer.step()`, so every data replica takes the update
     of the global batch's mean loss, which comes back replicated. The
     model axis's sums are in the layers themselves.
+
+    Either step records its spans (`utils.tracing`): `train.step` over
+    `train.zero_grad`, `train.forward` (model and loss), `train.backward`,
+    `train.allreduce` (sharded, with a data axis) and `train.optimizer`.
+    Each DAU layer of the model is named for its own spans by its name in
+    `model.named_modules()`.
     """
+    for name, module in model.named_modules():
+        if hasattr(type(module), "trace_name"):
+            module.trace_name = name
     if mesh is None:
         def step(x, labels):
-            optimizer.zero_grad(set_to_none=True)
-            loss = loss_fn(model(x), labels)
-            loss.backward()
-            optimizer.step()
+            with tracing.span("train.step", adopt=True):
+                with tracing.span("train.zero_grad"):
+                    optimizer.zero_grad(set_to_none=True)
+                with tracing.span("train.forward"):
+                    loss = loss_fn(model(x), labels)
+                with tracing.span("train.backward", adopt=True):
+                    loss.backward()
+                with tracing.span("train.optimizer"):
+                    optimizer.step()
             return loss.detach()
 
         return step
@@ -170,16 +185,22 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     group = mesh.get_group("data") if n_data > 1 else None
 
     def sharded_step(state: TrainState, x, labels):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model(x), labels)
-        loss.backward()
-        loss = loss.detach()
-        if group is not None:
-            for p in model.parameters():
-                if p.grad is not None:
-                    _collectives.all_reduce(p.grad, group).div_(n_data)
-            loss = _collectives.all_reduce(loss.clone(), group) / n_data
-        optimizer.step()
+        with tracing.span("train.step", adopt=True):
+            with tracing.span("train.zero_grad"):
+                optimizer.zero_grad(set_to_none=True)
+            with tracing.span("train.forward"):
+                loss = loss_fn(model(x), labels)
+            with tracing.span("train.backward", adopt=True):
+                loss.backward()
+            loss = loss.detach()
+            if group is not None:
+                with tracing.span("train.allreduce"):
+                    for p in model.parameters():
+                        if p.grad is not None:
+                            _collectives.all_reduce(p.grad, group).div_(n_data)
+                    loss = _collectives.all_reduce(loss.clone(), group) / n_data
+            with tracing.span("train.optimizer"):
+                optimizer.step()
         state.step += 1
         return state, loss
 

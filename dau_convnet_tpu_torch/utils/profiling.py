@@ -11,13 +11,20 @@ clock without a synchronize measures only the enqueue.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 import typing as tp
 
 import torch
 
-__all__ = ["trace", "device_time", "kernel_ms", "device_busy_ms"]
+from . import tracing
+
+__all__ = ["SPAN_PID", "trace", "device_time", "kernel_ms", "device_busy_ms"]
+
+# the Chrome trace's process id of the program's spans: 2**22 lies above
+# every Linux pid, so no process of the trace has it
+SPAN_PID = 1 << 22
 
 
 @contextlib.contextmanager
@@ -27,7 +34,11 @@ def trace(logdir: tp.Optional[str] = None, device: str = "cuda", host: bool = Tr
     yield the profiler. The
     device is synchronized on entry (work queued before the block stays out
     of it) and on exit; when `logdir` is given, a Chrome trace is written
-    into it as `trace_<pid>_<ns>.json`."""
+    into it as `trace_<pid>_<ns>.json`. The program's spans recorded inside
+    the block (`utils.tracing`, on while the profiler runs) are written into
+    that file too, as the process track "program spans" (pid `SPAN_PID`,
+    one row a thread, each span's attrs, id and parent in its args), on the
+    file's own time base."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] if host or device == "cpu" else []
@@ -37,14 +48,37 @@ def trace(logdir: tp.Optional[str] = None, device: str = "cuda", host: bool = Tr
     # that a cycle clears them quiet)
     if device != "cpu":
         torch.cuda.synchronize()
+    t0 = time.time_ns()
     with profile(activities=activities, acc_events=True) as prof:
         yield prof
         if device != "cpu":
             torch.cuda.synchronize()
+    t1 = time.time_ns()
     if logdir is not None:
         os.makedirs(logdir, exist_ok=True)
-        prof.export_chrome_trace(
-            os.path.join(logdir, f"trace_{os.getpid()}_{time.monotonic_ns()}.json"))
+        path = os.path.join(logdir, f"trace_{os.getpid()}_{time.monotonic_ns()}.json")
+        prof.export_chrome_trace(path)
+        inside = [s for s in tracing.spans() if s.start_ns >= t0 and s.end_ns <= t1]
+        if inside:
+            with open(path) as f:
+                doc = json.load(f)
+            doc["traceEvents"] += _span_events(inside, doc.get("baseTimeNanoseconds", 0))
+            with open(path, "w") as f:
+                json.dump(doc, f)
+
+
+def _span_events(spans: tp.Sequence["tracing.Span"], base_ns: int) -> tp.List[dict]:
+    """The spans as Chrome trace events of the process track `SPAN_PID`,
+    one row a thread, on the file's time base (microseconds after
+    `base_ns`)."""
+    events = [{"ph": "M", "name": "process_name", "pid": SPAN_PID, "tid": 0,
+               "args": {"name": "program spans"}}]
+    for s in spans:
+        events.append({"ph": "X", "cat": "program_span", "name": s.name, "pid": SPAN_PID,
+                       "tid": s.thread, "ts": (s.start_ns - base_ns) / 1e3,
+                       "dur": (s.end_ns - s.start_ns) / 1e3,
+                       "args": {**s.attrs, "id": s.id, "parent": s.parent}})
+    return events
 
 
 def kernel_ms(prof) -> tp.Dict[str, float]:

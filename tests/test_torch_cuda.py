@@ -487,6 +487,39 @@ def test_layer_fourier_fused_backward_matches_unfused(cuda_device, fused_dx):
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_dx,counter", [("off", "launches_k1"), ("on", "launches_k2")])
+def test_fused_backward_span_counts_the_counters_launches(cuda_device, fused_dx, counter):
+    """A fused DAU backward's `dau.unit_grads` span: route 'phi', and its K1
+    (or K2) delta equals the launch counter's, on the autograd engine's
+    device thread (its `dau.backward` takes the open step as its parent)."""
+    from dau_convnet_tpu_torch.utils import tracing
+
+    layer = DAUConv2d(16, 40, (2, 1), 9, engine="fourier", fused_bwd="on", fused_dx=fused_dx,
+                      device=cuda_device, generator=torch.Generator().manual_seed(0))
+    layer.trace_name = "conv"
+    x = torch.rand((3, 16, 13, 13), generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda_device).requires_grad_()
+    tracing.clear()
+    try:
+        before = getattr(tfb.fused_spectral_grads, counter)
+        with tracing.record(), tracing.span("train.step", adopt=True) as step:
+            layer(x).sum().backward()
+        torch.cuda.synchronize()
+        delta = getattr(tfb.fused_spectral_grads, counter) - before
+        recs = tracing.spans()
+    finally:
+        tracing.clear()
+    (grads,) = [s for s in recs if s.name == "dau.unit_grads"]
+    (bwd,) = [s for s in recs if s.name == "dau.backward"]
+    assert delta == 1
+    assert grads.attrs["route"] == "phi" and grads.attrs["dx_fused"] == (fused_dx == "on")
+    assert grads.attrs[counter[len("launches_"):]] == delta
+    assert grads.attrs["k8"] == grads.attrs["k6"] == 0
+    assert bwd.attrs["layer"] == "conv" and bwd.parent == step.id
+    assert grads.parent == bwd.id
+
+
 # K8, the factored gather: K1's shapes and bounds (the twin rounds T, P and Q
 # to bf16 where the kernel does)
 

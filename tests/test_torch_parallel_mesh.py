@@ -285,15 +285,16 @@ def test_f_sharded_op_matches_the_port_on_one_process(port, gather, fused_dx):
 
 @pytest.mark.parametrize("gather,fused_dx", OP_CONFIGS)
 def test_f_sharded_op_runs_the_fused_kernel_per_shard(port, gather, fused_dx):
-    """Each rank logs its axes and the route its backward took on its own
-    shard: N = 4 rows, F = 8 units, the fused kernel of the gather asked
-    for, emitting dx where fused_dx='on'."""
-    dx = "fused" if fused_dx == "on" else "separate"
+    """Each rank logs its axes, and its backward's `dau.unit_grads` span
+    records the route taken on its own shard: N = 4 rows, F = 8 units, the
+    fused kernel of the gather asked for, emitting dx where fused_dx='on'."""
     for rank in range(ranks.WORLD):
-        logs = "\n".join(port[rank]["op"][(gather, fused_dx)]["logs"])
+        case = port[rank]["op"][(gather, fused_dx)]
+        logs = "\n".join(case["logs"])
         assert "sharded axes: data=data model=model" in logs, logs
-        assert f"N=4 S=8 F=8 B=" in logs, logs
-        assert f"fused kernel (gather={gather}, dx={dx})" in logs, logs
+        (attrs,) = case["unit_grads"]
+        assert (attrs["N"], attrs["S"], attrs["F"]) == (4, 8, 8), attrs
+        assert attrs["route"] == gather and attrs["dx_fused"] == (fused_dx == "on"), attrs
 
 
 # ---- spatial sharding of the op's forward

@@ -26,6 +26,7 @@ from dau_convnet_tpu_torch.parallel import (P, NamedSharding, batch_sharding, ga
                                             param_shardings, spatial_dau_conv2d,
                                             spatial_sharding)
 from dau_convnet_tpu_torch.parallel import _collectives
+from dau_convnet_tpu_torch.utils import tracing
 
 WORLD = 4
 MESHES = ((4, 1), (2, 2))
@@ -167,7 +168,7 @@ def _sharded_op(mesh, arrays, gather, fused_dx):
     """The op on this rank's rows and F-slice under fused_bwd='on', its
     backward from the error; the unit gradients all-reduced over 'data' as
     the step does. Returns the gathered y, dx, dw, dmu1, dmu2, dsig (rank
-    0) and the op's log lines."""
+    0), the op's log lines and the attrs of its `dau.unit_grads` spans."""
     cfg = DAUConvSettings(kernel_size=9, engine="fourier", fused_bwd="on", fused_dx=fused_dx,
                           fused_gather=gather)
     bsh = batch_sharding(mesh)
@@ -181,15 +182,20 @@ def _sharded_op(mesh, arrays, gather, fused_dx):
     logger.addHandler(logs)
     old_level = logger.level
     logger.setLevel(logging.INFO)
+    tracing.clear()
     try:
-        y = dau_conv2d_op(cfg, x, *params, mesh=mesh)
-        y.backward(torch.from_numpy(esh.shard(arrays["err"]).copy()))
+        with tracing.record():
+            y = dau_conv2d_op(cfg, x, *params, mesh=mesh)
+            y.backward(torch.from_numpy(esh.shard(arrays["err"]).copy()))
     finally:
         logger.removeHandler(logs)
         logger.setLevel(old_level)
+    unit_grads = [s.attrs for s in tracing.spans() if s.name == "dau.unit_grads"]
+    tracing.clear()
     data = mesh.get_group("data")
     grads = [fsh.gather(_collectives.all_reduce(p.grad, data)) for p in params]
-    return dict(y=esh.gather(y), dx=bsh.gather(x.grad), grads=grads, logs=logs.lines)
+    return dict(y=esh.gather(y), dx=bsh.gather(x.grad), grads=grads, logs=logs.lines,
+                unit_grads=unit_grads)
 
 
 def _spatial(mesh, arrays, engine):
