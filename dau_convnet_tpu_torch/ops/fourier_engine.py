@@ -268,18 +268,55 @@ def fourier_apply_phi(x_blur, phire, phiim, h, w_sp, p1, p2, rb,
                                    contract=(2, 2))
         else:
             yre, yim = _bin_matmul(xre_t, xim_t, phire, phiim, conj_b=conj_phi)
-    return _spectra_to_image(yre, yim, p1, p2, rb, h, w_sp).to(x_blur.dtype)
+    return _spectra_to_image(yre, yim, p1, p2, rb, h, w_sp, out_dtype=x_blur.dtype)
 
 
-def _spectra_to_image(yre, yim, p1, p2, rb, h, w_sp, apply_coef: bool = True):
-    """Partial inverse rDFT of per-bin spectra (B, N, C) -> (N, C, H, W) f32:
-    out[n,c,ij] = sum_k yre[k,n,c] C[k,ij] - yim[k,n,c] S[k,ij]."""
+@tensor_cache
+def _idft_stage_mats_cached(p1, p2, rb, h, wd, dtype, device, apply_coef):
+    ang1 = 2.0 * np.pi * np.arange(h)[:, None] * np.arange(p1)[None, :] / p1   # (H, P1)
+    c1, s1 = np.cos(ang1), np.sin(ang1)
+    a_re = np.stack([c1, s1], axis=1).reshape(2 * h, p1)
+    a_im = np.stack([-s1, c1], axis=1).reshape(2 * h, p1)
+    ang2 = 2.0 * np.pi * np.arange(rb)[:, None] * np.arange(wd)[None, :] / p2  # (rb, W)
+    coef = (_rfft_coef(p2, rb) / (p1 * p2))[:, None] if apply_coef else 1.0
+    b = np.concatenate([np.cos(ang2) * coef, -np.sin(ang2) * coef])
+    return tuple(torch.tensor(t, dtype=dtype, device=device) for t in (a_re, a_im, b))
+
+
+def _idft_stage_mats(p1: int, p2: int, rb: int, h: int, wd: int, dtype, device=None,
+                     apply_coef: bool = True):
+    """The two stages of the separable partial inverse rDFT, angles in f64
+    on the host, cached per device: (A_re, A_im), each (2H, P1), whose rows
+    2i and 2i+1 give Re and Im of sum_k1 e^{2 pi i k1 i / P1} Y[k1] from Yre
+    and from Yim; and B (2*rb, W) = [cos; -sin](2 pi k2 j / P2), which
+    takes the real part of sum_k2 e^{2 pi i k2 j / P2} Z[k2], its rows
+    carrying the rfft weight w2[k2]/(P1*P2) unless apply_coef is False."""
+    return _idft_stage_mats_cached(p1, p2, rb, h, wd, dtype, _device(device), apply_coef)
+
+
+def _spectra_to_image(yre, yim, p1, p2, rb, h, w_sp, apply_coef: bool = True,
+                      out_dtype=torch.float32):
+    """Partial inverse rDFT of per-bin spectra (B, N, C) -> (N, C, H, W) in
+    out_dtype: out[n,c,ij] = sum_k yre[k,n,c] C[k,ij] - yim[k,n,c] S[k,ij]
+    with `_idft_mats`' (C, S), taken as two separable stages: k1 first (one
+    GEMM pair over every (k2, n, c) column of the bin-major spectra), then
+    k2 batched over the image rows. Products and sums in f32 (f64 for f64
+    spectra); the permute to (N, C, H, W) rides on the one copy that casts
+    to out_dtype. Counts its calls in `_spectra_to_image.calls`."""
+    _spectra_to_image.calls += 1
     n, cout = yre.shape[1], yre.shape[2]
-    cmat, smat = _idft_mats(p1, p2, rb, range(h), range(w_sp), torch.float32,
-                            yre.device, apply_coef=apply_coef)
-    out = (torch.matmul(yre.float().permute(1, 2, 0).reshape(-1, p1 * rb), cmat)
-           - torch.matmul(yim.float().permute(1, 2, 0).reshape(-1, p1 * rb), smat))
-    return out.reshape(n, cout, h, w_sp)
+    dtype = torch.float64 if yre.dtype == torch.float64 else torch.float32
+    a_re, a_im, b = _idft_stage_mats(p1, p2, rb, h, w_sp, dtype, yre.device, apply_coef)
+    # reshape copies only a strided slice (the K2 dx closing's halves)
+    z = torch.mm(a_re, yre.to(dtype).reshape(p1, -1))          # (2H, rb*N*C)
+    z.addmm_(a_im, yim.to(dtype).reshape(p1, -1))
+    # (H, N*C, W): W stays innermost, so the permuting copy moves whole rows
+    out = torch.bmm(z.view(h, 2 * rb, n * cout).transpose(1, 2), b.expand(h, -1, -1))
+    img = out.view(h, n, cout, w_sp).permute(1, 2, 0, 3)
+    return torch.empty((n, cout, h, w_sp), dtype=out_dtype, device=yre.device).copy_(img)
+
+
+_spectra_to_image.calls = 0
 
 
 def fourier_forward(x_blur, w, mu1, mu2, ks: int, use_interpolation: bool = True,

@@ -21,6 +21,7 @@ from dau_convnet_tpu.kernels.fused_bwd import fused_spectral_grads_call
 from dau_convnet_tpu.ops import fourier_engine as jfe
 from dau_convnet_tpu.ops import gaussian as jg
 from dau_convnet_tpu_torch.kernels import fused_bwd as tfb
+from dau_convnet_tpu_torch.nn import layers as tl
 from dau_convnet_tpu_torch.ops import fourier_engine as tfe
 from dau_convnet_tpu_torch.ops import gaussian as tg
 from dau_convnet_tpu_torch.ops import xla_engine as txe
@@ -239,14 +240,57 @@ def test_fourier_apply_phi_matches_jax(contract_f, conj, stacked):
     _close(got, ref, "apply phi")
 
 
-@pytest.mark.parametrize("coef", [True, False])
-def test_spectra_to_image_matches_jax(coef):
+# (H, W) planes of the separable inverse: odd and even P2 (so with and
+# without a Nyquist bin of weight 1); the (9, 10) cases are named by the
+# flag alone
+SPECTRA_HW = [((9, 10), coef, str(coef)) for coef in (True, False)] + [
+    (hw, coef, f"{hw[0]}x{hw[1]}-{coef}")
+    for hw in [(7, 7), (13, 13), (9, 9), (14, 9), (27, 27)] for coef in (True, False)]
+
+
+@pytest.mark.parametrize("hw,coef", [pytest.param(hw, coef, id=i) for hw, coef, i in SPECTRA_HW])
+def test_spectra_to_image_matches_jax(hw, coef):
+    h, w = hw
     rng = np.random.default_rng(10)
-    p1, p2, rb = jfe.plan_bins(9, 10, 9)
+    p1, p2, rb = jfe.plan_bins(h, w, 9)
     yre, yim = rng.standard_normal((2, p1 * rb, 2, 3)).astype(np.float32)
-    ref = jfe._spectra_to_image(_j(yre), _j(yim), p1, p2, rb, 9, 10, HIGHEST, apply_coef=coef)
-    got = tfe._spectra_to_image(_t(yre), _t(yim), p1, p2, rb, 9, 10, apply_coef=coef)
+    ref = jfe._spectra_to_image(_j(yre), _j(yim), p1, p2, rb, h, w, HIGHEST, apply_coef=coef)
+    got = tfe._spectra_to_image(_t(yre), _t(yim), p1, p2, rb, h, w, apply_coef=coef)
+    assert got.dtype == torch.float32 and got.is_contiguous()
     _close(got, ref, "spectra to image")
+
+
+@pytest.mark.parametrize("coef", [True, False])
+def test_separable_spectra_to_image_is_the_dense_product(coef):
+    """The two stages against the dense (P1*rb) x (H*W) product with
+    `_idft_mats`, both in f64, at ResNet-18's 56x56 plane; the spectra are
+    the halves of one (B, 2N, C) tensor, as the K2 dx closing passes them."""
+    h = w = 56
+    p1, p2, rb = tfe.plan_bins(h, w, 9)
+    n, c = 2, 3
+    gen = torch.Generator().manual_seed(12)
+    ys = torch.randn((p1 * rb, 2 * n, c), generator=gen, dtype=torch.float64)
+    yre, yim = ys[:, :n], ys[:, n:]
+    assert not yre.is_contiguous()
+    got = tfe._spectra_to_image(yre, yim, p1, p2, rb, h, w, apply_coef=coef,
+                                out_dtype=torch.float64)
+    cmat, smat = tfe._idft_mats(p1, p2, rb, range(h), range(w), torch.float64,
+                                apply_coef=coef)
+    flat = (p1 * rb, n * c)
+    ref = (yre.reshape(flat).t() @ cmat - yim.reshape(flat).t() @ smat).reshape(n, c, h, w)
+    assert got.dtype == torch.float64 and got.shape == (n, c, h, w) and got.is_contiguous()
+    assert float((got - ref).abs().max()) <= 1e-10 * float(ref.abs().max())
+
+
+def test_fourier_layer_takes_the_separable_inverse_once_a_pass():
+    layer = tl.DAUConv2d(3, 4, (2, 1), 9, engine="fourier", fused_dx="off", device="cpu")
+    x = torch.randn((2, 3, 9, 10), requires_grad=True)
+    before = tfe._spectra_to_image.calls
+    y = layer(x)
+    assert tfe._spectra_to_image.calls == before + 1
+    y.square().sum().backward()
+    assert tfe._spectra_to_image.calls == before + 2  # the forward and fourier_input_grad
+    assert x.grad is not None
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
