@@ -54,7 +54,10 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    launches per step), then with 'pallas' (8 K4 + 4 K6 per step); per step
    the loss must be finite, every trainable parameter must get a finite
    nonzero gradient and take the SGD update (old - lr*grad, rounded once to
-   its dtype, within two ulps);
+   its dtype, within two ulps); every step here and in phases 12-26 runs
+   eager (`cuda_graph=False`): phases 13 and 18 time them again under the
+   plain twins, and their launches reach the kernels line; phase 28 holds
+   the replayed step;
 8. reference: one f32 step from the same weights, through the kernels and
    through the plain twins, per engine: every parameter's gradient must
    agree within 1e-3*max|grad| of that tensor;
@@ -248,6 +251,21 @@ Run from the root of the repository, on a machine with a CUDA card. Phases:
    copy rate. Each of the six wrappers (probe GEMM, gather, the three
    stream kernels, K7) must launch in the phase's run.
 
+28. the one-device step replayed as one CUDA graph (`make_train_step`'s
+   default on the card): per run of GRAPH_RUNS, AlexNet-DAU (default
+   variant, bf16, N=32) takes 3 SGD steps from the seed's weights eager,
+   twice, and through the graphed step (the first call eager, the second
+   captures and replays, the third replays): the graphed losses,
+   parameters, gradients and BatchNorm statistics must equal the first
+   eager run's bit for bit where the second eager run does, else lie
+   within its distance; then one more eager and one more replayed step,
+   each under `torch.profiler`: the hand kernels' launches read from the
+   replay's trace must equal those of the eager step's trace and those
+   its launch counters counted (taken again, up to 3 times, where a trace
+   is partial), and each device event whose count differs between the two
+   traces is printed; the eager and the replayed step's times (CUDA
+   events, 5 runs of 3).
+
 The whole run's time prints before the summary. The second-to-last line
 is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -278,6 +296,7 @@ from dau_convnet_tpu_torch.kernels import forward as kfwd  # noqa: E402
 from dau_convnet_tpu_torch.kernels import fused_bwd as kfb  # noqa: E402
 from dau_convnet_tpu_torch.kernels import fused_fwd as kff  # noqa: E402
 from dau_convnet_tpu_torch.kernels import spectral as ksp  # noqa: E402
+from dau_convnet_tpu_torch.kernels import LAUNCH_COUNTERS  # noqa: E402
 from dau_convnet_tpu_torch import bench  # noqa: E402
 from dau_convnet_tpu_torch.kernels._build import build, build_log, disassemble  # noqa: E402
 from dau_convnet_tpu_torch.examples import analyze_spatial as az  # noqa: E402
@@ -589,11 +608,8 @@ def compare_backward(gen, dev, ks):
 
 COUNTS = "(K5, K4, K6, K1, K2, K8, K8 dx, K7, K3)"
 # (owner, attribute) of each launch counter, in COUNTS' order
-_COUNTERS = ((kfwd.dau_forward_fused, "launches"), (kfwd.aggregate_forward, "launches"),
-             (kbwd.grad_tables, "launches"), (kfb.fused_spectral_grads, "launches_k1"),
-             (kfb.fused_spectral_grads, "launches_k2"), (kfb.fused_spectral_grads, "launches_k8"),
-             (kfb.fused_spectral_grads, "launches_k8_dx"), (ksp.partial_idft, "launches"),
-             (kff.fused_apply_phi, "launches"))
+_COUNTERS = tuple(LAUNCH_COUNTERS[k] for k in ("k5", "k4", "k6", "k1", "k2", "k8", "k8_dx",
+                                                  "k7", "k3"))
 
 
 def _counts():
@@ -650,12 +666,15 @@ def _stats(model):
 
 
 def run_steps(tag, model, data, want, lr):
-    """SGD steps of `model` through `make_train_step`, one per (x, labels)
-    of `data`; checks the launch counts of each step against `want`, a
-    finite loss, a finite nonzero gradient for every trainable parameter and
-    its SGD update, and that every BatchNorm running statistic moved.
-    Returns (step, launch counts, moved)."""
-    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=lr))
+    """SGD steps of `model` through `make_train_step`, eager (its steps are
+    timed again under `plain_twin()` and `checked_kernels`, which a replayed
+    graph would bypass, and their launch counters reach the kernels line:
+    phase 28 holds the replayed step), one per (x, labels) of `data`;
+    checks the launch counts of each step against `want`, a finite loss, a
+    finite nonzero gradient for every trainable parameter and its SGD
+    update, and that every BatchNorm running statistic moved. Returns
+    (step, launch counts, moved)."""
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=lr), cuda_graph=False)
     fixed = _fixed_sigmas(model)
     first = {k: p.detach().clone() for k, p in model.named_parameters()}
     stats = _stats(model)
@@ -1795,6 +1814,9 @@ def main(argv=None) -> int:
     # 27. the probes P1-P9 through their entry points
     probe_rows = probes(dev, card)
 
+    # 28. the one-device step replayed as one CUDA graph, against eager steps
+    graph_steps(dev, args.seed, card)
+
     launches_k5 = launches + runs["pallas_fused"][1][0] + more[0]
     launches_k4 = runs["pallas"][1][1] + more[1]
     launches_k6 = runs["pallas_fused"][1][2] + runs["pallas"][1][2] + more[2]
@@ -1839,6 +1861,131 @@ def main(argv=None) -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+# phase 28: the runs of TRAIN_RUNS whose step is replayed; the trace's
+# hand-kernel classes (CATEGORIES' first six, first match wins) and the
+# launch counters (COUNTS' order) whose launches run a kernel of each
+GRAPH_RUNS = ("pallas_fused", "pallas", "fourier", "fourier fused_dx", "fourier factored",
+              "fourier factored fused_dx")
+GRAPH_CLASSES = {"K5 fused_forward_kernel": (0,), "K4 aggregate_kernel": (1,),
+                 "K6 grad_tables_kernel": (2,), "K8 spectral_grads_kernel<FactoredGather>": (5, 6),
+                 "K1/K2 spectral_grads_kernel<PhiGather>": (3, 4),
+                 "K2/K8 spectral_dx_kernel": (4, 6)}
+
+
+def _graph_run(engine, dev, seed, batches, labels, cuda_graph):
+    """STEPS SGD steps of the run `engine` of TRAIN_RUNS from the seed's
+    weights: (model, step, losses, parameters, gradients, BatchNorm
+    statistics)."""
+    kw, _ = TRAIN_RUNS[engine]
+    model = AlexNetDAU(variant="default", image_size=IMAGE, dtype=torch.bfloat16, device=dev,
+                       generator=torch.Generator().manual_seed(seed), **kw)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=LR),
+                           cuda_graph=cuda_graph)
+    losses = torch.stack([step(x, labels) for x in batches]).float()
+    torch.cuda.synchronize()
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    return model, step, losses, params, grads, _stats(model)
+
+
+def _held_like_eager(tag, a, b, c):
+    """c (graphed) against a (eager), tensor by tensor: bit for bit where
+    the second eager run b is, else within b's distance from a. Returns how
+    many were bit for bit."""
+    if set(a) != set(c):
+        raise AssertionError(f"{tag}: graphed tensors {sorted(set(c) ^ set(a))} differ")
+    same = 0
+    for key in a:
+        ref, twin, got = a[key].float(), b[key].float(), c[key].float()
+        if torch.equal(ref, twin):
+            if not torch.equal(ref, got):
+                raise AssertionError(f"{tag}: {key} differs from two bitwise-equal eager runs")
+            same += 1
+        elif float((got - ref).abs().max()) > float((twin - ref).abs().max()):
+            raise AssertionError(f"{tag}: {key} differs from eager by more than eager from "
+                                 f"eager: {float((got - ref).abs().max())} > "
+                                 f"{float((twin - ref).abs().max())}")
+    return same
+
+
+def _traced_launches(fn):
+    """(device events by name, with their count) of one call of fn under
+    `torch.profiler`, and the launch counters' delta over it."""
+    before = _counts()
+    with trace(host=False) as prof:
+        fn()
+    got = tuple(a - b for a, b in zip(_counts(), before))
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}, got
+
+
+def _hand_launches(events):
+    out = {}
+    for name, n in events.items():
+        cls = next((c for c, frags in CATEGORIES[:6] if any(fr in name for fr in frags)), None)
+        if cls is not None:
+            out[cls] = out.get(cls, 0) + n
+    return out
+
+
+def graph_steps(dev, seed, card):
+    """Phase 28: the one-device step replayed as one CUDA graph against eager
+    steps from the same weights and batches, per run of GRAPH_RUNS."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed + 28)
+    batches = [torch.rand((BATCH, 3, IMAGE, IMAGE), generator=gen).to(dev)
+               for _ in range(STEPS)]
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen).to(dev)
+    for engine in GRAPH_RUNS:
+        eager = _graph_run(engine, dev, seed, batches, labels, False)
+        twin = _graph_run(engine, dev, seed, batches, labels, False)[2:]
+        graphed = _graph_run(engine, dev, seed, batches, labels, True)
+        counts = dict(graphed[1].counts)
+        if counts != {"first_call": 1, "captures": 1, "replays": STEPS - 2}:
+            raise AssertionError(f"graph {engine}: calls {counts}, failures "
+                                 f"{list(graphed[1].failures.values())}")
+        same = sum(_held_like_eager(f"graph {engine} {what}", e, t, g)
+                   for what, e, t, g in zip(("losses", "parameters", "gradients", "statistics"),
+                                            ({"loss": eager[2]}, *eager[3:]),
+                                            ({"loss": twin[0]}, *twin[1:]),
+                                            ({"loss": graphed[2]}, *graphed[3:])))
+        total = 1 + sum(len(t) for t in graphed[3:])
+        replays = graphed[1].counts["replays"]
+        for taken in range(1, 4):
+            e_events, e_counted = _traced_launches(lambda: eager[1](batches[0], labels))
+            r_events, r_counted = _traced_launches(lambda: graphed[1](batches[0], labels))
+            want = {c: sum(e_counted[i] for i in idx) for c, idx in GRAPH_CLASSES.items()}
+            want = {c: n for c, n in want.items() if n}
+            if _hand_launches(e_events) == want == _hand_launches(r_events):
+                break
+        else:
+            raise AssertionError(f"graph {engine}: hand-kernel launches in the traces: eager "
+                                 f"{_hand_launches(e_events)}, replay {_hand_launches(r_events)},"
+                                 f" counted {want}")
+        if r_counted != e_counted:
+            raise AssertionError(f"graph {engine}: a replay advanced the counters by "
+                                 f"{r_counted}, an eager step by {e_counted}")
+        if graphed[1].counts["replays"] != replays + taken:
+            raise AssertionError(f"graph {engine}: a traced call did not replay: "
+                                 f"{dict(graphed[1].counts)}")
+        diff = {k: (e_events.get(k, 0), r_events.get(k, 0))
+                for k in set(e_events) | set(r_events) if e_events.get(k, 0) != r_events.get(k, 0)}
+        t_e = _spread(lambda: eager[1](batches[0], labels), iters=3)
+        t_r = _spread(lambda: graphed[1](batches[0], labels), iters=3)
+        print(f"graph {engine} N={BATCH} bf16: {STEPS} steps {counts}; {same} of {total} tensors "
+              f"bit for bit as eager, the rest within eager's own distance; hand kernels in the "
+              f"replay's trace {_hand_launches(r_events)} = eager's = counted; device events "
+              f"eager {sum(e_events.values())}, replay {sum(r_events.values())}; step eager "
+              f"{_fmt(t_e)}, replayed {_fmt(t_r)} over 5 runs of 3 [{card}]")
+        for k, (a, b) in sorted(diff.items()):
+            print(f"  graph {engine} device events eager {a} -> replay {b}: {k[:110]}")
+        del eager, twin, graphed
+        torch.cuda.empty_cache()
+    print(f"phase 28 (CUDA graph): {len(GRAPH_RUNS)} runs, {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
 
 
 def probes(dev, card):
@@ -2609,7 +2756,8 @@ def parallel(dev, seed, card):
     x_dev, y_dev = [x.to(dev) for x in batches], labels.to(dev)
     model = AlexNetDAU(variant="default", image_size=IMAGE, dtype=torch.bfloat16,
                        fused_dx="on", device=dev, generator=torch.Generator().manual_seed(seed))
-    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=LR))
+    # eager, as the sharded steps it is timed against are
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=LR), cuda_graph=False)
     bf16 = [float(step(x, y_dev)) for x in x_dev]
     one_ms = _spread(lambda: step(x_dev[0], y_dev), repeats=3, iters=2)
     del model, step

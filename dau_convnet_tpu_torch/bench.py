@@ -30,14 +30,16 @@ them.
 
 Times are CUDA events around `--iters` steps, taken 5 times (3 under a
 tight budget): the median, with every run's per-step ms under `*_pairs_ms`
-(the JAX bench's names) and their min and max. The steps are eager and
-paced by the host, as a user's are; `device_busy_ms` is the device time of
-one profiled step. Without a CUDA device the bench exits non-zero, unless
-`--device cpu` asks for a smoke test of the code path, whose numbers are
-host times and not the card's. The top-level process only watches a child
-that does the work (`DAU_BENCH_TOTAL_BUDGET_S`, default 1500 s) and prints
-a null-valued line if the child printed none; `DAU_BENCH_NO_GUARD=1` runs
-the work in-process.
+(the JAX bench's names) and their min and max. The training steps of
+`--model alexnet` come from `make_train_step`, which replays a step as one
+CUDA graph after its first calls, so `time_steps` times replays there; the
+other cells' calls are eager and paced by the host, as a user's are.
+`device_busy_ms` is the device time of one profiled step. Without a CUDA
+device the bench exits non-zero, unless `--device cpu` asks for a smoke
+test of the code path, whose numbers are host times and not the card's.
+The top-level process only watches a child that does the work
+(`DAU_BENCH_TOTAL_BUDGET_S`, default 1500 s) and prints a null-valued line
+if the child printed none; `DAU_BENCH_NO_GUARD=1` runs the work in-process.
 """
 
 from __future__ import annotations

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import xla_engine
+from ..ops._cache import tensor_cache
 from ..ops.gaussian import depthwise_blur
 from ._build import load_library
 
@@ -283,6 +284,12 @@ def _check(x, w, mu1, mu2, blur_filter, ks):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
+@tensor_cache
+def _tap_steps(ks: int, dtype, device):
+    """The flat offsets of a unit's four bilinear taps from its floor tap."""
+    return torch.tensor([0, 1, ks, ks + 1], dtype=dtype, device=device)
+
+
 def synthesize_kernel_pfs(w, mu1, mu2, ks: int, use_interpolation: bool = True,
                           s_out: int | None = None):
     """`xla_engine.synthesize_kernel` built straight into K4's GEMM layout:
@@ -310,8 +317,7 @@ def synthesize_kernel_pfs(w, mu1, mu2, ks: int, use_interpolation: bool = True,
         a1, a2 = mu1 - f1, mu2 - f2
         iw = (torch.stack([1.0 - a2, a2])[:, None] * torch.stack([1.0 - a1, a1])[None])
         iw = iw.reshape(4, s, g, f)
-        steps = torch.tensor([0, 1, ks, ks + 1], dtype=mu1.dtype, device=mu1.device)
-        tgt = base[None] + steps[:, None, None, None]
+        tgt = base[None] + _tap_steps(ks, mu1.dtype, mu1.device)[:, None, None, None]
     else:
         iw, tgt = torch.ones_like(mu1)[None], base[None]
     val = (w[None] * iw).to(w.dtype).float()

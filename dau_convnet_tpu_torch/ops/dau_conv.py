@@ -313,11 +313,10 @@ def _fused_route(cfg: DAUConvSettings, xb, g: int, bins: int) -> tp.Optional[str
 
 
 def _launch_counts() -> tp.Dict[str, int]:
-    """The kernel wrappers' launch counters, by kernel."""
-    from ..kernels.backward import grad_tables
-    from ..kernels.fused_bwd import fused_spectral_grads as fsg
-    return {"k1": fsg.launches_k1, "k2": fsg.launches_k2, "k8": fsg.launches_k8,
-            "k8_dx": fsg.launches_k8_dx, "k6": grad_tables.launches}
+    """The launch counters of the unit gradients' kernels, by kernel (the
+    package's list: `kernels.LAUNCH_COUNTERS`)."""
+    from ..kernels import launch_counts
+    return launch_counts(("k1", "k2", "k8", "k8_dx", "k6"))
 
 
 def _fourier_unit_grads(cfg: DAUConvSettings, xb, gy, gy_p, sigma_value, w3m, mu13, mu23,

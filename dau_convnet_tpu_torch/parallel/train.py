@@ -11,17 +11,24 @@ over 'data', and the step averages the gradients over 'data'.
 
 from __future__ import annotations
 
+import collections
+import collections.abc
+import contextlib
 import typing as tp
+import warnings
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
+from torch.nn.modules import module as _nn_module
+from torch.optim import optimizer as _optim_module
 
+from .. import kernels
 from ..utils import tracing
 from . import _collectives
 from .mesh import NamedSharding, P, axis_size, batch_sharding, param_shardings
 
-__all__ = ["softmax_xent", "make_train_step", "TrainState", "StateShardings",
+__all__ = ["softmax_xent", "make_train_step", "GraphedStep", "TrainState", "StateShardings",
            "init_sharded", "gather_state"]
 
 
@@ -133,15 +140,218 @@ def gather_state(state: TrainState, state_shardings: StateShardings) -> tp.Dict[
                     for k, v in state.extra_vars.items()})
 
 
+_GLOBAL_HOOKS = ("_global_forward_hooks", "_global_forward_pre_hooks", "_global_backward_hooks",
+                 "_global_backward_pre_hooks")
+# the spans of a capture that a replay records again, as zero-length spans
+REPLAYED_SPANS = ("dau.unit_grads",)
+
+
+def _on_card(x) -> bool:
+    return x.is_cuda
+
+
+def _frozen(v):
+    """A hashable stand-in for an optimizer hyperparameter: a CUDA tensor by
+    identity and version (a graph reads it where it lies, and an in-place
+    write bumps the version), any other tensor by value."""
+    if torch.is_tensor(v):
+        return (id(v), v._version) if v.is_cuda else tuple(v.reshape(-1).tolist())
+    if isinstance(v, (list, tuple)):
+        return tuple(_frozen(a) for a in v)
+    return v if isinstance(v, collections.abc.Hashable) else repr(v)
+
+
+class GraphedStep:
+    """The one-device training step of `make_train_step`: `step(x, labels)
+    -> loss`, loss detached and a tensor of its own at every call.
+
+    A call runs eager (zero the grads, forward, loss, backward, one
+    `optimizer.step()`) or replays the whole step as one CUDA graph. It
+    replays where all of these hold: `cuda_graph` is on; x is a CUDA tensor;
+    grad mode is on; no module of the model, parameter or optimizer holds a
+    hook, and no global module or optimizer hook is set (a replay runs no
+    Python); its signature, the shapes, dtypes and devices of x and labels,
+    `model.training`, the parameters that require grad and every
+    hyperparameter of the optimizer's `param_groups`, is that of the graph
+    (the graph bakes lr in). The first call that holds them after an eager
+    call of the same signature (which built every lazy state: optimizer
+    slots, the engines' constant tables, the kernel libraries) captures the
+    graph, then replays it. A capture that raises leaves the step eager for
+    that signature, with a warning the first time and the reason in
+    `failures`.
+
+    On replay x and labels are copied into the graph's own buffers; the
+    gradients are the graph's tensors, rewritten in place, and `p.grad`
+    points at them again after an eager call moved it. At most two replays
+    are in flight: a replay first waits for the one two before it
+    (`train.graph_wait`). The kernel wrappers' launch counters advance by
+    what the capture counted (`kernels.advance_launch_counts`).
+
+    `counts`: replays, captures and eager calls by reason: `off`, `cpu`,
+    `no_grad`, `hooks`, `capture_failed`, `first_call` (no graph yet and
+    no eager call of this signature just before), `signature` (the graph
+    is another signature's). Spans: `train.step` with `graph` ('eager',
+    'capture' or 'replay') and, eager, `graph_reason`; eager, its phases as
+    before; on replay `train.graph_wait` and the capture's `dau.unit_grads`
+    spans again, of zero length with `replayed=True` (the capture's own
+    spans are recorded apart, not in the shared store).
+    """
+
+    def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                 loss_fn: tp.Callable = softmax_xent, cuda_graph: bool = True):
+        self.model, self.optimizer, self.loss_fn = model, optimizer, loss_fn
+        self.cuda_graph = cuda_graph
+        self.counts: tp.Counter[str] = collections.Counter()
+        self.failures: tp.Dict[tuple, str] = {}
+        self._graph = self._signature = self._warm = None
+        self._warned = self._moved = False
+
+    def __call__(self, x, labels):
+        with tracing.span("train.step", adopt=True) as sp:
+            reason, sig = self._route(x, labels)
+            mode = "replay"
+            if reason is None and sig != self._signature:
+                mode, reason = "capture", self._capture(x, labels, sig)
+            if reason is not None:
+                if sp:
+                    sp.set(graph="eager", graph_reason=reason)
+                self.counts[reason] += 1
+                return self._eager(x, labels, sig)
+            if sp:
+                sp.set(graph=mode)
+            self.counts[mode + "s"] += 1
+            if mode == "replay":
+                kernels.advance_launch_counts(self._delta)
+            return self._replay(x, labels)
+
+    def _route(self, x, labels):
+        """(why this call runs eager, or None; its signature)."""
+        if not self.cuda_graph:
+            return "off", None
+        if not _on_card(x):
+            return "cpu", None
+        if not torch.is_grad_enabled():
+            return "no_grad", None
+        sig = self._sign(x, labels)
+        if self._hooked():
+            return "hooks", sig
+        if sig in self.failures:
+            return "capture_failed", sig
+        if sig == self._signature or sig == self._warm:
+            return None, sig
+        return ("first_call" if self._graph is None else "signature"), sig
+
+    def _sign(self, x, labels) -> tuple:
+        groups = tuple(tuple(sorted((k, _frozen(v)) for k, v in g.items() if k != "params"))
+                       for g in self.optimizer.param_groups)
+        return (tuple(x.shape), x.dtype, x.device, tuple(labels.shape), labels.dtype,
+                labels.device, self.model.training,
+                tuple(id(p) for p in self.model.parameters() if p.requires_grad), groups)
+
+    def _hooked(self) -> bool:
+        opt = self.optimizer
+        if (any(getattr(_nn_module, name, None) for name in _GLOBAL_HOOKS)
+                or _optim_module._global_optimizer_pre_hooks
+                or _optim_module._global_optimizer_post_hooks
+                or getattr(opt, "_optimizer_step_pre_hooks", None)
+                or getattr(opt, "_optimizer_step_post_hooks", None)):
+            return True
+        for m in self.model.modules():
+            if m._forward_hooks or m._forward_pre_hooks or m._backward_hooks or (
+                    m._backward_pre_hooks):
+                return True
+        return any(p._backward_hooks or getattr(p, "_post_accumulate_grad_hooks", None)
+                   for p in self.model.parameters())
+
+    def _eager(self, x, labels, sig):
+        with tracing.span("train.zero_grad"):
+            self.optimizer.zero_grad(set_to_none=True)
+        with tracing.span("train.forward"):
+            loss = self.loss_fn(self.model(x), labels)
+        with tracing.span("train.backward", adopt=True):
+            loss.backward()
+        with tracing.span("train.optimizer"):
+            self.optimizer.step()
+        self._warm = sig
+        self._moved = self._graph is not None
+        return loss.detach()
+
+    def _capture(self, x, labels, sig) -> tp.Optional[str]:
+        """Capture the step into a new graph for `sig`: None, or the reason
+        the call runs eager after a capture that raised."""
+        self._graph = self._signature = None
+        sx, sl = x.clone(), labels.clone()  # the graph's own inputs
+        graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(x.device)
+        before = kernels.launch_counts()
+        self.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize(x.device)
+        side.wait_stream(torch.cuda.current_stream(x.device))
+        try:
+            with tracing.diverted() as held, torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    loss = self.loss_fn(self.model(sx), sl)
+                    loss.backward()
+                    self.optimizer.step()
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+        except Exception as e:  # noqa: BLE001 - the step runs eager instead
+            kernels.advance_launch_counts(
+                {k: v - kernels.launch_counts([k])[k] for k, v in before.items()})
+            self.optimizer.zero_grad(set_to_none=True)
+            self.failures[sig] = f"{type(e).__name__}: {e}"
+            if not self._warned:
+                self._warned = True
+                warnings.warn(f"the train step's CUDA graph capture failed, so it runs eager "
+                              f"at this signature: {self.failures[sig]}", RuntimeWarning)
+            return "capture_failed"
+        torch.cuda.current_stream(x.device).wait_stream(side)
+        now = kernels.launch_counts()
+        self._delta = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+        self._graph, self._signature, self._sx, self._sl = graph, sig, sx, sl
+        self._loss = loss.detach()
+        self._grads = [(p, p.grad) for p in self.model.parameters()]
+        self._replayed = [(s.name, dict(s.attrs, replayed=True)) for s in held
+                          if s.name in REPLAYED_SPANS]
+        self._ring, self._launched = (torch.cuda.Event(), torch.cuda.Event()), 0
+        self._moved = False
+        return None
+
+    def _replay(self, x, labels):
+        done = self._ring[self._launched % 2]
+        with tracing.span("train.graph_wait"):
+            done.synchronize()  # the replay two before this one has finished
+        self._sx.copy_(x)
+        self._sl.copy_(labels)
+        self._graph.replay()
+        loss = self._loss.clone()
+        done.record()
+        self._launched += 1
+        if self._moved:
+            for p, g in self._grads:
+                p.grad = g
+            self._moved = False
+        if tracing.recording():
+            for name, attrs in self._replayed:
+                tracing.emit(name, **attrs)
+        return loss
+
+
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     mesh: tp.Optional[DeviceMesh] = None,
                     state_shardings: tp.Optional[StateShardings] = None,
-                    loss_fn: tp.Callable = softmax_xent):
+                    loss_fn: tp.Callable = softmax_xent, cuda_graph: bool = True):
     """The training step.
 
     Without a mesh, on one device: `step(x, labels) -> loss`; zero the
     grads, forward, loss, backward and one `optimizer.step()`. The loss
-    comes back detached.
+    comes back detached. On a CUDA device the step captures itself as one
+    CUDA graph after an eager call and replays it while nothing it can see
+    changes (`GraphedStep`); `cuda_graph=False` keeps every call eager, for
+    callers that watch each launch through Python.
 
     With a mesh and the `state_shardings` of `init_sharded` (whose model
     it checks is the one sharded): `step(state, x, labels) -> (state,
@@ -150,11 +360,13 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     sharding=)` yields them); the gradients are averaged over the data
     axis before `optimizer.step()`, so every data replica takes the update
     of the global batch's mean loss, which comes back replicated. The
-    model axis's sums are in the layers themselves.
+    model axis's sums are in the layers themselves. This step stays eager:
+    its all-reduces run through gloo, which a CUDA graph cannot capture.
 
     Either step records its spans (`utils.tracing`): `train.step` over
     `train.zero_grad`, `train.forward` (model and loss), `train.backward`,
-    `train.allreduce` (sharded, with a data axis) and `train.optimizer`.
+    `train.allreduce` (sharded, with a data axis) and `train.optimizer`
+    (a replay: `GraphedStep`).
     Each DAU layer of the model is named for its own spans by its name in
     `model.named_modules()`.
     """
@@ -162,19 +374,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         if hasattr(type(module), "trace_name"):
             module.trace_name = name
     if mesh is None:
-        def step(x, labels):
-            with tracing.span("train.step", adopt=True):
-                with tracing.span("train.zero_grad"):
-                    optimizer.zero_grad(set_to_none=True)
-                with tracing.span("train.forward"):
-                    loss = loss_fn(model(x), labels)
-                with tracing.span("train.backward", adopt=True):
-                    loss.backward()
-                with tracing.span("train.optimizer"):
-                    optimizer.step()
-            return loss.detach()
-
-        return step
+        return GraphedStep(model, optimizer, loss_fn, cuda_graph)
 
     if state_shardings is None:
         raise ValueError("a sharded step needs the state_shardings of init_sharded")

@@ -29,7 +29,11 @@ device events in: each span is stamped by `time.perf_counter_ns()` and
 shifted by one anchor pair (`time.time_ns()`, `time.perf_counter_ns()`)
 taken when recording starts. So a device trace's idle gap can be put down
 to the span that was open on the host at the time. Closed spans are kept in
-memory, the newest `CAPACITY`; `dropped()` counts the oldest let go.
+memory, the newest `CAPACITY`; `dropped()` counts the oldest let go. Inside
+`diverted()` they go to a list of the block's own instead (the spans of a
+CUDA graph's capture, which no step of the store should count), and
+`emit` records a span of zero length for work the host no longer runs
+(the layers of a replayed graph).
 """
 
 from __future__ import annotations
@@ -44,8 +48,8 @@ import typing as tp
 import torch
 from torch.autograd import profiler as _profiler
 
-__all__ = ["CAPACITY", "Span", "span", "record", "enclosing", "spans", "clear", "dropped",
-           "summary"]
+__all__ = ["CAPACITY", "Span", "span", "record", "recording", "diverted", "emit", "enclosing",
+           "spans", "clear", "dropped", "summary"]
 
 CAPACITY = 1 << 17
 
@@ -53,6 +57,7 @@ _depth = 0  # open record() blocks
 _offset: tp.Optional[int] = None  # time_ns() - perf_counter_ns() of the anchor pair
 _lock = threading.Lock()
 _store: tp.Deque["Span"] = collections.deque(maxlen=CAPACITY)
+_sink: tp.Optional[tp.List["Span"]] = None  # diverted(): where closed spans go instead
 _dropped = 0
 _ids = itertools.count(1)
 _local = threading.local()  # .stack: this thread's open spans
@@ -123,14 +128,20 @@ class _Open:
         if self.adopt:
             _adopters.remove(self)
         offset = _anchor()
-        done = Span(self.name, self.id, self.parent, threading.get_native_id(),
-                    self.t0 + offset, t1 + offset, self.attrs)
-        global _dropped
-        with _lock:
-            if len(_store) == _store.maxlen:
-                _dropped += 1
-            _store.append(done)
+        _keep(Span(self.name, self.id, self.parent, threading.get_native_id(),
+                   self.t0 + offset, t1 + offset, self.attrs))
         return False
+
+
+def _keep(done: Span) -> None:
+    global _dropped
+    with _lock:
+        if _sink is not None:
+            _sink.append(done)
+            return
+        if len(_store) == _store.maxlen:
+            _dropped += 1
+        _store.append(done)
 
 
 def _adopter() -> tp.Optional[int]:
@@ -156,6 +167,11 @@ def _anchor() -> int:
     return _offset
 
 
+def recording() -> bool:
+    """Whether spans are recorded here and now."""
+    return bool(_depth or _profiler._is_profiler_enabled) and not torch.compiler.is_compiling()
+
+
 def span(name: str, adopt: bool = False, root: bool = False):
     """A span named `name` around the `with` block, recorded where
     recording is on, else the shared no-op. `adopt`: spans of threads with
@@ -164,6 +180,17 @@ def span(name: str, adopt: bool = False, root: bool = False):
     if not (_depth or _profiler._is_profiler_enabled) or torch.compiler.is_compiling():
         return _OFF
     return _Open(name, adopt, root)
+
+
+def emit(name: str, **attrs) -> None:
+    """Record a span of zero length named `name` with `attrs`, closed now
+    under this thread's innermost open span, where recording is on."""
+    if not recording():
+        return
+    stack = _stack()
+    t = time.perf_counter_ns() + _anchor()
+    _keep(Span(name, next(_ids), stack[-1].id if stack else _adopter(),
+               threading.get_native_id(), t, t, attrs))
 
 
 @contextlib.contextmanager
@@ -179,6 +206,22 @@ def record():
     finally:
         with _lock:
             _depth -= 1
+
+
+@contextlib.contextmanager
+def diverted():
+    """Record spans inside the block, every thread's, into the list it
+    yields, and none into the shared store."""
+    global _sink
+    held: tp.List[Span] = []
+    with record():
+        with _lock:
+            outer, _sink = _sink, held
+        try:
+            yield held
+        finally:
+            with _lock:
+                _sink = outer
 
 
 def enclosing(key: str) -> tp.Any:

@@ -1475,3 +1475,175 @@ def test_p9_chunked_dot_equals_the_whole_one(cuda_device):
     torch.cuda.synchronize()
     assert tsp.partial_idft.launches == before + 4
     assert torch.equal(chunked, whole)
+
+
+# the one-device train step replayed as a CUDA graph (parallel/train.py)
+
+def _graph_model(kind, dev):
+    from dau_convnet_tpu_torch.models import AlexNetDAU, DAUResNet
+    gen = torch.Generator().manual_seed(0)
+    if kind == "alexnet":
+        return AlexNetDAU(variant="default", image_size=227, dtype=torch.bfloat16, device=dev,
+                          generator=gen)
+    if kind == "resnet18":
+        return DAUResNet(dtype=torch.bfloat16, device=dev, generator=gen)
+    torch.manual_seed(0)
+    return torch.nn.Sequential(
+        DAUConv2d(3, 16, (2, 1), 9, engine="fourier", device=dev, generator=gen),
+        torch.nn.ReLU(), DAUConv2d(16, 16, (2, 1), 9, engine="fourier", device=dev, generator=gen),
+        torch.nn.Flatten(), torch.nn.Linear(16 * 13 * 13, 10, device=dev))
+
+
+# (batch, side, classes) of the graphed-step cases
+_GRAPH_CASES = {"alexnet": (8, 227, 1000), "resnet18": (4, 224, 1000), "tiny": (4, 13, 10)}
+
+
+def _graph_batches(kind, dev, steps, n=None):
+    n0, side, classes = _GRAPH_CASES[kind]
+    g = torch.Generator().manual_seed(7)
+    return [(torch.rand((n or n0, 3, side, side), generator=g).to(dev) * 2 - 1,
+             torch.randint(0, classes, (n or n0,), generator=g).to(dev)) for _ in range(steps)]
+
+
+def _graph_run(kind, dev, batches, cuda_graph, opt=None, lrs=None):
+    """(losses, final parameters, their last gradients, BatchNorm statistics,
+    the step) of SGD steps from the seed's weights."""
+    from dau_convnet_tpu_torch.parallel.train import make_train_step
+    model = _graph_model(kind, dev)
+    optimizer = (opt or (lambda ps: torch.optim.SGD(ps, lr=1e-3)))(model.parameters())
+    step = make_train_step(model, optimizer, cuda_graph=cuda_graph)
+    losses = []
+    for i, (x, y) in enumerate(batches):
+        if lrs is not None:
+            optimizer.param_groups[0]["lr"] = lrs[i]
+        losses.append(step(x, y))
+    torch.cuda.synchronize()
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    return torch.stack(losses), state, grads, step
+
+
+def _held_like_eager(a, b, c):
+    """c (graphed) against a (eager): bit for bit where a second eager run
+    b is, else within b's distance from a."""
+    for key in a:
+        ref, twin, got = a[key].float(), b[key].float(), c[key].float()
+        if torch.equal(ref, twin):
+            assert torch.equal(ref, got), key
+        else:
+            assert float((got - ref).abs().max()) <= float((twin - ref).abs().max()), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["alexnet", "resnet18"])
+def test_graphed_steps_match_eager_steps(cuda_device, kind):
+    """4 SGD steps from the same weights and batches, eager twice and
+    graphed (the first call eager, the second captures and replays, then
+    replays): losses, parameters, gradients and BatchNorm statistics."""
+    batches = _graph_batches(kind, cuda_device, 4)
+    a = _graph_run(kind, cuda_device, batches, False)
+    b = _graph_run(kind, cuda_device, batches, False)
+    c = _graph_run(kind, cuda_device, batches, True)
+    assert dict(c[3].counts) == {"first_call": 1, "captures": 1, "replays": 2}
+    assert dict(a[3].counts) == {"off": 4}
+    _held_like_eager({"loss": a[0]}, {"loss": b[0]}, {"loss": c[0]})
+    _held_like_eager(a[1], b[1], c[1])
+    assert set(a[2]) == set(c[2])
+    _held_like_eager(a[2], b[2], c[2])
+
+
+@pytest.mark.cuda
+def test_a_hooked_call_runs_eager_and_the_next_replays(cuda_device):
+    from dau_convnet_tpu_torch.parallel.train import make_train_step
+    model = _graph_model("tiny", cuda_device)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    (x, y), = _graph_batches("tiny", cuda_device, 1)
+    seen = []
+    for i in range(5):
+        hook = model[2].register_forward_hook(lambda *a: seen.append(1)) if i == 3 else None
+        step(x, y)
+        if hook is not None:
+            hook.remove()
+    assert len(seen) == 1
+    assert dict(step.counts) == {"first_call": 1, "captures": 1, "replays": 2, "hooks": 1}
+
+
+@pytest.mark.cuda
+def test_a_changed_lr_is_applied_not_replayed(cuda_device):
+    lrs = [1e-2, 1e-2, 1e-2, 5e-3, 5e-3, 5e-3, 5e-3]
+    batches = _graph_batches("tiny", cuda_device, len(lrs))
+    a = _graph_run("tiny", cuda_device, batches, False, lrs=lrs)
+    b = _graph_run("tiny", cuda_device, batches, False, lrs=lrs)
+    c = _graph_run("tiny", cuda_device, batches, True, lrs=lrs)
+    assert dict(c[3].counts) == {"first_call": 1, "captures": 2, "replays": 3, "signature": 1}
+    _held_like_eager({"loss": a[0]}, {"loss": b[0]}, {"loss": c[0]})
+    _held_like_eager(a[1], b[1], c[1])
+    # the replays after the change did not take the old lr
+    d = _graph_run("tiny", cuda_device, batches, False, lrs=lrs[:3] + [1e-2] * 4)
+    assert not torch.equal(d[1]["4.weight"], c[1]["4.weight"])
+
+
+@pytest.mark.cuda
+def test_a_batch_of_another_shape_does_not_replay_the_graph(cuda_device):
+    batches = _graph_batches("tiny", cuda_device, 3) + _graph_batches("tiny", cuda_device, 1, n=2)
+    a = _graph_run("tiny", cuda_device, batches, False)
+    b = _graph_run("tiny", cuda_device, batches, False)
+    c = _graph_run("tiny", cuda_device, batches, True)
+    assert dict(c[3].counts) == {"first_call": 1, "captures": 1, "replays": 1, "signature": 1}
+    _held_like_eager({"loss": a[0]}, {"loss": b[0]}, {"loss": c[0]})
+    _held_like_eager(a[1], b[1], c[1])
+
+
+@pytest.mark.cuda
+def test_a_non_capturable_optimizer_falls_back_with_its_reason(cuda_device):
+    batches = _graph_batches("tiny", cuda_device, 4)
+    adam = lambda ps: torch.optim.Adam(ps, lr=1e-3, capturable=False)  # noqa: E731
+    a = _graph_run("tiny", cuda_device, batches, False, opt=adam)
+    b = _graph_run("tiny", cuda_device, batches, False, opt=adam)
+    with pytest.warns(RuntimeWarning, match="capture failed"):
+        c = _graph_run("tiny", cuda_device, batches, True, opt=adam)
+    assert dict(c[3].counts) == {"first_call": 1, "capture_failed": 3}
+    (reason,) = c[3].failures.values()
+    assert "capturable" in reason
+    _held_like_eager({"loss": a[0]}, {"loss": b[0]}, {"loss": c[0]})
+    _held_like_eager(a[1], b[1], c[1])
+
+
+@pytest.mark.cuda
+def test_a_replay_counts_the_launches_of_an_eager_step_and_returns_its_own_loss(cuda_device):
+    from dau_convnet_tpu_torch.parallel.train import make_train_step
+    model = _graph_model("tiny", cuda_device)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    deltas, losses = [], []
+    for x, y in _graph_batches("tiny", cuda_device, 4):
+        before = tfb.fused_spectral_grads.launches_k1
+        losses.append(step(x, y))
+        torch.cuda.synchronize()
+        deltas.append(tfb.fused_spectral_grads.launches_k1 - before)
+    assert dict(step.counts) == {"first_call": 1, "captures": 1, "replays": 2}
+    assert deltas == [2, 2, 2, 2]  # both DAU layers on K1
+    assert len({t.data_ptr() for t in losses}) == 4
+    assert len({float(t) for t in losses}) == 4
+
+
+@pytest.mark.cuda
+def test_no_more_than_two_replays_are_in_flight(cuda_device):
+    """Right after call i returns, the replay of call i - 2 has finished:
+    the host cannot run ahead of the card by more than two steps."""
+    from dau_convnet_tpu_torch.parallel.train import make_train_step
+    model = _graph_model("alexnet", cuda_device)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-4))
+    (x, y), = _graph_batches("alexnet", cuda_device, 1, n=64)
+    step(x, y)
+    step(x, y)
+    torch.cuda.synchronize()
+    marks = []
+    for i in range(12):
+        step(x, y)
+        marks.append(torch.cuda.Event())
+        marks[-1].record()
+        if i >= 2:
+            assert marks[i - 2].query(), i
+    assert not marks[-1].query()  # the host is ahead of the card
+    assert step.counts["replays"] == 12
